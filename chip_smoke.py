@@ -1,0 +1,333 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch + CUDA port (isph_tpu_torch) on one NVIDIA GPU.
+
+Run from the repository root, on a machine with a CUDA card and nvcc:
+
+    python3 chip_smoke.py
+
+Phases (each raises on failure; the script then exits non-zero):
+
+1. device: require a CUDA device, turn TF32 off for matmuls and cuDNN;
+2. build: compile the hand-written kernels (isph_tpu_torch/csrc/*.cu) for
+   sm_90a and print the build time and the compiler's register report;
+3. kernels: on the pressure-Poisson matrix of the 256^2 Taylor-Green lattice
+   (65,536 particles, K = 32, ~1.79M nonzeros), hold the ELL SpMV kernel
+   (C = 1, 2, 3 in f32 and f64) and the take kernel (f32, int32, bool)
+   against their plain PyTorch versions, and time both with CUDA events;
+4. main path: three 256^2 Taylor-Green projection steps in f32 with
+   Jacobi through Simulation.run, one step per call so that each step is
+   timed (the same steps as run(state, 3)), with the launch counters reset
+   just before and read just after; checks overflow, finiteness, volume,
+   the decaying vmax, and that both kernels ran;
+5. golden: the reference's TGV-16 table in f32 through the kernels, within
+   2% (the bar tests/test_f32.py holds the JAX package to).
+
+The last lines are the card's name and power limit from nvidia-smi, one
+JSON line describing the kernels, and the result line
+{"ok": true, "device": {...}}.  Without a CUDA device it prints no result
+and exits non-zero.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import re
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+
+def _log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def _smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def _median_ms(fn, reps: int = 30, flush: torch.Tensor | None = None):
+    """(median device ms, host us) of one call.  CUDA events bracket each
+    call; a sleep kernel holds the stream first, so the host queues every
+    call before the device runs any and the events time the device alone,
+    not the Python wrapper.  Host us is the enqueue cost of one call.  With
+    ``flush`` the 50 MB L2 is overwritten before every call (cold caller)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)  # ~50 ms at the H100's clocks
+    marks = []
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        marks.append((s, e))
+    host_us = 1e6 * (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in marks), host_us
+
+
+def _tgv256(dev):
+    from isph_tpu_torch.models import tgv
+    from isph_tpu_torch.ops.neighbors import lattice_cell_capacity
+
+    n_lat = 256
+    sim0, _ = tgv.make_tgv(n_lat, dtype=torch.float32)
+    cap = lattice_cell_capacity(sim0.domain, sim0.cfg.cut, 2 * math.pi / n_lat)
+    sim, state = tgv.make_tgv(n_lat, dtype=torch.float32, max_neighbors=32,
+                              pad_multiple=128, cell_capacity=cap, device=dev)
+    cfg = sim.cfg.replace(solver=dataclasses.replace(sim.cfg.solver, precond="jacobi"))
+    return dataclasses.replace(sim, cfg=cfg), state
+
+
+def phase_kernels(dev, flush):
+    """Kernels against their plain versions on the TGV-256 Poisson matrix."""
+    from isph_tpu_torch.ops import corrected as ops
+    from isph_tpu_torch.ops import spmv_cuda as sc
+    from isph_tpu_torch.state import Kind
+
+    sim, state = _tgv256(dev)
+    nbrs = sim.neighbors(state)
+    if int(nbrs.overflow) != 0:
+        raise RuntimeError(f"neighbor overflow {int(nbrs.overflow)} at TGV-256")
+    geom = sim.geometry(state, nbrs)
+    pre = sim.precompute(state, geom)
+    A = ops.laplacian_matrix(
+        geom, pre.vfrac, pre.Gc, pre.Lc, state.kind, alpha=-sim.cfg.dt,
+        material=1.0 / state.rho, filt=ops.PairFilter(Kind.FLUID, Kind.FLUID),
+        family=ops.SYMMETRIC)
+    K, n = A.vals.shape
+    nnz = int(A.mask.sum().item()) + n
+    _log(f"kernels: TGV-256 Poisson matrix N={n} K={K} nnz={nnz}")
+    rng = np.random.default_rng(0)
+
+    # --- SpMV: f32 and f64, C = 1, 2, 3 -----------------------------------
+    # bound: y_k - y_p is a difference of two summation orders (and FMA
+    # contraction) of the row's terms, so it is held relative to the sum of
+    # the terms' magnitudes: f32 rtol 1e-5 (~K eps), f64 rtol 1e-12
+    spmv_err = 0.0
+    spmv_ms = {}
+    for dtype, rtol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        diag, vals = A.diag.to(dtype), A.vals.to(dtype)
+        for ncomp in (1, 2, 3):
+            shape = (n,) if ncomp == 1 else (ncomp, n)
+            x = torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=dev)
+            yk = sc.ell_spmv(diag, vals, A.idx, x)
+            yp = sc.spmv_plain(diag, vals, A.idx, x)
+            torch.cuda.synchronize()
+            terms = (diag * x).abs() + (vals.abs() * x[..., A.idx].abs()).sum(-2)
+            rel = float(((yk - yp).abs() / terms).max())
+            abs_err = float((yk - yp).abs().max())
+            spmv_err = max(spmv_err, abs_err)
+            ok = rel <= rtol and bool(torch.isfinite(yk).all())
+            tk, hk = _median_ms(lambda: sc.ell_spmv(diag, vals, A.idx, x))
+            tp, hp = _median_ms(lambda: sc.spmv_plain(diag, vals, A.idx, x))
+            tkc, _ = _median_ms(lambda: sc.ell_spmv(diag, vals, A.idx, x), flush=flush)
+            spmv_ms[(dtype, ncomp)] = (tk, tp)
+            _log(f"kernels: spmv {str(dtype)[6:]} C={ncomp}: max_abs_err={abs_err:.3e} "
+                 f"rel_to_terms={rel:.3e} (rtol {rtol:.0e}) kernel={tk:.4f} ms "
+                 f"(L2 flushed {tkc:.4f} ms, {ncomp * nnz / tk / 1e6:.2f} Gnnz/s) "
+                 f"plain={tp:.4f} ms; host enqueue kernel={hk:.1f} us plain={hp:.1f} us")
+            if not ok:
+                raise RuntimeError(f"spmv kernel disagrees with plain ({dtype}, C={ncomp})")
+
+    # --- take: f32 (N,) and (D, N), int32, bool ------------------------------
+    fields = {
+        "f32 (N,)": torch.as_tensor(rng.standard_normal(n), dtype=torch.float32, device=dev),
+        "f32 (D,N)": state.x.contiguous(),
+        "int32 kind": state.kind,
+        "bool": torch.as_tensor(rng.random(n) < 0.5, device=dev),
+    }
+    take_ms = {}
+    for name, f in fields.items():
+        gk = sc.take(f, A.idx)
+        gp = sc.take_plain(f, A.idx)
+        torch.cuda.synchronize()
+        if gk.dtype != f.dtype or not torch.equal(gk, gp):
+            raise RuntimeError(f"take kernel disagrees with plain ({name})")
+        tk, hk = _median_ms(lambda: sc.take(f, A.idx))
+        tp, hp = _median_ms(lambda: sc.take_plain(f, A.idx))
+        tkc, _ = _median_ms(lambda: sc.take(f, A.idx), flush=flush)
+        take_ms[name] = (tk, tp)
+        _log(f"kernels: take {name}: exact, kernel={tk:.4f} ms (L2 flushed {tkc:.4f} ms) "
+             f"plain={tp:.4f} ms; host enqueue kernel={hk:.1f} us plain={hp:.1f} us")
+    return dict(spmv_err=spmv_err, spmv_ms=spmv_ms[(torch.float32, 1)],
+                take_ms=take_ms["f32 (N,)"])
+
+
+def phase_main_path(dev):
+    """Three 256^2 f32 Jacobi projection steps through Simulation.run, one
+    call per step (run(state, 3) in three timed pieces)."""
+    from isph_tpu_torch.models import tgv
+    from isph_tpu_torch.ops import spmv_cuda as sc
+
+    sim, state = _tgv256(dev)
+    sc.ell_spmv.launches = 0
+    sc.take.launches = 0
+    step_s = []
+    for k in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, aux = sim.run(state, 1)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        _log(f"main: step {k + 1}: {step_s[-1]:.4f} s helmholtz_iters="
+             f"{int(aux.helmholtz_iters)} poisson_iters={int(aux.poisson_iters)} "
+             f"poisson_relres={float(aux.poisson_relres):.3e} "
+             f"overflow={int(aux.neighbor_overflow)}")
+        if int(aux.neighbor_overflow) != 0:
+            raise RuntimeError("neighbor overflow on the main path")
+    launches = {"ell_spmv": sc.ell_spmv.launches, "take": sc.take.launches}
+    _log(f"main: launches {launches}")
+    if min(launches.values()) <= 0:
+        raise RuntimeError(f"a kernel of the main path never launched: {launches}")
+
+    st = aux.status
+    if not all(bool(torch.isfinite(t).all()) for t in st):
+        raise RuntimeError(f"non-finite status {st}")
+    t = float(st.time)
+    vmax_exact = 0.1 * math.exp(-2.0 * 0.1 * t)
+    vol = float(st.volume)
+    _log(f"main: t={t:.5f} volume={vol:.6f} (exact {(2 * math.pi) ** 2:.6f}) "
+         f"vmax={float(st.vmax):.6f} (exact {vmax_exact:.6f})")
+    if abs(vol / (2 * math.pi) ** 2 - 1.0) > 1e-2:
+        raise RuntimeError("volume off by more than 1%")
+    if abs(float(st.vmax) / vmax_exact - 1.0) > 5e-2:
+        raise RuntimeError("vmax off the decaying vortex by more than 5%")
+    err = tgv.compute_error(state.replace(vstar=state.v), t)
+    _log(f"main: L2 error vs exact: pressure={float(err.pressure_l2):.4e} "
+         f"velocity={float(err.velocity_l2):.4e}")
+    step_med = statistics.median(step_s[1:])
+    _log(f"main: step time (median of steps 2-3) {step_med:.4f} s, "
+         f"{state.n / step_med:.0f} particle-steps/s; peak memory "
+         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    _breakdown(sim, state)
+    return launches
+
+
+def _breakdown(sim, state):
+    """One more step, phase by phase with a synchronize after each (host
+    clock; adds the syncs' cost, so it is a breakdown, not a step time)."""
+    from isph_tpu_torch.physics import ns_projection as ns
+
+    marks = []
+
+    def mark(name):
+        torch.cuda.synchronize()
+        marks.append((name, time.perf_counter()))
+
+    mark("start")
+    nbrs = sim.neighbors(state)
+    mark("neighbors")
+    geom = sim.geometry(state, nbrs)
+    mark("geometry")
+    pre = sim.precompute(state, geom)
+    mark("compute_pre")
+    state = state.replace(f=torch.zeros_like(state.v))
+    vstar, hinfo = ns.solve_helmholtz(state, geom, pre, sim.cfg)
+    mark("helmholtz")
+    dp, pinfo = ns.solve_poisson(state, geom, pre, sim.cfg, vstar)
+    mark("poisson")
+    dp = ns.zero_mean_pressure(dp, state)
+    vstar = ns.correct_velocity(state, geom, pre, sim.cfg, vstar, dp)
+    state = state.replace(vstar=vstar, dp=dp, p=ns.correct_pressure(state, sim.cfg, dp))
+    ns.advance_time(state, geom, pre, sim.cfg, sim.domain)
+    mark("correct+advance")
+    parts = ", ".join(f"{b[0]}={1e3 * (b[1] - a[1]):.2f} ms" for a, b in zip(marks, marks[1:]))
+    _log(f"breakdown: {parts}; helmholtz_iters={int(hinfo.iters.sum())} "
+         f"poisson_iters={int(pinfo.iters)}")
+
+
+def phase_golden(dev):
+    """tests/test_f32.py's TGV-16 harness through the port on the card."""
+    from isph_tpu_torch.models import tgv
+    from isph_tpu_torch.physics import ns_projection as ns
+
+    gp, gv, nsteps = 8.466849370245e-04, 7.500246669496e-04, 3
+    sim, state = tgv.make_tgv(16, dtype=torch.float32, device=dev)
+    for step in range(1, nsteps + 1):
+        nbrs = sim.neighbors(state)
+        geom = sim.geometry(state, nbrs)
+        pre = sim.precompute(state, geom)
+        state, info = ns.navier_stokes_step(state, geom, pre, sim.cfg)
+        if step < nsteps:
+            state = ns.advance_time(state, geom, pre, sim.cfg, sim.domain)
+    err = tgv.compute_error(state, sim.cfg.dt * nsteps)
+    pe = float(err.pressure_l2) / gp - 1.0
+    ve = float(err.velocity_l2) / gv - 1.0
+    relres = float(info.poisson.relres)
+    _log(f"golden: TGV-16 f32 pressure_l2={float(err.pressure_l2):.6e} ({pe:+.4%}) "
+         f"velocity_l2={float(err.velocity_l2):.6e} ({ve:+.4%}) relres={relres:.2e}")
+    if abs(pe) > 2e-2 or abs(ve) > 2e-2 or not relres < 5e-5:
+        raise RuntimeError("TGV-16 f32 golden off by more than 2%")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs a "
+              "CUDA device", file=sys.stderr)
+        return 2
+    from isph_tpu_torch import _build
+
+    # phase 1: device
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
+    smi = _smi()
+    _log(f"device: {kind}; nvidia-smi: {smi}; torch {torch.__version__} "
+         f"cuda {torch.version.cuda}; python {sys.version.split()[0]}")
+
+    # phase 2: build
+    t0 = time.perf_counter()
+    lib_path = _build.build()
+    _build.load_library()
+    _log(f"build: {time.perf_counter() - t0:.2f} s -> {lib_path.name}")
+    log_file = lib_path.with_suffix(".log")
+    if log_file.exists():
+        report = log_file.read_text()
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
+        spills = [ln.strip() for ln in report.splitlines()
+                  if "spill" in ln and not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", ln)]
+        _log(f"build: {len(regs)} kernel instantiations, registers {min(regs)}-{max(regs)}, "
+             f"spills: {spills or 'none'}")
+
+    # phase 3: kernels against their plain versions (L2-sized flush buffer)
+    flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
+    k = phase_kernels(dev, flush)
+    del flush
+
+    # phase 4: main path; phase 5: golden
+    launches = phase_main_path(dev)
+    phase_golden(dev)
+
+    kernels = [
+        dict(name="ell_spmv", route="cuda", source="isph_tpu_torch/csrc/spmv.cu",
+             replaces="isph_tpu/ops/spmv_pallas.py:298", launches=launches["ell_spmv"],
+             max_abs_err=k["spmv_err"], ms=k["spmv_ms"][0], plain_ms=k["spmv_ms"][1]),
+        dict(name="take", route="cuda", source="isph_tpu_torch/csrc/take.cu",
+             replaces="isph_tpu/ops/spmv_pallas.py:332", launches=launches["take"],
+             max_abs_err=0.0, ms=k["take_ms"][0], plain_ms=k["take_ms"][1]),
+    ]
+    print(_smi(), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,82 @@
+"""Build and load the hand-written CUDA kernels at first use.
+
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared library
+with a plain C interface, loaded with ctypes.  The library lands in
+``build/isph_tpu_torch/`` at the repository root under a name keyed on a
+hash of the sources and flags, so an edited source rebuilds and an
+unchanged one loads the existing file.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "isph_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def _find_nvcc() -> Optional[str]:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    return str(default) if default.exists() else None
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sources():
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"libisph_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless a library of the same sources exists.
+    The compiler's report (ptxas registers and spills) is kept beside the
+    library as ``.log``.  Raises when ``nvcc`` is missing or fails."""
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = _find_nvcc()
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found (PATH or /usr/local/cuda/bin): cannot build the "
+            f"CUDA kernels in {CSRC}")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build if needed, load, and declare every entry point's C signature
+    (each pointer and the stream as ``c_void_p``, so none is cut to 32 bits)."""
+    lib = ctypes.CDLL(str(build()))
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.isph_ell_spmv.argtypes = [i32, vp, vp, vp, vp, vp, i32, i64, i32, i32, vp]
+    lib.isph_ell_spmv.restype = i32
+    lib.isph_take.argtypes = [i32, vp, vp, vp, i32, i32, i64, i64, i32, vp]
+    lib.isph_take.restype = i32
+    return lib

@@ -1,0 +1,80 @@
+"""Carry configurations and particle states across from the JAX package.
+
+Neither function imports jax: the caller converts JAX arrays to numpy
+(``np.asarray``) and configs to dicts (``dataclasses.asdict``) first.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from isph_tpu_torch import config as C
+from isph_tpu_torch.state import ParticleState
+
+# NeighborConfig fields that size the TPU gather plan; CUDA gathers directly
+# from the neighbor index array, so the port has no plan to size
+_TPU_PLAN_FIELDS = ("gather_chunks", "stream_window", "stream_subcap")
+
+_INT_FIELDS = {"kind": torch.int32, "step": torch.int32}
+_BOOL_FIELDS = {"valid"}
+
+
+def state_from_numpy(fields: Mapping[str, np.ndarray], device, dtype: torch.dtype) -> ParticleState:
+    """Port state from a JAX state's non-None fields as numpy arrays
+    (same names, same layouts).  Floating fields are cast to ``dtype``;
+    ``kind``/``step`` stay int32 and ``valid`` bool.  A field the port does
+    not carry raises: it belongs to a feature that is not ported yet."""
+    names = {f.name for f in dataclasses.fields(ParticleState)}
+    extra = sorted(set(fields) - names)
+    if extra:
+        raise NotImplementedError(f"state fields not ported: {extra}")
+    kw = {}
+    for name, arr in fields.items():
+        if arr is None:
+            continue
+        arr = np.array(arr)  # a copy: never alias the caller's buffers
+        if name in _INT_FIELDS:
+            t = torch.as_tensor(arr, dtype=_INT_FIELDS[name], device=device)
+        elif name in _BOOL_FIELDS:
+            t = torch.as_tensor(arr.astype(bool), device=device)
+        else:
+            t = torch.as_tensor(arr, dtype=dtype, device=device)
+        kw[name] = t
+    return ParticleState(**kw)
+
+
+def config_from_dict(d: Mapping) -> C.SimulationConfig:
+    """Port config from ``dataclasses.asdict`` of a JAX ``SimulationConfig``.
+    The three TPU gather-plan fields of ``neighbor`` are dropped."""
+    sub = {
+        "kernel": C.KernelConfig, "ns": C.NavierStokesConfig,
+        "pb": C.PoissonBoltzmannConfig, "ae": C.AppliedElectricFieldConfig,
+        "st": C.SurfaceTensionConfig, "tr": C.SoluteTransportConfig,
+        "rs": C.RandomStressConfig, "shift": C.ShiftConfig,
+        "solver": C.SolverConfig, "newton": C.NewtonConfig,
+        "neighbor": C.NeighborConfig, "mls": C.MLSConfig,
+    }
+    kw = dict(d)
+    for name, cls in sub.items():
+        if name not in kw:
+            continue
+        fields = dict(kw[name])
+        if name == "neighbor":
+            for f in _TPU_PLAN_FIELDS:
+                fields.pop(f, None)
+        kw[name] = cls(**fields)
+    kernel, ns = kw.get("kernel"), kw.get("ns")
+    if kernel is not None:
+        kw["kernel"] = dataclasses.replace(kernel, type=C.KernelType(kernel.type))
+    if ns is not None:
+        kw["ns"] = dataclasses.replace(
+            ns,
+            singular_poisson=C.SingularPoisson(ns.singular_poisson),
+            boundary=C.BoundaryCond(ns.boundary),
+            g=tuple(ns.g),
+        )
+    return C.SimulationConfig(**kw)

@@ -1,0 +1,67 @@
+"""ELL-format sparse matrices aligned with the padded neighbor list
+(PyTorch port of ``isph_tpu/ops/ell.py``).
+
+Every row of the SPH operator matrices has exactly the row's neighbors
+(+ self) as its sparsity pattern, so the padded neighbor list (K, N) is the
+graph: values live in a (K, N) tensor aligned with ``idx``, the diagonal is
+separate.  Assembly is scatter-free elementwise arithmetic; SpMV is one
+gather + reduction, which on CUDA tensors is the hand-written kernel
+(``ops/spmv_cuda.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from isph_tpu_torch.ops.spmv_cuda import ell_spmv
+
+
+@dataclasses.dataclass
+class ELL:
+    """y = A x with A_ii = diag[i], A_{i, idx[k,i]} += vals[k,i] * mask[k,i]."""
+
+    diag: torch.Tensor  # (N,)
+    vals: torch.Tensor  # (K, N)
+    idx: torch.Tensor  # (K, N) int32
+    mask: torch.Tensor  # (K, N) float 0/1
+
+    @property
+    def n(self) -> int:
+        return self.diag.shape[0]
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (N,) -> (N,); or (d, N) multivector -> (d, N) in one kernel
+        launch (the vals/idx stream is shared by the components).
+
+        INVARIANT: ``vals`` holds exact zeros on masked slots — every
+        constructor multiplies by the pair mask at assembly."""
+        return ell_spmv(self.diag, self.vals, self.idx, x)
+
+    def left_scale(self, s: torch.Tensor) -> "ELL":
+        """Row scaling (Epetra LeftScale, used to apply 1/rho)."""
+        return ELL(self.diag * s, self.vals * s[None, :], self.idx, self.mask)
+
+    def scale(self, a) -> "ELL":
+        return ELL(self.diag * a, self.vals * a, self.idx, self.mask)
+
+    def with_diag(self, diag: torch.Tensor) -> "ELL":
+        return ELL(diag, self.vals, self.idx, self.mask)
+
+    def add(self, other: "ELL") -> "ELL":
+        """Sum of two matrices sharing the same sparsity (idx/mask)."""
+        return ELL(self.diag + other.diag, self.vals + other.vals, self.idx, self.mask)
+
+    def zero_rows(self, rows: torch.Tensor) -> "ELL":
+        """Zero out full rows where ``rows`` (N,) bool is True (keeps diag)."""
+        keep = (~rows).to(self.vals.dtype)
+        return ELL(self.diag, self.vals * keep[None, :], self.idx, self.mask)
+
+    def to_dense(self) -> torch.Tensor:
+        """For tests only: (N, N) dense with A[i, j]."""
+        k, n = self.vals.shape
+        a = torch.zeros((n, n), dtype=self.vals.dtype, device=self.vals.device)
+        rows = torch.arange(n, device=self.vals.device)[None, :].expand(k, n)
+        a.index_put_((rows, self.idx.long()), self.vals * self.mask, accumulate=True)
+        return a + torch.diag(self.diag)

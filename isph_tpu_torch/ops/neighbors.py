@@ -1,0 +1,283 @@
+"""Neighbor engine: cell-binned search producing fixed-width padded lists
+(PyTorch port of ``isph_tpu/ops/neighbors.py``).
+
+The list is (K, N) neighbor indices + mask, K = cfg.neighbor.max_neighbors;
+overflow is detected (``overflow``) and handled by the host with a larger K.
+Search = bin by cell (stable sort + bucket table), gather the 3^D cell
+neighborhood's candidates, mask by cutoff, compact the K smallest column
+indices per row with ``torch.topk``.  Periodic boundaries use the minimum
+image on the displacement.
+
+The result equals the JAX package's exactly (idx, mask, count, overflow):
+the sort is stable as ``jnp.argsort``, out-of-range bucket writes are left
+out as ``mode="drop"`` leaves them out, and top_k keys are the column
+indices themselves, so ties cannot change ``idx``.
+
+Padding convention: invalid slots repeat the row's last valid neighbor index
+(the row's own index i when it has no neighbors) with mask 0, so gathers
+never go out of bounds and masked contributions vanish.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from isph_tpu_torch.state import Domain
+from isph_tpu_torch.ops.kernels import Kernel
+from isph_tpu_torch.ops.spmv_cuda import take
+
+
+@dataclasses.dataclass
+class NeighborList:
+    """(K, N) padded neighbor list. idx[k,i] is a neighbor j of i (j != i,
+    r_ij < cutoff); slots with mask[k,i]==0 repeat the row's last valid
+    neighbor (or i itself for isolated rows)."""
+
+    idx: torch.Tensor  # (K, N) int32, contiguous
+    mask: torch.Tensor  # (K, N) bool
+    count: torch.Tensor  # (N,) int32 — true neighbor count per particle
+    overflow: torch.Tensor  # () int32 — positive if K or cell capacity overflowed
+
+
+@dataclasses.dataclass
+class PairGeom:
+    """Per-pair geometry + kernel values, computed once per step and shared by
+    every operator."""
+
+    idx: torch.Tensor  # (K, N) int32
+    mask: torch.Tensor  # (K, N) dtype (0/1 float for cheap multiplies)
+    rij: torch.Tensor  # (D, K, N) x_i - x_j (minimum image)
+    r: torch.Tensor  # (K, N) |rij| + eps
+    eij: torch.Tensor  # (D, K, N) rij / r
+    w: torch.Tensor  # (K, N) kernel value
+    dwdr: torch.Tensor  # (K, N) kernel radial derivative
+    w_self: torch.Tensor  # () kernel value at r=0
+
+    @property
+    def n(self) -> int:
+        return self.idx.shape[1]
+
+    @property
+    def dim(self) -> int:
+        return self.rij.shape[0]
+
+    def gather(self, f: torch.Tensor) -> torch.Tensor:
+        """f (N,) -> (K, N); f (D, N) -> (D, K, N), any dtype the take
+        kernel has (f32, f64, int32, bool)."""
+        return take(f, self.idx)
+
+
+# `ISPH_EPSILON` guard used by the reference when dividing by r
+# (macrodef.h:6); representable in f32 (min normal ~1.2e-38).
+_R_EPS = 1.0e-24
+
+
+def _cell_grid(domain: Domain, cutoff: float, subdiv: int = 1,
+               ) -> Tuple[Tuple[int, ...], Tuple[float, ...]]:
+    """Static cell grid: >=1 cell per axis, cell size >= cutoff/subdiv."""
+    ncell = []
+    csize = []
+    for ln in domain.length:
+        nc = max(1, int(math.floor(ln * subdiv / cutoff)))
+        ncell.append(nc)
+        csize.append(ln / nc)
+    return tuple(ncell), tuple(csize)
+
+
+def lattice_cell_capacity(domain: Domain, cutoff: float, dx: float, *,
+                          subdiv: int = 1, slack: float = 1.25) -> int:
+    """Tight per-cell bucket bound for ~lattice-spaced particles (a
+    width-cs window holds at most ceil(cs/dx) lattice planes per axis),
+    times a global ``slack``, rounded up to a multiple of 8."""
+    _, csize = _cell_grid(domain, cutoff, subdiv)
+    cap = 1.0
+    for cs in csize:
+        cap *= math.ceil(cs / dx)
+    cap = int(math.ceil(cap * slack))
+    return max(8, -(-cap // 8) * 8)
+
+
+def build_neighbor_list(
+    x: torch.Tensor,
+    valid: torch.Tensor,
+    domain: Domain,
+    cutoff: float,
+    max_neighbors: int,
+    cell_capacity: int = 32,
+    cell_subdiv: int = 1,
+) -> NeighborList:
+    """Cell-list neighbor search with static shapes.  x is (D, N)."""
+    dim, n = x.shape
+    dev = x.device
+    i32 = torch.int32
+    K = max_neighbors
+    cap = cell_capacity
+    ncell, csize = _cell_grid(domain, cutoff, cell_subdiv)
+    ncells = int(np.prod(ncell))
+
+    xw = domain.wrap(x)
+
+    # --- bin particles -----------------------------------------------------
+    c = []
+    for d in range(dim):
+        cd = torch.floor((xw[d] - domain.lo[d]) / csize[d]).to(i32)
+        c.append(torch.clamp(cd, 0, ncell[d] - 1))
+    strides = [1] * dim
+    for d in range(dim - 2, -1, -1):
+        strides[d] = strides[d + 1] * ncell[d + 1]
+    cid = sum(c[d] * strides[d] for d in range(dim))  # (N,) int32
+    # park invalid particles in a virtual cell that is never gathered
+    cid = torch.where(valid, cid, ncells)
+
+    order = torch.argsort(cid, stable=True)
+    sorted_cid = cid[order]
+    starts = torch.searchsorted(sorted_cid, torch.arange(ncells + 1, dtype=i32, device=dev))
+    rank = torch.arange(n, dtype=i32, device=dev) - starts[sorted_cid].to(i32)
+    # capacity check over REAL cells only (the park cell holds every padding slot)
+    real = sorted_cid < ncells
+    real_rank = torch.where(real, rank, -1)
+    cell_overflow = torch.clamp_min(real_rank.max() + 1 - cap, 0)
+
+    # bucket table (ncells+1, cap), sentinel n; park-row and over-capacity
+    # entries are left out, as jnp's scatter mode="drop" leaves them out
+    rank_w = torch.where(real, rank, cap)
+    keep = rank_w < cap
+    rows, cols = sorted_cid[keep].long(), rank_w[keep].long()
+    table = torch.full((ncells + 1, cap), n, dtype=i32, device=dev)
+    table[rows, cols] = order[keep].to(i32)
+    xtab = torch.full((dim, ncells + 1, cap), math.inf, dtype=xw.dtype, device=dev)
+    for d in range(dim):
+        xtab[d][rows, cols] = xw[d][order][keep]
+    # empty slots at +inf fail every cutoff test
+
+    # --- gather the cell neighborhood -> candidates (N, C) -------------------
+    # periodic axes with too few cells sweep each cell exactly once (offsets
+    # wrapping onto the same cell would list its particles twice)
+    axis_offs = []
+    for d in range(dim):
+        reach = int(math.ceil(cutoff / csize[d] - 1e-9))
+        if domain.periodic[d] and ncell[d] <= 2 * reach:
+            base = -(ncell[d] // 2)
+            axis_offs.append(np.arange(base, base + ncell[d]))
+        else:
+            axis_offs.append(np.arange(-reach, reach + 1))
+    offsets = np.array(np.meshgrid(*axis_offs, indexing="ij")).reshape(dim, -1).T
+
+    cand_blocks = []
+    xc_blocks = []
+    for off in offsets:
+        in_range = torch.ones((n,), dtype=torch.bool, device=dev)
+        flat = torch.zeros((n,), dtype=i32, device=dev)
+        for d in range(dim):
+            cc = c[d] + int(off[d])
+            if domain.periodic[d]:
+                ccw = torch.remainder(cc, ncell[d])
+            else:
+                ccw = torch.clamp(cc, 0, ncell[d] - 1)
+                in_range = in_range & (cc >= 0) & (cc < ncell[d])
+            flat = flat + ccw * strides[d]
+        flat = torch.where(in_range, flat, ncells).long()
+        cand_blocks.append(table[flat])  # (N, cap)
+        xc_blocks.append(xtab[:, flat])  # (D, N, cap)
+    cand = torch.cat(cand_blocks, dim=1)  # (N, C)
+    xc = torch.cat(xc_blocks, dim=2)  # (D, N, C)
+
+    # --- cutoff mask -------------------------------------------------------
+    i_idx = torch.arange(n, dtype=i32, device=dev)[:, None]
+    rsq = torch.zeros(cand.shape, dtype=xw.dtype, device=dev)
+    for d in range(dim):
+        rd = domain.minimum_image_axis(xw[d][:, None] - xc[d], d)
+        rsq = rsq + rd * rd
+    good = (cand != i_idx) & (rsq < cutoff * cutoff) & valid[:, None]
+
+    # --- compact to K slots, sorted by column index ------------------------
+    # topk of the negated key gives the K smallest keys in ascending order
+    # and the neighbor index is the value itself; wide candidate sets go in
+    # two exact stages (any global K-smallest is among its chunk's K-smallest)
+    sort_key = torch.where(good, cand, n)
+    C = sort_key.shape[1]
+    W1 = 1024
+    if C > 2 * W1 and K < W1:
+        nch = -(-C // W1)
+        padw = nch * W1 - C
+        if padw:
+            sort_key = torch.cat(
+                [sort_key, torch.full((n, padw), n, dtype=i32, device=dev)], dim=1)
+        part = torch.topk(-sort_key.reshape(n, nch, W1), K, dim=-1).values
+        negtop = torch.topk(part.reshape(n, nch * K), K, dim=-1).values
+    else:
+        negtop = torch.topk(-sort_key, K, dim=-1).values  # (N, K)
+    mask_nk = negtop > -n
+    idx_nk = torch.where(mask_nk, -negtop, 0)
+    count = good.sum(dim=1).to(i32)
+    # masked slots repeat the row's last valid neighbor (the row itself when
+    # it has none)
+    lastk = torch.clamp(count - 1, 0, K - 1)
+    lastv = torch.gather(idx_nk, 1, lastk[:, None].long())[:, 0].to(i32)
+    pad = torch.where(count > 0, lastv, torch.arange(n, dtype=i32, device=dev))
+    mask = mask_nk.T.contiguous()
+    idx = torch.where(mask, idx_nk.T.to(i32), pad[None, :]).contiguous()
+    overflow = torch.clamp_min(count.max() - K, 0) + cell_overflow
+    return NeighborList(idx=idx, mask=mask, count=count, overflow=overflow.to(i32))
+
+
+def build_neighbor_list_bruteforce(
+    x: torch.Tensor,
+    valid: torch.Tensor,
+    domain: Domain,
+    cutoff: float,
+    max_neighbors: int,
+) -> NeighborList:
+    """O(N^2) reference search (for tests and tiny systems).  x: (D, N)."""
+    dim, n = x.shape
+    dev = x.device
+    xw = domain.wrap(x)
+    rsq = torch.zeros((n, n), dtype=xw.dtype, device=dev)
+    for d in range(dim):
+        rd = domain.minimum_image_axis(xw[d][None, :] - xw[d][:, None], d)
+        rsq = rsq + rd * rd
+    # rsq[j, i] = |x_i - x_j|^2 ; candidate axis leading
+    eye = torch.eye(n, dtype=torch.bool, device=dev)
+    good = (rsq < cutoff * cutoff) & ~eye & valid[None, :] & valid[:, None]
+
+    K = max_neighbors
+    perm = torch.argsort((~good).to(torch.int8), dim=0, stable=True)[:K]
+    mask = torch.gather(good, 0, perm)
+    i_idx = torch.arange(n, dtype=torch.int32, device=dev)[None, :]
+    idx = torch.where(mask, perm.to(torch.int32), i_idx).contiguous()
+    count = good.sum(dim=0).to(torch.int32)
+    overflow = torch.clamp_min(count.max() - K, 0)
+    return NeighborList(idx=idx, mask=mask.contiguous(), count=count,
+                        overflow=overflow.to(torch.int32))
+
+
+def compute_pair_geometry(
+    x: torch.Tensor,
+    nbrs: NeighborList,
+    domain: Domain,
+    kernel: Kernel,
+    h: float,
+) -> PairGeom:
+    """Displacement, distance, unit vector and kernel values for every (k, i)
+    pair slot, computed once; every operator downstream reuses them.
+    x: (D, N).  x_j comes through the take kernel on CUDA tensors."""
+    dim = x.shape[0]
+    dtype = x.dtype
+    xw = domain.wrap(x)
+    maskf = nbrs.mask.to(dtype)
+    xj = take(xw, nbrs.idx)  # (D, K, N)
+    rij = torch.stack(
+        [domain.minimum_image_axis(xw[d][None, :] - xj[d], d) * maskf for d in range(dim)]
+    )  # (D, K, N)
+    r = torch.sqrt(sum(rij[d] * rij[d] for d in range(dim))) + _R_EPS
+    eij = rij / r
+    w = kernel.w(r, h, dim) * maskf
+    dwdr = kernel.dw(r, h, dim) * maskf
+    w_self = kernel.w(torch.zeros((), dtype=dtype, device=x.device), h, dim)
+    return PairGeom(idx=nbrs.idx, mask=maskf, rij=rij, r=r, eij=eij, w=w,
+                    dwdr=dwdr, w_self=w_self)

@@ -1,0 +1,367 @@
+"""Incompressible Navier-Stokes, projection (pressure-correction) scheme
+(PyTorch port of ``isph_tpu/physics/ns_projection.py`` for the corrected
+backend without walls mirrors, recycling or AMG).
+
+One timestep (reference PairISPH::computeIncompressibleNavierStokes,
+pair_isph.cpp:910-1034):
+  1. computePre: Shepard volumes, correction tensors, normals.
+  2. Helmholtz:  (I - theta dt nu L) v* = v + (1-theta) dt nu L v
+                 + dt (f/rho + g - grad p / rho)
+  3. Poisson:    -dt div(1/rho grad) dp = -div v*   [singular handling]
+  4. Correct:    v* -= dt/rho grad dp ;  p (+)= dp  [zero-mean if incremental]
+  5. Advance:    dp_T = grad p . dx, dx = dt/2 (v*+v); p += dp_T; x += dx;
+                 v = v*.
+
+Layout: vectors are (D, N).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from isph_tpu_torch.config import BoundaryCond, SimulationConfig, SingularPoisson
+from isph_tpu_torch.state import Domain, Kind, ParticleState, Precomputed
+from isph_tpu_torch.ops import corrected as ops
+from isph_tpu_torch.ops.corrected import ANTISYMMETRIC, SYMMETRIC, Family, PairFilter
+from isph_tpu_torch.ops.ell import ELL
+from isph_tpu_torch.ops.neighbors import PairGeom
+from isph_tpu_torch.solvers.krylov import KrylovResult, cg, gmres
+from isph_tpu_torch.solvers.precond import jacobi
+
+
+def family_of(cfg: SimulationConfig) -> Family:
+    return ANTISYMMETRIC if cfg.ns.use_momentum_preserve_operator else SYMMETRIC
+
+
+def compute_pre(state: ParticleState, geom: PairGeom, cfg: SimulationConfig) -> Precomputed:
+    """Reference PairISPH_Corrected::computePre (pair_isph_corrected.cpp:302-430)."""
+    vfrac = ops.shepard_volume(geom)
+    Gc = ops.gradient_correction(geom, vfrac)
+    Lc = ops.laplacian_correction(geom, vfrac, Gc)
+    normal, pnd = ops.interface_normal(geom, vfrac, state.kind, Gc, cfg.h)
+    return Precomputed(vfrac=vfrac, Gc=Gc, Lc=Lc, normal=normal, pnd=pnd)
+
+
+class SolveInfo(NamedTuple):
+    helmholtz: Optional[KrylovResult]
+    poisson: KrylovResult
+
+
+def _solve(cfg: SimulationConfig, A: ELL, b, x0, *, null_vec=None,
+           amg: Optional[Tuple] = None) -> KrylovResult:
+    """One Krylov solve with the configured method and preconditioner.
+    ``amg`` = (x, domain, cutoff) when the solve has domain info in scope;
+    without it "amg" means Jacobi, as in the reference's Belos/ML pairing."""
+    sc = cfg.solver
+    # dtype-aware tolerance floor: the Belos default 1e-8 presumes f64; in
+    # f32 the attainable relative residual bottoms out near ~30 eps
+    tol = max(sc.tol, 30.0 * float(torch.finfo(b.dtype).eps))
+    if amg is not None and sc.precond == "amg":
+        raise NotImplementedError("AMG not yet ported")
+    if sc.precond == "ilu":
+        raise NotImplementedError("ILU preconditioner not yet ported")
+    if sc.precond in ("jacobi", "amg"):
+        M = jacobi(A)
+    else:
+        M = None
+    if sc.method == "pipelined_cg":
+        raise NotImplementedError("pipelined_cg not yet ported")
+    if sc.method == "cg":
+        return cg(A.matvec, b, x0, M=M, tol=tol, maxiter=sc.max_iters, null_vec=null_vec)
+    return gmres(A.matvec, b, x0, M=M, tol=tol, restart=sc.restart,
+                 max_restarts=sc.max_restarts, null_vec=null_vec)
+
+
+def _fluid_pair_coeff(state: ParticleState, geom: PairGeom, jset: int) -> torch.Tensor:
+    return PairFilter(Kind.FLUID, jset).pair(state.kind, geom).to(state.dtype) * geom.mask
+
+
+def _mirror(cfg: SimulationConfig):
+    """Wall-mirroring coefficients: MorrisHolmes / MorrisNormal are not
+    ported yet; every other treatment assembles with MirrorNothing."""
+    if cfg.ns.boundary in (BoundaryCond.MORRIS_HOLMES, BoundaryCond.MORRIS_NORMAL):
+        raise NotImplementedError(f"wall mirror {cfg.ns.boundary.value} not yet ported")
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Helmholtz (momentum predictor)
+# ---------------------------------------------------------------------------
+
+def helmholtz_system(
+    state: ParticleState,
+    geom: PairGeom,
+    pre: Precomputed,
+    cfg: SimulationConfig,
+) -> Tuple[ELL, torch.Tensor]:
+    """Build the viscous Helmholtz system
+    (functor_incomp_navier_stokes_helmholtz.h:52-159): (A, b) with A the
+    (I - theta dt nu L) operator on fluid rows / unit rows on solid, and b
+    the (D, N) right-hand side."""
+    if cfg.ns.boundary == BoundaryCond.NAVIER_SLIP and cfg.ns.beta != 0.0:
+        raise NotImplementedError("Navier-slip wall rows not yet ported")
+    fam = family_of(cfg)
+    dt, theta = cfg.dt, cfg.ns.theta
+    dtype = state.dtype
+    mu = state.nu * state.rho
+
+    filt = PairFilter(Kind.FLUID, Kind.ALL)
+    A = ops.laplacian_matrix(
+        geom, pre.vfrac, pre.Gc, pre.Lc, state.kind,
+        alpha=dt, material=mu, filt=filt, family=fam, mirror=_mirror(cfg),
+    )
+    # LeftScale by 1/rho: A = dt/rho * div(mu grad)
+    A = A.left_scale(1.0 / state.rho)
+
+    # w = A v (explicit viscous part, one multivector SpMV),
+    # b = v + (1-theta) w + dt (f/rho + g)
+    w = A.matvec(state.v)
+    b = state.v + (1.0 - theta) * w
+    g = torch.as_tensor(cfg.ns.g[: state.dim], dtype=dtype, device=state.device)
+    body = dt * (state.f / state.rho[None, :] + g[:, None])
+    fluid = state.is_fluid
+    b = torch.where(fluid[None, :], b + body, b)
+
+    if cfg.ns.use_incremental_pressure:
+        grad_p = ops.gradient(
+            geom, pre.vfrac, pre.Gc, state.p, family=fam,
+            coeff=_fluid_pair_coeff(state, geom, Kind.FLUID), row_mask=fluid,
+        )
+        b = torch.where(fluid[None, :], b - dt / state.rho[None, :] * grad_p, b)
+
+    # LHS: A <- -theta A; diag: solid -> 1, fluid -> 1 + diag
+    A = A.scale(-theta)
+    solid = state.is_solid
+    diag = torch.where(solid, torch.ones_like(A.diag), 1.0 + A.diag)
+    A = A.with_diag(diag).zero_rows(solid)
+    return A, b
+
+
+def solve_helmholtz(
+    state: ParticleState, geom: PairGeom, pre: Precomputed, cfg: SimulationConfig,
+) -> Tuple[torch.Tensor, Optional[KrylovResult]]:
+    """Returns v* (and solver info with per-component (D,) iters/relres).
+    For |theta| < eps the system is the identity and b is v*."""
+    A, b = helmholtz_system(state, geom, pre, cfg)
+    if abs(cfg.ns.theta) < 1e-14:
+        return b, None
+    # one Krylov run per velocity component, each equal to its own
+    # unbatched solve (the JAX package vmaps the same solve)
+    res = [_solve(cfg, A, b[c], state.v[c]) for c in range(state.dim)]
+    out = KrylovResult(*(torch.stack(f) for f in zip(*res)))
+    return out.x, out
+
+
+# ---------------------------------------------------------------------------
+# Pressure Poisson
+# ---------------------------------------------------------------------------
+
+def poisson_system(
+    state: ParticleState,
+    geom: PairGeom,
+    pre: Precomputed,
+    cfg: SimulationConfig,
+    vstar: torch.Tensor,
+) -> Tuple[ELL, torch.Tensor]:
+    """Build -dt div(1/rho grad) dp = -div v*
+    (functor_incomp_navier_stokes_poisson.h:52-181)."""
+    fam = family_of(cfg)
+    dt = cfg.dt
+    singular = cfg.ns.singular_poisson
+
+    if singular == SingularPoisson.NOT_SINGULAR:
+        filt = PairFilter(Kind.FLUID, Kind.ALL)
+        homogeneous_neumann = False
+    else:
+        filt = PairFilter(Kind.FLUID, Kind.FLUID)
+        homogeneous_neumann = True
+
+    A = ops.laplacian_matrix(
+        geom, pre.vfrac, pre.Gc, pre.Lc, state.kind,
+        alpha=-dt, material=1.0 / state.rho, filt=filt, family=fam,
+    )
+
+    solid = state.is_solid
+    has_normal = None
+    if homogeneous_neumann and pre.normal is not None:
+        # homogeneous-Neumann rows n . grad dp = 0 on solid particles with a
+        # wall normal (functor_gradient_dot_operator_matrix.h)
+        nsq = sum(pre.normal[d] * pre.normal[d] for d in range(state.dim))
+        has_normal = nsq > 0.5
+        Agd = ops.gradient_dot_matrix(
+            geom, pre.vfrac, pre.Gc, state.kind, pre.normal,
+            alpha=-dt, filt=PairFilter(Kind.SOLID | Kind.BOUNDARY, Kind.ALL),
+            family=SYMMETRIC,
+        )
+        A = A.add(Agd)
+
+    # rhs: fluid -> -div(v*); solid -> 0
+    div_coeff = ops.pair_coeff(
+        state.kind, geom, PairFilter(Kind.FLUID, Kind.ALL), _mirror(cfg),
+    ) * geom.mask
+    div = ops.divergence(
+        geom, pre.vfrac, pre.Gc, vstar, family=fam,
+        coeff=div_coeff, row_mask=state.is_fluid,
+    )
+    b = torch.where(state.is_fluid, -div, 0.0)
+
+    # solid rows without a Neumann row get unit diagonal
+    unit_rows = solid if has_normal is None else solid & ~has_normal
+    A = A.with_diag(torch.where(unit_rows, torch.ones_like(A.diag), A.diag))
+
+    # singular fixups applied to the first fluid row (modifySingularMatrix,
+    # pair_isph.cpp:493-520)
+    if singular in (SingularPoisson.PIN_ZERO, SingularPoisson.DOUBLE_DIAG):
+        pin = torch.argmax(state.is_fluid.to(torch.int32))
+        onehot = torch.arange(state.n, device=state.device) == pin
+        if singular == SingularPoisson.PIN_ZERO:
+            A = A.zero_rows(onehot)
+            A = A.with_diag(torch.where(onehot, -torch.ones_like(A.diag), A.diag))
+            b = torch.where(onehot, 0.0, b)
+        else:
+            A = A.with_diag(torch.where(onehot, 1.5 * A.diag, A.diag))
+    return A, b
+
+
+def solve_poisson(
+    state: ParticleState, geom: PairGeom, pre: Precomputed, cfg: SimulationConfig,
+    vstar: torch.Tensor, *, domain: Optional[Domain] = None,
+) -> Tuple[torch.Tensor, KrylovResult]:
+    """Solve the pressure Poisson system; returns (dp, result).
+
+    With homogeneous-Neumann walls the system is block triangular: fluid
+    rows touch only fluid columns, so the fluid block is solved alone (the
+    fluid-constant null-vector deflation is then exact) and the wall rows
+    are relaxed separately (:func:`relax_wall_pressure`).
+    """
+    A, b = poisson_system(state, geom, pre, cfg, vstar)
+    null_vec = None
+    if cfg.ns.singular_poisson == SingularPoisson.NULL_SPACE:
+        # constant null vector masked to fluid rows (pair_isph.cpp:996-1005)
+        null_vec = (state.is_fluid & state.valid).to(state.dtype)
+    x0 = torch.zeros_like(b)  # setInitialSolution(Zero), pair_isph.cpp:1010
+    amg = (state.x, domain, cfg.cut) if domain is not None else None
+
+    if cfg.ns.singular_poisson != SingularPoisson.NOT_SINGULAR:
+        fluid_rows = state.is_fluid & state.valid
+        A_f = A.zero_rows(~fluid_rows).with_diag(
+            torch.where(fluid_rows, A.diag, torch.ones_like(A.diag)))
+        b_f = torch.where(fluid_rows, b, 0.0)
+        res = _solve(cfg, A_f, b_f, x0, null_vec=null_vec, amg=amg)
+        dp = relax_wall_pressure(A, b, res.x, state, pre)
+        return dp, res
+
+    res = _solve(cfg, A, b, x0, null_vec=null_vec, amg=amg)
+    return res.x, res
+
+
+def relax_wall_pressure(
+    A: ELL, b: torch.Tensor, dp: torch.Tensor, state: ParticleState, pre: Precomputed,
+    *, tol: float = 1.0e-8, restart: int = 30,
+) -> torch.Tensor:
+    """Wall pressure extension: solve the homogeneous-Neumann rows on
+    solid-wall particles with a small masked GMRES on
+    ``wall . A . wall + (I - wall)``.  All-fluid decks have a zero wall
+    residual: the GMRES outer loop exits at once (the 1e-30 floors keep the
+    zero right-hand side finite)."""
+    nsq = sum(pre.normal[d] * pre.normal[d] for d in range(state.dim))
+    wall = state.is_solid & (nsq > 0.5)
+    wallf = wall.to(dp.dtype)
+    keepf = 1.0 - wallf
+
+    def mv(v):
+        return wallf * A.matvec(wallf * v) + keepf * v
+
+    rhs = wallf * (b - A.matvec(dp))
+    res = gmres(mv, rhs, torch.zeros_like(dp), tol=tol, restart=restart, max_restarts=2)
+    return dp + wallf * res.x
+
+
+def zero_mean_pressure(p: torch.Tensor, state: ParticleState) -> torch.Tensor:
+    """Zero-mean over fluid rows; solid pressure cleaned to 0
+    (PairISPH::computeZeroMeanPressure, pair_isph.cpp:422-464)."""
+    fl = (state.is_fluid & state.valid).to(p.dtype)
+    mean = (p * fl).sum() / torch.clamp_min(fl.sum(), 1.0)
+    p = torch.where(state.is_solid, 0.0, p - mean)
+    return torch.where(state.valid, p, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# Corrections + time advance
+# ---------------------------------------------------------------------------
+
+def correct_velocity(
+    state: ParticleState, geom: PairGeom, pre: Precomputed, cfg: SimulationConfig,
+    vstar: torch.Tensor, dp: torch.Tensor,
+) -> torch.Tensor:
+    """v* <- v* - dt/rho grad(dp) on fluid (functor_correct_velocity.h)."""
+    fluid = state.is_fluid
+    grad_dp = ops.gradient(
+        geom, pre.vfrac, pre.Gc, dp, family=family_of(cfg),
+        coeff=_fluid_pair_coeff(state, geom, Kind.FLUID), row_mask=fluid,
+    )
+    upd = vstar - cfg.dt / state.rho[None, :] * grad_dp
+    return torch.where(fluid[None, :], upd, vstar)
+
+
+def correct_pressure(state: ParticleState, cfg: SimulationConfig, dp: torch.Tensor) -> torch.Tensor:
+    """p (+)= dp for all particles (functor_correct_pressure.h)."""
+    if cfg.ns.use_incremental_pressure:
+        return state.p + dp
+    return dp
+
+
+def advance_time(
+    state: ParticleState, geom: PairGeom, pre: Precomputed, cfg: SimulationConfig,
+    domain: Domain,
+) -> ParticleState:
+    """Reference FunctorAdvanceTimeBegin/End: Taylor-transport the pressure
+    to the new particle position, then midpoint move and swap v <- v*."""
+    fluid = state.is_fluid
+    dx = 0.5 * cfg.dt * (state.vstar + state.v)  # (D, N)
+
+    grad_p = ops.gradient(
+        geom, pre.vfrac, pre.Gc, state.p, family=family_of(cfg),
+        coeff=_fluid_pair_coeff(state, geom, Kind.FLUID), row_mask=fluid,
+    )
+    dpT = torch.where(fluid, (grad_p * dx).sum(dim=0), 0.0)
+
+    # fixed (solid/boundary/Kind.FIXED) particles: only v <- v*
+    moving = fluid & state.valid & ~state.is_fixed
+    p_new = torch.where(moving, state.p + dpT, state.p)
+    x_new = torch.where(moving[None, :], state.x + dx, state.x)
+    x_new = domain.wrap(x_new)
+    v_new = torch.where(state.valid[None, :], state.vstar, state.v)
+    return state.replace(x=x_new, v=v_new, p=p_new, dp=torch.where(moving, dpT, 0.0))
+
+
+# ---------------------------------------------------------------------------
+# Full NS sub-step (Helmholtz -> Poisson -> correct)
+# ---------------------------------------------------------------------------
+
+def navier_stokes_step(
+    state: ParticleState,
+    geom: PairGeom,
+    pre: Precomputed,
+    cfg: SimulationConfig,
+    *,
+    domain: Optional[Domain] = None,
+) -> Tuple[ParticleState, SolveInfo]:
+    """computeIncompressibleNavierStokes (pair_isph.cpp:910-1034): returns the
+    state with updated (vstar, dp, p); positions unchanged (advance_time is a
+    separate call)."""
+    if cfg.ns.is_block_helmholtz_enabled:
+        raise NotImplementedError("block Helmholtz not yet ported")
+    if cfg.solver.recycle_k > 0:
+        raise NotImplementedError("recycle_k (GCRO-DR recycling GMRES) not yet ported")
+    vstar, hinfo = solve_helmholtz(state, geom, pre, cfg)
+    dp, pinfo = solve_poisson(state, geom, pre, cfg, vstar, domain=domain)
+    if cfg.ns.use_incremental_pressure:
+        dp = zero_mean_pressure(dp, state)
+    vstar = correct_velocity(state, geom, pre, cfg, vstar, dp)
+    p = correct_pressure(state, cfg, dp)
+    p = torch.where(state.is_solid, 0.0, p)
+    state = state.replace(vstar=vstar, dp=dp, p=p)
+    return state, SolveInfo(helmholtz=hinfo, poisson=pinfo)
