@@ -20,7 +20,18 @@ Phases (each raises on failure; the script then exits non-zero):
    just before and read just after; checks overflow, finiteness, volume,
    the decaying vmax, and that both kernels ran;
 5. golden: the reference's TGV-16 table in f32 through the kernels, within
-   2% (the bar tests/test_f32.py holds the JAX package to).
+   2% (the bar tests/test_f32.py holds the JAX package to);
+6. band kernels: on the pressure-Poisson matrix of the 1024^2 Taylor-Green
+   lattice (1,048,576 particles, K = 32, stream window 3072, subcap 64,
+   ~29M nonzeros), hold the band-window SpMV (C = 1, 2, 3 in f32, C = 1 in
+   f64) and take (f32, int32, bool) against their plain versions, time
+   them beside the plain versions and the non-band kernels, warm and with
+   L2 flushed, and show that a window of 128 with subcap 1 overflows;
+7. large-N path: three 1024^2 f32 steps through Simulation.run with the
+   default AMG preconditioner (max age 8) on the streaming neighbor list;
+   checks overflow, the Poisson iteration cap, volume, the decaying vmax,
+   and that both band kernels ran; prints the peak device memory and one
+   synchronized breakdown with the AMG build and the V-cycles apart.
 
 The last lines are the card's name and power limit from nvidia-smi, one
 JSON line describing the kernels, and the result line
@@ -79,35 +90,59 @@ def _median_ms(fn, reps: int = 30, flush: torch.Tensor | None = None):
     return statistics.median(s.elapsed_time(e) for s, e in marks), host_us
 
 
-def _tgv256(dev):
+def _tgv(dev, n_lat, precond, **neighbor):
+    """TGV-n_lat f32, K = 32, padded to 128, tight lattice cell capacity;
+    ``neighbor`` overrides NeighborConfig fields (the stream window)."""
     from isph_tpu_torch.models import tgv
     from isph_tpu_torch.ops.neighbors import lattice_cell_capacity
 
-    n_lat = 256
     sim0, _ = tgv.make_tgv(n_lat, dtype=torch.float32)
     cap = lattice_cell_capacity(sim0.domain, sim0.cfg.cut, 2 * math.pi / n_lat)
     sim, state = tgv.make_tgv(n_lat, dtype=torch.float32, max_neighbors=32,
                               pad_multiple=128, cell_capacity=cap, device=dev)
-    cfg = sim.cfg.replace(solver=dataclasses.replace(sim.cfg.solver, precond="jacobi"))
+    cfg = sim.cfg.replace(
+        solver=dataclasses.replace(sim.cfg.solver, precond=precond),
+        neighbor=dataclasses.replace(sim.cfg.neighbor, **neighbor))
     return dataclasses.replace(sim, cfg=cfg), state
+
+
+def _tgv256(dev):
+    return _tgv(dev, 256, "jacobi")
+
+
+def _tgv1024(dev):
+    """bench.py:bench_spmv_streaming's lattice and window, AMG (the default)."""
+    return _tgv(dev, 1024, "amg", stream_window=3072, stream_subcap=64)
+
+
+def _poisson_matrix(sim, state):
+    from isph_tpu_torch.ops import corrected as ops
+    from isph_tpu_torch.state import Kind
+
+    nbrs = sim.neighbors(state)
+    if int(nbrs.overflow) != 0:
+        raise RuntimeError(f"neighbor overflow {int(nbrs.overflow)}")
+    geom = sim.geometry(state, nbrs)
+    pre = sim.precompute(state, geom)
+    return ops.laplacian_matrix(
+        geom, pre.vfrac, pre.Gc, pre.Lc, state.kind, alpha=-sim.cfg.dt,
+        material=1.0 / state.rho, filt=ops.PairFilter(Kind.FLUID, Kind.FLUID),
+        family=ops.SYMMETRIC)
+
+
+def _spmv_rel_err(yk, yp, diag, vals, idx, x):
+    """max |kernel - plain| relative to the row's sum of |terms|: the two
+    differ only in summation order (and FMA contraction)."""
+    terms = (diag * x).abs() + (vals.abs() * x[..., idx].abs()).sum(-2)
+    return float(((yk - yp).abs() / terms).max()), float((yk - yp).abs().max())
 
 
 def phase_kernels(dev, flush):
     """Kernels against their plain versions on the TGV-256 Poisson matrix."""
-    from isph_tpu_torch.ops import corrected as ops
     from isph_tpu_torch.ops import spmv_cuda as sc
-    from isph_tpu_torch.state import Kind
 
     sim, state = _tgv256(dev)
-    nbrs = sim.neighbors(state)
-    if int(nbrs.overflow) != 0:
-        raise RuntimeError(f"neighbor overflow {int(nbrs.overflow)} at TGV-256")
-    geom = sim.geometry(state, nbrs)
-    pre = sim.precompute(state, geom)
-    A = ops.laplacian_matrix(
-        geom, pre.vfrac, pre.Gc, pre.Lc, state.kind, alpha=-sim.cfg.dt,
-        material=1.0 / state.rho, filt=ops.PairFilter(Kind.FLUID, Kind.FLUID),
-        family=ops.SYMMETRIC)
+    A = _poisson_matrix(sim, state)
     K, n = A.vals.shape
     nnz = int(A.mask.sum().item()) + n
     _log(f"kernels: TGV-256 Poisson matrix N={n} K={K} nnz={nnz}")
@@ -127,9 +162,7 @@ def phase_kernels(dev, flush):
             yk = sc.ell_spmv(diag, vals, A.idx, x)
             yp = sc.spmv_plain(diag, vals, A.idx, x)
             torch.cuda.synchronize()
-            terms = (diag * x).abs() + (vals.abs() * x[..., A.idx].abs()).sum(-2)
-            rel = float(((yk - yp).abs() / terms).max())
-            abs_err = float((yk - yp).abs().max())
+            rel, abs_err = _spmv_rel_err(yk, yp, diag, vals, A.idx, x)
             spmv_err = max(spmv_err, abs_err)
             ok = rel <= rtol and bool(torch.isfinite(yk).all())
             tk, hk = _median_ms(lambda: sc.ell_spmv(diag, vals, A.idx, x))
@@ -238,7 +271,7 @@ def _breakdown(sim, state):
     state = state.replace(f=torch.zeros_like(state.v))
     vstar, hinfo = ns.solve_helmholtz(state, geom, pre, sim.cfg)
     mark("helmholtz")
-    dp, pinfo = ns.solve_poisson(state, geom, pre, sim.cfg, vstar)
+    dp, pinfo, _ = ns.solve_poisson(state, geom, pre, sim.cfg, vstar)
     mark("poisson")
     dp = ns.zero_mean_pressure(dp, state)
     vstar = ns.correct_velocity(state, geom, pre, sim.cfg, vstar, dp)
@@ -248,6 +281,203 @@ def _breakdown(sim, state):
     parts = ", ".join(f"{b[0]}={1e3 * (b[1] - a[1]):.2f} ms" for a, b in zip(marks, marks[1:]))
     _log(f"breakdown: {parts}; helmholtz_iters={int(hinfo.iters.sum())} "
          f"poisson_iters={int(pinfo.iters)}")
+
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
+
+
+def phase_band_kernels(dev, flush):
+    """Band kernels against their plain versions (and beside the non-band
+    kernels) on the TGV-1024 Poisson matrix of the streaming list."""
+    from isph_tpu_torch.ops import spmv_cuda as sc
+
+    sim, state = _tgv1024(dev)
+    A = _poisson_matrix(sim, state)
+    band = A.band
+    if band is None:
+        raise RuntimeError("the TGV-1024 matrix carries no band spec")
+    K, n = A.vals.shape
+    nnz = int(A.mask.sum().item()) + n
+    win = band.rows + 2 * band.window
+    rows = min(band.rows, 1024)
+    _log(f"band: TGV-1024 Poisson matrix N={n} K={K} nnz={nnz}; window W={band.window}, "
+         f"step rows S={band.rows}, block rows {rows}, window re-read factor "
+         f"(S+2W)/rows = {win / rows:.1f}; vals+idx stream {8 * K * n / 1e6:.1f} MB (f32)")
+    rng = np.random.default_rng(1)
+
+    # bounds as in phase 3: f32 1e-5, f64 1e-12 of the row's sum of |terms|
+    err = 0.0
+    res = {}
+    for dtype, rtol, comps in ((torch.float32, 1e-5, (1, 2, 3)), (torch.float64, 1e-12, (1,))):
+        diag, vals = A.diag.to(dtype), A.vals.to(dtype)
+        for ncomp in comps:
+            shape = (n,) if ncomp == 1 else (ncomp, n)
+            x = torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=dev)
+            yk = sc.ell_spmv_band(diag, vals, A.idx, x, band)
+            yp = sc.spmv_plain(diag, vals, A.idx, x)
+            torch.cuda.synchronize()
+            rel, abs_err = _spmv_rel_err(yk, yp, diag, vals, A.idx, x)
+            err = max(err, abs_err)
+            if not (rel <= rtol and bool(torch.isfinite(yk).all())):
+                raise RuntimeError(f"ell_spmv_band disagrees with plain ({dtype}, C={ncomp}): "
+                                   f"rel {rel:.3e}")
+            tb, hb = _median_ms(lambda: sc.ell_spmv_band(diag, vals, A.idx, x, band))
+            tbc, _ = _median_ms(lambda: sc.ell_spmv_band(diag, vals, A.idx, x, band),
+                                flush=flush)
+            te, _ = _median_ms(lambda: sc.ell_spmv(diag, vals, A.idx, x))
+            tec, _ = _median_ms(lambda: sc.ell_spmv(diag, vals, A.idx, x), flush=flush)
+            tp, _ = _median_ms(lambda: sc.spmv_plain(diag, vals, A.idx, x), reps=10)
+            res[(dtype, ncomp)] = (tb, tp)
+            model = 12 * nnz if dtype == torch.float32 else 20 * nnz
+            _log(f"band: spmv {str(dtype)[6:]} C={ncomp}: max_abs_err={abs_err:.3e} "
+                 f"rel_to_terms={rel:.3e} (rtol {rtol:.0e}); band={tb:.4f} ms "
+                 f"(L2 flushed {tbc:.4f}), ell_spmv={te:.4f} ms (L2 flushed {tec:.4f}), "
+                 f"plain={tp:.4f} ms; band {ncomp * nnz / tb / 1e6:.2f} Gnnz/s, "
+                 f"{model / 1e6:.1f} MB model -> {model / (tb * 1e-3) / HBM_BYTES_PER_S:.3f} "
+                 f"of HBM peak warm, {model / (tbc * 1e-3) / HBM_BYTES_PER_S:.3f} cold; "
+                 f"host enqueue {hb:.1f} us")
+
+    fields = {
+        "f32 (N,)": torch.as_tensor(rng.standard_normal(n), dtype=torch.float32, device=dev),
+        "f32 (D,N)": state.x.contiguous(),
+        "int32 kind": state.kind,
+        "bool": torch.as_tensor(rng.random(n) < 0.5, device=dev),
+    }
+    take_ms = {}
+    for name, f in fields.items():
+        gk = sc.take_band(f, A.idx, band)
+        gp = sc.take_plain(f, A.idx)
+        torch.cuda.synchronize()
+        if gk.dtype != f.dtype or not torch.equal(gk, gp):
+            raise RuntimeError(f"take_band disagrees with plain ({name})")
+        tb, _ = _median_ms(lambda: sc.take_band(f, A.idx, band))
+        tbc, _ = _median_ms(lambda: sc.take_band(f, A.idx, band), flush=flush)
+        te, _ = _median_ms(lambda: sc.take(f, A.idx))
+        tp, _ = _median_ms(lambda: sc.take_plain(f, A.idx), reps=10)
+        take_ms[name] = (tb, tp)
+        _log(f"band: take {name}: exact; band={tb:.4f} ms (L2 flushed {tbc:.4f}), "
+             f"take={te:.4f} ms, plain={tp:.4f} ms")
+
+    small = dataclasses.replace(sim, cfg=sim.cfg.replace(neighbor=dataclasses.replace(
+        sim.cfg.neighbor, stream_window=128, stream_subcap=1)))
+    ovf = int(small.neighbors(state).overflow)
+    _log(f"band: window 128, subcap 1 at TGV-1024: overflow={ovf}")
+    if ovf <= 0:
+        raise RuntimeError("a too-small band window reported no overflow")
+    return dict(spmv_err=err, spmv_ms=res[(torch.float32, 1)], take_ms=take_ms["f32 (N,)"])
+
+
+def phase_large_n(dev):
+    """Three TGV-1024^2 f32 steps through Simulation.run with AMG on the
+    streaming list, one call per step (run(state, 3) in three timed pieces)."""
+    from isph_tpu_torch.ops import spmv_cuda as sc
+
+    sim, state = _tgv1024(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = (sc.ell_spmv, sc.take, sc.ell_spmv_band, sc.take_band)
+    for w in wrappers:
+        w.launches = 0
+    step_s = []
+    for k in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, aux = sim.run(state, 1)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        _log(f"large: step {k + 1}: {step_s[-1]:.4f} s helmholtz_iters="
+             f"{int(aux.helmholtz_iters)} poisson_iters={int(aux.poisson_iters)} "
+             f"poisson_relres={float(aux.poisson_relres):.3e} "
+             f"overflow={int(aux.neighbor_overflow)}")
+        if int(aux.neighbor_overflow) != 0:
+            raise RuntimeError("neighbor overflow on the large-N path")
+        if int(aux.poisson_iters) >= sim.cfg.solver.max_iters:
+            raise RuntimeError(f"Poisson GMRES reached the {sim.cfg.solver.max_iters} cap")
+    launches = {w.__name__: w.launches for w in wrappers}
+    _log(f"large: launches {launches}")
+    if min(launches["ell_spmv_band"], launches["take_band"]) <= 0:
+        raise RuntimeError(f"a band kernel never launched on the large-N path: {launches}")
+
+    st = aux.status
+    if not all(bool(torch.isfinite(t).all()) for t in st):
+        raise RuntimeError(f"non-finite status {st}")
+    t = float(st.time)
+    vmax_exact = 0.1 * math.exp(-2.0 * 0.1 * t)
+    vol = float(st.volume)
+    _log(f"large: t={t:.6f} volume={vol:.6f} (exact {(2 * math.pi) ** 2:.6f}) "
+         f"vmax={float(st.vmax):.6f} (exact {vmax_exact:.6f})")
+    if abs(vol / (2 * math.pi) ** 2 - 1.0) > 1e-2:
+        raise RuntimeError("volume off by more than 1%")
+    if abs(float(st.vmax) / vmax_exact - 1.0) > 5e-2:
+        raise RuntimeError("vmax off the decaying vortex by more than 5%")
+    step_med = statistics.median(step_s[1:])
+    _log(f"large: step time (median of steps 2-3) {step_med:.4f} s, "
+         f"{state.n / step_med:.0f} particle-steps/s; peak memory "
+         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    _breakdown_amg(sim, state)
+    return launches
+
+
+def _breakdown_amg(sim, state):
+    """One more large-N step, phase by phase with a synchronize after each
+    (host clock), with the AMG build and the V-cycles as their own entries
+    (each V-cycle bracketed by synchronizes, so GMRES's own work is the
+    Poisson solve's time less the V-cycles')."""
+    from isph_tpu_torch.physics import ns_projection as ns
+    from isph_tpu_torch.solvers import amg
+
+    marks = []
+
+    def mark(name):
+        torch.cuda.synchronize()
+        marks.append((name, time.perf_counter()))
+
+    cfg = sim.cfg
+    mark("start")
+    nbrs = sim.neighbors(state)
+    mark("neighbors")
+    geom = sim.geometry(state, nbrs)
+    mark("geometry")
+    pre = sim.precompute(state, geom)
+    mark("compute_pre")
+    state = state.replace(f=torch.zeros_like(state.v))
+    vstar, hinfo = ns.solve_helmholtz(state, geom, pre, cfg)
+    mark("helmholtz")
+    A, b = ns.poisson_system(state, geom, pre, cfg, vstar)
+    fluid = state.is_fluid & state.valid
+    A_f = A.zero_rows(~fluid).with_diag(torch.where(fluid, A.diag, torch.ones_like(A.diag)))
+    b_f = torch.where(fluid, b, 0.0)
+    null = fluid.to(state.dtype)
+    mark("poisson_assembly")
+    cache = amg.cache_of(amg.build_amg(A_f, state.x, sim.domain, cfg.cut, null_vec=null))
+    mark("amg_build")
+    M = amg.amg_from_cache(A_f, cache, null_vec=null).apply
+    vcycles = []
+
+    def timed_M(r):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = M(r)
+        torch.cuda.synchronize()
+        vcycles.append(time.perf_counter() - t0)
+        return out
+
+    res = ns._solve(cfg, A_f, b_f, torch.zeros_like(b_f), null_vec=null, M_override=timed_M)
+    mark("poisson_gmres")
+    dp = ns.zero_mean_pressure(ns.relax_wall_pressure(A, b, res.x, state, pre), state)
+    vstar = ns.correct_velocity(state, geom, pre, cfg, vstar, dp)
+    state = state.replace(vstar=vstar, dp=dp, p=ns.correct_pressure(state, cfg, dp))
+    ns.advance_time(state, geom, pre, cfg, sim.domain)
+    mark("correct+advance")
+    parts = {b_[0]: 1e3 * (b_[1] - a[1]) for a, b_ in zip(marks, marks[1:])}
+    vc = 1e3 * sum(vcycles)
+    parts["poisson_gmres"] -= vc
+    parts = {**parts, "v_cycles": vc}
+    total = sum(parts.values())
+    _log("breakdown (large): " + ", ".join(
+        f"{k}={v:.2f} ms ({100 * v / total:.1f}%)" for k, v in parts.items())
+        + f"; {len(vcycles)} V-cycles, {vc / max(len(vcycles), 1):.3f} ms each; "
+        f"helmholtz_iters={int(hinfo.iters.sum())} poisson_iters={int(res.iters)}")
 
 
 def phase_golden(dev):
@@ -313,6 +543,13 @@ def main() -> int:
     launches = phase_main_path(dev)
     phase_golden(dev)
 
+    # phase 6: band kernels at 1M; phase 7: the large-N path
+    flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
+    kb = phase_band_kernels(dev, flush)
+    del flush
+    torch.cuda.empty_cache()
+    launches_large = phase_large_n(dev)
+
     kernels = [
         dict(name="ell_spmv", route="cuda", source="isph_tpu_torch/csrc/spmv.cu",
              replaces="isph_tpu/ops/spmv_pallas.py:298", launches=launches["ell_spmv"],
@@ -320,6 +557,13 @@ def main() -> int:
         dict(name="take", route="cuda", source="isph_tpu_torch/csrc/take.cu",
              replaces="isph_tpu/ops/spmv_pallas.py:332", launches=launches["take"],
              max_abs_err=0.0, ms=k["take_ms"][0], plain_ms=k["take_ms"][1]),
+        dict(name="ell_spmv_band", route="cuda", source="isph_tpu_torch/csrc/spmv_band.cu",
+             replaces="isph_tpu/ops/spmv_pallas.py:458",
+             launches=launches_large["ell_spmv_band"], max_abs_err=kb["spmv_err"],
+             ms=kb["spmv_ms"][0], plain_ms=kb["spmv_ms"][1]),
+        dict(name="take_band", route="cuda", source="isph_tpu_torch/csrc/take_band.cu",
+             replaces="isph_tpu/ops/spmv_pallas.py:635", launches=launches_large["take_band"],
+             max_abs_err=0.0, ms=kb["take_ms"][0], plain_ms=kb["take_ms"][1]),
     ]
     print(_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

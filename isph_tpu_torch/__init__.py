@@ -3,8 +3,9 @@
 Same layout and names as the JAX package (``isph_tpu``), which stays the
 reference the port is tested against.  Plain tensor code is PyTorch; the
 ELL SpMV and the neighbor gather, which ``isph_tpu`` wrote as Pallas TPU
-kernels, are hand-written CUDA C++ kernels for Hopper (``csrc/``), built
-at first use.  This package never imports jax.
+kernels (with band-window variants for large N), are hand-written CUDA C++
+kernels for Hopper (``csrc/``), built at first use.  This package never
+imports jax.
 """
 
 from isph_tpu_torch import config, state

@@ -3,8 +3,9 @@
 ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared library
 with a plain C interface, loaded with ctypes.  The library lands in
 ``build/isph_tpu_torch/`` at the repository root under a name keyed on a
-hash of the sources and flags, so an edited source rebuilds and an
-unchanged one loads the existing file.  Nothing here runs at import time.
+hash of the sources, their ``csrc/*.cuh`` headers and the flags, so an
+edited source rebuilds and an unchanged one loads the existing file.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "isph_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -40,15 +41,16 @@ def sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sources():
+    for f in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"libisph_kernels-{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile the kernels unless a library of the same sources exists.
-    The compiler's report (ptxas registers and spills) is kept beside the
+    """Compile the kernels unless a library of the same sources exists:
+    one ``nvcc -c`` per source, all started together, then one link.  The
+    compiler's report (ptxas registers and spills) is kept beside the
     library as ``.log``.  Raises when ``nvcc`` is missing or fails."""
     out = library_path()
     if out.exists():
@@ -59,12 +61,23 @@ def build() -> Path:
             "nvcc not found (PATH or /usr/local/cuda/bin): cannot build the "
             f"CUDA kernels in {CSRC}")
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [out.with_name(f"{tag}.{src.stem}.o") for src in sources()]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources(), objs)]
+    reports = [p.communicate()[0] for p in procs]
+    failed = [(p.returncode, r) for p, r in zip(procs, reports) if p.returncode != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed[0][0]}):\n{failed[0][1]}")
+    tmp = out.with_name(f"{tag}.so.tmp")
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+    for obj in objs:
+        obj.unlink()
+    out.with_suffix(".log").write_text("".join(reports) + link.stdout + link.stderr)
     os.replace(tmp, out)
     return out
 
@@ -79,4 +92,10 @@ def load_library() -> ctypes.CDLL:
     lib.isph_ell_spmv.restype = i32
     lib.isph_take.argtypes = [i32, vp, vp, vp, i32, i32, i64, i64, i32, vp]
     lib.isph_take.restype = i32
+    lib.isph_spmv_band.argtypes = [i32, vp, vp, vp, vp, vp, i32, i64, i32, i64, i32, i32, vp]
+    lib.isph_spmv_band.restype = i32
+    lib.isph_take_band.argtypes = [i32, vp, vp, vp, i32, i32, i64, i64, i32, i32, vp]
+    lib.isph_take_band.restype = i32
+    lib.isph_smem_optin.argtypes = [i32]
+    lib.isph_smem_optin.restype = i32
     return lib

@@ -5,9 +5,11 @@ configuration built for the JAX package carries over field by field
 (``interop.config_from_dict``).  A separate module is needed because
 importing ``isph_tpu.config`` imports jax through ``isph_tpu/__init__.py``.
 
-``NeighborConfig`` has no ``gather_chunks``, ``stream_window`` or
-``stream_subcap``: those size the TPU gather plan, and CUDA gathers
-directly from the neighbor index array.
+``NeighborConfig`` has no ``gather_chunks``: it sizes the TPU gather plan,
+and CUDA gathers directly from the neighbor index array.  ``stream_window``
+and ``stream_subcap`` keep the JAX meaning: a nonzero window turns on the
+band check of the neighbor build and routes every SpMV and pair gather
+through the band-window kernels (``ops/spmv_cuda.py``).
 """
 
 from __future__ import annotations
@@ -169,6 +171,13 @@ class NeighborConfig:
     max_neighbors: int = 64  # K: padded neighbor width
     cell_capacity: int = 32  # max particles per cell bin
     cell_subdiv: int = 1  # search cells of width >= cutoff / cell_subdiv
+    # >0 (particles, multiple of 128): every column of a row must lie in the
+    # band window [base - W, base + S + W) of the row's step of S rows, with
+    # periodic wrap; columns outside count as neighbor overflow
+    stream_window: int = 0
+    # row tiles of 128 per step (cap; the largest power of two dividing the
+    # tile count is used), so S = 128 * that power of two
+    stream_subcap: int = 64
 
 
 @dataclasses.dataclass(frozen=True)

@@ -15,9 +15,6 @@ import torch
 from isph_tpu_torch import config as C
 from isph_tpu_torch.state import ParticleState
 
-# NeighborConfig fields that size the TPU gather plan; CUDA gathers directly
-# from the neighbor index array, so the port has no plan to size
-_TPU_PLAN_FIELDS = ("gather_chunks", "stream_window", "stream_subcap")
 
 _INT_FIELDS = {"kind": torch.int32, "step": torch.int32}
 _BOOL_FIELDS = {"valid"}
@@ -26,9 +23,12 @@ _BOOL_FIELDS = {"valid"}
 def state_from_numpy(fields: Mapping[str, np.ndarray], device, dtype: torch.dtype) -> ParticleState:
     """Port state from a JAX state's non-None fields as numpy arrays
     (same names, same layouts).  Floating fields are cast to ``dtype``;
-    ``kind``/``step`` stay int32 and ``valid`` bool.  A field the port does
-    not carry raises: it belongs to a feature that is not ported yet."""
-    names = {f.name for f in dataclasses.fields(ParticleState)}
+    ``kind``/``step`` stay int32 and ``valid`` bool.  ``amg_cache`` is
+    left behind: the port builds its AMG hierarchy at the state's first
+    solve.  A field the port does not carry raises: it belongs to a feature
+    that is not ported yet."""
+    names = {f.name for f in dataclasses.fields(ParticleState)} - {"amg_cache"}
+    fields = {k: v for k, v in fields.items() if k != "amg_cache"}
     extra = sorted(set(fields) - names)
     if extra:
         raise NotImplementedError(f"state fields not ported: {extra}")
@@ -49,7 +49,10 @@ def state_from_numpy(fields: Mapping[str, np.ndarray], device, dtype: torch.dtyp
 
 def config_from_dict(d: Mapping) -> C.SimulationConfig:
     """Port config from ``dataclasses.asdict`` of a JAX ``SimulationConfig``.
-    The three TPU gather-plan fields of ``neighbor`` are dropped."""
+    ``neighbor.gather_chunks`` (the TPU gather plan's width) is dropped.
+    ``stream_window`` carries across only when ``gather_chunks`` is truthy,
+    because the JAX package streams only through a plan
+    (``isph_tpu/ops/neighbors.py:310-316``); otherwise it becomes 0."""
     sub = {
         "kernel": C.KernelConfig, "ns": C.NavierStokesConfig,
         "pb": C.PoissonBoltzmannConfig, "ae": C.AppliedElectricFieldConfig,
@@ -64,8 +67,8 @@ def config_from_dict(d: Mapping) -> C.SimulationConfig:
             continue
         fields = dict(kw[name])
         if name == "neighbor":
-            for f in _TPU_PLAN_FIELDS:
-                fields.pop(f, None)
+            if not fields.pop("gather_chunks", None):
+                fields["stream_window"] = 0
         kw[name] = cls(**fields)
     kernel, ns = kw.get("kernel"), kw.get("ns")
     if kernel is not None:

@@ -52,7 +52,6 @@ def unported_features(cfg: SimulationConfig) -> list[str]:
         (cfg.ns.is_block_helmholtz_enabled, "block Helmholtz"),
         (cfg.solver.recycle_k > 0, "recycle_k (recycling GMRES)"),
         (cfg.solver.precond == "ilu", "ILU preconditioner"),
-        (cfg.solver.precond == "amg", "AMG preconditioner"),
     ]
     return [name for on, name in checks if on]
 
@@ -74,6 +73,7 @@ class Simulation:
         return build_neighbor_list(
             state.x, state.valid, self.domain, self.cfg.cut,
             nb.max_neighbors, nb.cell_capacity, cell_subdiv=nb.cell_subdiv,
+            stream_window=nb.stream_window, stream_subcap=nb.stream_subcap,
         )
 
     def geometry(self, state: ParticleState, nbrs: NeighborList) -> PairGeom:
@@ -85,9 +85,10 @@ class Simulation:
 
     # -- backend prep --------------------------------------------------------
     def prepare(self, state: ParticleState) -> ParticleState:
-        """Check that every enabled feature is ported.  The corrected backend
-        with Jacobi carries no history, so the state comes back unchanged
-        (no AMG hierarchy cache is seeded)."""
+        """Check that every enabled feature is ported.  The state comes back
+        unchanged: no AMG hierarchy cache is seeded, because a state without
+        one builds its hierarchy at its first solve
+        (``ns_projection.amg_rebuild_due``)."""
         missing = unported_features(self.cfg)
         if missing:
             raise NotImplementedError(f"not yet ported: {', '.join(missing)}")
@@ -132,11 +133,13 @@ class Simulation:
         return state, aux
 
     def with_larger_neighbors(self) -> "Simulation":
-        """Grown neighbor shapes for the overflow policy: +8 padded slots and
-        a doubled cell bucket."""
+        """Grown neighbor shapes for the overflow policy: +8 padded slots, a
+        doubled cell bucket and a doubled band window (a band overflow
+        folds into neighbor overflow, and only a wider window cures it)."""
         nb = self.cfg.neighbor
         grown = dataclasses.replace(
-            nb, max_neighbors=nb.max_neighbors + 8, cell_capacity=nb.cell_capacity * 2)
+            nb, max_neighbors=nb.max_neighbors + 8, cell_capacity=nb.cell_capacity * 2,
+            stream_window=nb.stream_window * 2)
         return dataclasses.replace(self, cfg=self.cfg.replace(neighbor=grown))
 
     def run(self, state: ParticleState, nsteps: int) -> Tuple[ParticleState, StepAux]:
@@ -157,8 +160,10 @@ class Simulation:
                 retries += 1
                 if retries > 4:
                     raise RuntimeError(
-                        f"step {done}: neighbor overflow persists after "
-                        f"{retries - 1} shape growths")
+                        f"step {done}: neighbor/band overflow persists after "
+                        f"{retries - 1} shape growths; re-sort the particle order "
+                        "or raise neighbor.stream_window "
+                        f"(now {sim.cfg.neighbor.stream_window})")
                 sim = sim.with_larger_neighbors()
                 continue  # retry the same step with room for every pair
             state = new_state

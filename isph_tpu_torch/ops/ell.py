@@ -6,16 +6,18 @@ Every row of the SPH operator matrices has exactly the row's neighbors
 graph: values live in a (K, N) tensor aligned with ``idx``, the diagonal is
 separate.  Assembly is scatter-free elementwise arithmetic; SpMV is one
 gather + reduction, which on CUDA tensors is the hand-written kernel
-(``ops/spmv_cuda.py``).
+(``ops/spmv_cuda.py``): the band-window kernel when the matrix was built
+on a streaming neighbor list (``band`` set), else the plain ELL kernel.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
-from isph_tpu_torch.ops.spmv_cuda import ell_spmv
+from isph_tpu_torch.ops.spmv_cuda import BandSpec, ell_spmv, ell_spmv_band
 
 
 @dataclasses.dataclass
@@ -26,6 +28,7 @@ class ELL:
     vals: torch.Tensor  # (K, N)
     idx: torch.Tensor  # (K, N) int32
     mask: torch.Tensor  # (K, N) float 0/1
+    band: Optional[BandSpec] = None  # band spec of a streaming neighbor list
 
     @property
     def n(self) -> int:
@@ -37,29 +40,33 @@ class ELL:
 
         INVARIANT: ``vals`` holds exact zeros on masked slots — every
         constructor multiplies by the pair mask at assembly."""
+        if self.band is not None:
+            return ell_spmv_band(self.diag, self.vals, self.idx, x, self.band)
         return ell_spmv(self.diag, self.vals, self.idx, x)
 
     def left_scale(self, s: torch.Tensor) -> "ELL":
         """Row scaling (Epetra LeftScale, used to apply 1/rho)."""
-        return ELL(self.diag * s, self.vals * s[None, :], self.idx, self.mask)
+        return ELL(self.diag * s, self.vals * s[None, :], self.idx, self.mask, self.band)
 
     def scale(self, a) -> "ELL":
-        return ELL(self.diag * a, self.vals * a, self.idx, self.mask)
+        return ELL(self.diag * a, self.vals * a, self.idx, self.mask, self.band)
 
     def with_diag(self, diag: torch.Tensor) -> "ELL":
-        return ELL(diag, self.vals, self.idx, self.mask)
+        return ELL(diag, self.vals, self.idx, self.mask, self.band)
 
     def add(self, other: "ELL") -> "ELL":
         """Sum of two matrices sharing the same sparsity (idx/mask)."""
-        return ELL(self.diag + other.diag, self.vals + other.vals, self.idx, self.mask)
+        return ELL(self.diag + other.diag, self.vals + other.vals, self.idx, self.mask,
+                   self.band)
 
     def zero_rows(self, rows: torch.Tensor) -> "ELL":
         """Zero out full rows where ``rows`` (N,) bool is True (keeps diag)."""
         keep = (~rows).to(self.vals.dtype)
-        return ELL(self.diag, self.vals * keep[None, :], self.idx, self.mask)
+        return ELL(self.diag, self.vals * keep[None, :], self.idx, self.mask, self.band)
 
     def to_dense(self) -> torch.Tensor:
-        """For tests only: (N, N) dense with A[i, j]."""
+        """(N, N) dense with A[i, j]: AMG's coarsest level is inverted from
+        it (``solvers/amg.py``), and tests compare with it."""
         k, n = self.vals.shape
         a = torch.zeros((n, n), dtype=self.vals.dtype, device=self.vals.device)
         rows = torch.arange(n, device=self.vals.device)[None, :].expand(k, n)

@@ -16,20 +16,26 @@ indices themselves, so ties cannot change ``idx``.
 Padding convention: invalid slots repeat the row's last valid neighbor index
 (the row's own index i when it has no neighbors) with mask 0, so gathers
 never go out of bounds and masked contributions vanish.
+
+Streaming lists (``stream_window`` W > 0) also carry a :class:`BandSpec`:
+the band check of the JAX package's ``to_streaming``
+(``isph_tpu/ops/spmv_pallas.py:135-150``) counts the columns that fall
+outside their step's band window into ``overflow``, and every gather and
+SpMV of such a list goes through the band-window kernels.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from isph_tpu_torch.state import Domain
 from isph_tpu_torch.ops.kernels import Kernel
-from isph_tpu_torch.ops.spmv_cuda import take
+from isph_tpu_torch.ops.spmv_cuda import LANE, BandSpec, take, take_band
 
 
 @dataclasses.dataclass
@@ -41,7 +47,8 @@ class NeighborList:
     idx: torch.Tensor  # (K, N) int32, contiguous
     mask: torch.Tensor  # (K, N) bool
     count: torch.Tensor  # (N,) int32 — true neighbor count per particle
-    overflow: torch.Tensor  # () int32 — positive if K or cell capacity overflowed
+    overflow: torch.Tensor  # () int32 — positive if K, cell capacity or band overflowed
+    band: Optional[BandSpec] = None  # set for a streaming list (stream_window > 0)
 
 
 @dataclasses.dataclass
@@ -57,6 +64,7 @@ class PairGeom:
     w: torch.Tensor  # (K, N) kernel value
     dwdr: torch.Tensor  # (K, N) kernel radial derivative
     w_self: torch.Tensor  # () kernel value at r=0
+    band: Optional[BandSpec] = None  # copied from the NeighborList
 
     @property
     def n(self) -> int:
@@ -68,8 +76,17 @@ class PairGeom:
 
     def gather(self, f: torch.Tensor) -> torch.Tensor:
         """f (N,) -> (K, N); f (D, N) -> (D, K, N), any dtype the take
-        kernel has (f32, f64, int32, bool)."""
-        return take(f, self.idx)
+        kernel has (f32, f64, int32, bool); through the band window when
+        the list is a streaming one."""
+        return gather(f, self.idx, self.band)
+
+
+def gather(f: torch.Tensor, idx: torch.Tensor, band: Optional[BandSpec]) -> torch.Tensor:
+    """f[..., idx] through the take kernel, or the band kernel for a
+    streaming list (``band`` set)."""
+    if band is not None:
+        return take_band(f, idx, band)
+    return take(f, idx)
 
 
 # `ISPH_EPSILON` guard used by the reference when dividing by r
@@ -102,6 +119,42 @@ def lattice_cell_capacity(domain: Domain, cutoff: float, dx: float, *,
     return max(8, -(-cap // 8) * 8)
 
 
+def pick_subtiles(ntiles: int, cap: int) -> int:
+    """Row tiles per band step: the largest power of two <= cap dividing
+    ntiles (``isph_tpu/ops/spmv_pallas.py:_pick_subtiles``)."""
+    s = 1
+    while s < cap and ntiles % (2 * s) == 0:
+        s *= 2
+    return s
+
+
+def band_check(idx: torch.Tensor, window: int, subcap: int) -> Tuple[torch.Tensor, BandSpec]:
+    """Count the columns of a (K, N) index array outside their step's band
+    window, and return the count with the band spec.
+
+    The arithmetic of ``to_streaming`` (spmv_pallas.py:135-150), per
+    element instead of per gather-plan chunk: rows come in 128-row tiles
+    grouped into steps of ``sub`` tiles; each column's 128-chunk is
+    unwrapped to the periodic image nearest its row's tile, and must lie
+    within ``window // 128`` chunks of the step.  The plan's chunks are the
+    chunks of the elements, so the count is positive exactly when JAX's is
+    (while JAX's own plan does not overflow), though not the same number.
+    """
+    K, n = idx.shape
+    if n % LANE or window % LANE or window <= 0:
+        raise ValueError(f"band check needs N % {LANE} == 0 and a positive window "
+                         f"that is a multiple of {LANE}; got N={n}, window={window}")
+    nch = n // LANE
+    sub = pick_subtiles(nch, subcap)
+    wch = window // LANE
+    trow = (torch.arange(n, dtype=torch.int32, device=idx.device) // LANE)[None, :]
+    d = idx // LANE - trow
+    d = d - torch.round(d.to(torch.float32) / nch).to(torch.int32) * nch
+    rel = trow + d - trow // sub * sub
+    ovf = ((rel < -wch) | (rel > sub + wch - 1)).sum()
+    return ovf.to(torch.int32), BandSpec(window=window, rows=sub * LANE)
+
+
 def build_neighbor_list(
     x: torch.Tensor,
     valid: torch.Tensor,
@@ -110,8 +163,12 @@ def build_neighbor_list(
     max_neighbors: int,
     cell_capacity: int = 32,
     cell_subdiv: int = 1,
+    stream_window: int = 0,
+    stream_subcap: int = 64,
 ) -> NeighborList:
-    """Cell-list neighbor search with static shapes.  x is (D, N)."""
+    """Cell-list neighbor search with static shapes.  x is (D, N).  With
+    ``stream_window`` > 0 the list is a streaming one: the band check's
+    count joins ``overflow`` and the list carries its :class:`BandSpec`."""
     dim, n = x.shape
     dev = x.device
     i32 = torch.int32
@@ -223,7 +280,12 @@ def build_neighbor_list(
     mask = mask_nk.T.contiguous()
     idx = torch.where(mask, idx_nk.T.to(i32), pad[None, :]).contiguous()
     overflow = torch.clamp_min(count.max() - K, 0) + cell_overflow
-    return NeighborList(idx=idx, mask=mask, count=count, overflow=overflow.to(i32))
+    band = None
+    if stream_window:
+        band_ovf, band = band_check(idx, stream_window, stream_subcap)
+        overflow = overflow + band_ovf
+    return NeighborList(idx=idx, mask=mask, count=count, overflow=overflow.to(i32),
+                        band=band)
 
 
 def build_neighbor_list_bruteforce(
@@ -265,12 +327,13 @@ def compute_pair_geometry(
 ) -> PairGeom:
     """Displacement, distance, unit vector and kernel values for every (k, i)
     pair slot, computed once; every operator downstream reuses them.
-    x: (D, N).  x_j comes through the take kernel on CUDA tensors."""
+    x: (D, N).  x_j comes through the take kernel on CUDA tensors (the band
+    kernel for a streaming list)."""
     dim = x.shape[0]
     dtype = x.dtype
     xw = domain.wrap(x)
     maskf = nbrs.mask.to(dtype)
-    xj = take(xw, nbrs.idx)  # (D, K, N)
+    xj = gather(xw, nbrs.idx, nbrs.band)  # (D, K, N)
     rij = torch.stack(
         [domain.minimum_image_axis(xw[d][None, :] - xj[d], d) * maskf for d in range(dim)]
     )  # (D, K, N)
@@ -280,4 +343,4 @@ def compute_pair_geometry(
     dwdr = kernel.dw(r, h, dim) * maskf
     w_self = kernel.w(torch.zeros((), dtype=dtype, device=x.device), h, dim)
     return PairGeom(idx=nbrs.idx, mask=maskf, rij=rij, r=r, eij=eij, w=w,
-                    dwdr=dwdr, w_self=w_self)
+                    dwdr=dwdr, w_self=w_self, band=nbrs.band)

@@ -1,6 +1,6 @@
 """ELL SpMV and neighbor-gather kernels for Hopper, with their plain versions.
 
-Counterpart of ``isph_tpu/ops/spmv_pallas.py``.  The two CUDA C++ kernels
+Counterpart of ``isph_tpu/ops/spmv_pallas.py``.  The four CUDA C++ kernels
 live in ``isph_tpu_torch/csrc/`` and are built at first use
 (``isph_tpu_torch/_build.py``):
 
@@ -13,6 +13,13 @@ live in ``isph_tpu_torch/csrc/`` and are built at first use
   out[c, k, i] = x[c, idx[k, i]], for f32, f64, int32, uint8 and bool.
   Bytes bound: 4 B idx read + one element written per output; coalesced
   along i, x through the read-only path.
+- ``csrc/spmv_band.cu`` replaces ``_spmv_stream_kernel`` (spmv_pallas.py:
+  458-506) and ``csrc/take_band.cu`` replaces ``_take_stream_kernel``
+  (:635-663): the same two functions for a streaming neighbor list, whose
+  band check guarantees that every column of a row lies in the band window
+  of the row's step (:class:`BandSpec`).  A block stages that window of x
+  into shared memory and gathers from there.  Their plain versions are
+  ``spmv_plain`` and ``take_plain``: the function is the same.
 
 Dispatch rule: a wrapper uses the plain PyTorch version only when it is
 given CPU tensors.  On CUDA tensors it checks device, dtype, shape and
@@ -22,9 +29,26 @@ Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from isph_tpu_torch import _build
+
+LANE = 128  # row-tile height and column-chunk width of the band check
+
+
+class BandSpec(NamedTuple):
+    """Band window of a streaming neighbor list: rows come in steps of
+    ``rows`` (S), and every column of a row in step s lies in
+    [s*S - window, s*S + S + window) of the particle axis, with the
+    periodic wrap.  The neighbor build checks it and counts violations as
+    overflow (``ops/neighbors.py``)."""
+
+    window: int  # W, a multiple of 128
+    rows: int  # S = 128 * (row tiles per step)
+
 
 _SPMV_DTYPES = {torch.float32: 0, torch.float64: 1}
 _TAKE_DTYPES = {torch.float32: 0, torch.float64: 1, torch.int32: 2,
@@ -61,17 +85,15 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def ell_spmv(diag: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
-             x: torch.Tensor) -> torch.Tensor:
-    """y = diag*x + sum_k vals[k]*x[..., idx[k]] (vals already masked)."""
-    if x.device.type == "cpu":
-        return spmv_plain(diag, vals, idx, x)
+def _check_spmv(diag, vals, idx, x) -> tuple[int, int, int]:
+    """Device, dtype, shape and contiguity checks of an SpMV launch;
+    returns (K, N, C)."""
     _require_cuda(diag, vals, idx, x)
     _require(vals.ndim == 2 and idx.shape == vals.shape,
              f"vals {tuple(vals.shape)} and idx {tuple(idx.shape)} must be one (K, N) shape")
     K, n = vals.shape
     _require(idx.dtype == torch.int32, f"idx must be int32, got {idx.dtype}")
-    _require(x.dtype in _SPMV_DTYPES, f"ell_spmv takes f32/f64, got {x.dtype}")
+    _require(x.dtype in _SPMV_DTYPES, f"SpMV takes f32/f64, got {x.dtype}")
     _require(diag.dtype == x.dtype and vals.dtype == x.dtype,
              "diag, vals and x must share one dtype")
     _require(diag.shape == (n,), f"diag {tuple(diag.shape)} != ({n},)")
@@ -79,7 +101,15 @@ def ell_spmv(diag: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
              f"x must be ({n},) or (C <= 3, {n}), got {tuple(x.shape)}")
     for name, t in (("diag", diag), ("vals", vals), ("idx", idx), ("x", x)):
         _require(t.is_contiguous(), f"{name} must be contiguous")
-    ncomp = 1 if x.ndim == 1 else x.shape[0]
+    return K, n, 1 if x.ndim == 1 else x.shape[0]
+
+
+def ell_spmv(diag: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
+             x: torch.Tensor) -> torch.Tensor:
+    """y = diag*x + sum_k vals[k]*x[..., idx[k]] (vals already masked)."""
+    if x.device.type == "cpu":
+        return spmv_plain(diag, vals, idx, x)
+    K, n, ncomp = _check_spmv(diag, vals, idx, x)
     lib = _build.load_library()
     y = torch.empty_like(x)
     if n == 0:
@@ -123,3 +153,97 @@ def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 take.launches = 0
+
+
+@functools.cache
+def _smem_optin(device: int) -> int:
+    """Shared memory one block may use after opting in (bytes)."""
+    got = _build.load_library().isph_smem_optin(device)
+    if got <= 0:
+        raise RuntimeError(f"cudaDeviceGetAttribute failed: cudaError {-got}")
+    return got
+
+
+def _band_plan(band: BandSpec | None, n: int, itemsize: int, ncomp: int,
+               device: int) -> int:
+    """Check a band launch; returns how many components one launch takes
+    (all of them, or 1 when their windows together exceed shared memory)."""
+    _require(band is not None, "band kernel needs a BandSpec (stream_window > 0)")
+    W, S = band
+    _require(n % LANE == 0, f"band kernel needs N % {LANE} == 0, got N={n}")
+    _require(W > 0 and W % LANE == 0, f"window {W} must be a positive multiple of {LANE}")
+    _require(S > 0 and S % LANE == 0 and n % S == 0,
+             f"step rows {S} must be a multiple of {LANE} dividing N={n}")
+    per = (S + 2 * W) * itemsize
+    limit = _smem_optin(device)
+    _require(per <= limit, f"band window of {S + 2 * W} elements ({per} B) exceeds "
+             f"the card's {limit} B of shared memory per block")
+    return ncomp if ncomp * per <= limit else 1
+
+
+def _require_aligned(x: torch.Tensor) -> None:
+    _require(x.data_ptr() % 16 == 0, "x must be 16-byte aligned (cp.async pieces)")
+
+
+def ell_spmv_band(diag: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
+                  x: torch.Tensor, band: BandSpec | None) -> torch.Tensor:
+    """``ell_spmv`` for a streaming neighbor list: x is read through the
+    band window of each step (``csrc/spmv_band.cu``)."""
+    if x.device.type == "cpu":
+        return spmv_plain(diag, vals, idx, x)
+    K, n, ncomp = _check_spmv(diag, vals, idx, x)
+    per_call = _band_plan(band, n, x.element_size(), ncomp, x.device.index)
+    _require_aligned(x)
+    if per_call < ncomp:
+        return torch.stack([ell_spmv_band(diag, vals, idx, x[c], band)
+                            for c in range(ncomp)])
+    lib = _build.load_library()
+    y = torch.empty_like(x)
+    err = lib.isph_spmv_band(
+        _SPMV_DTYPES[x.dtype], diag.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+        x.data_ptr(), y.data_ptr(), K, n, ncomp, band.rows, band.window,
+        x.device.index, _stream(x))
+    if err != 0:
+        raise RuntimeError(f"ell_spmv_band kernel launch failed: cudaError {err}")
+    ell_spmv_band.launches += 1
+    return y
+
+
+ell_spmv_band.launches = 0
+
+
+def take_band(x: torch.Tensor, idx: torch.Tensor, band: BandSpec | None) -> torch.Tensor:
+    """``take`` for a streaming neighbor list and a square (K, N) index
+    array: x is read through the band window of each step
+    (``csrc/take_band.cu``)."""
+    if x.device.type == "cpu":
+        return take_plain(x, idx)
+    _require_cuda(x, idx)
+    _require(idx.ndim == 2 and idx.dtype == torch.int32,
+             f"idx must be (K, N) int32, got {tuple(idx.shape)} {idx.dtype}")
+    _require(x.dtype in _TAKE_DTYPES, f"take_band has no kernel for {x.dtype}")
+    _require(x.ndim in (1, 2), f"x must be (N,) or (C, N), got {tuple(x.shape)}")
+    _require(x.is_contiguous() and idx.is_contiguous(), "x and idx must be contiguous")
+    K, n = idx.shape
+    _require(x.shape[-1] == n, f"take_band needs a square gather: x {tuple(x.shape)}, "
+             f"idx {tuple(idx.shape)}")
+    ncomp = 1 if x.ndim == 1 else x.shape[0]
+    per_call = _band_plan(band, n, x.element_size(), ncomp, x.device.index)
+    _require_aligned(x)
+    if per_call < ncomp:
+        return torch.stack([take_band(x[c], idx, band) for c in range(ncomp)])
+    lib = _build.load_library()
+    out = torch.empty(((K, n) if x.ndim == 1 else (ncomp, K, n)), dtype=x.dtype,
+                      device=x.device)
+    if K == 0:
+        return out
+    err = lib.isph_take_band(_TAKE_DTYPES[x.dtype], x.data_ptr(), idx.data_ptr(),
+                             out.data_ptr(), ncomp, K, n, band.rows, band.window,
+                             x.device.index, _stream(x))
+    if err != 0:
+        raise RuntimeError(f"take_band kernel launch failed: cudaError {err}")
+    take_band.launches += 1
+    return out
+
+
+take_band.launches = 0

@@ -1,6 +1,6 @@
 """Incompressible Navier-Stokes, projection (pressure-correction) scheme
 (PyTorch port of ``isph_tpu/physics/ns_projection.py`` for the corrected
-backend without walls mirrors, recycling or AMG).
+backend without wall mirrors or recycling).
 
 One timestep (reference PairISPH::computeIncompressibleNavierStokes,
 pair_isph.cpp:910-1034):
@@ -27,6 +27,7 @@ from isph_tpu_torch.ops import corrected as ops
 from isph_tpu_torch.ops.corrected import ANTISYMMETRIC, SYMMETRIC, Family, PairFilter
 from isph_tpu_torch.ops.ell import ELL
 from isph_tpu_torch.ops.neighbors import PairGeom
+from isph_tpu_torch.solvers.amg import AMGCache, amg_from_cache, build_amg, cache_of
 from isph_tpu_torch.solvers.krylov import KrylovResult, cg, gmres
 from isph_tpu_torch.solvers.precond import jacobi
 
@@ -50,19 +51,26 @@ class SolveInfo(NamedTuple):
 
 
 def _solve(cfg: SimulationConfig, A: ELL, b, x0, *, null_vec=None,
-           amg: Optional[Tuple] = None) -> KrylovResult:
+           amg: Optional[Tuple] = None, M_override=None) -> KrylovResult:
     """One Krylov solve with the configured method and preconditioner.
     ``amg`` = (x, domain, cutoff) when the solve has domain info in scope;
-    without it "amg" means Jacobi, as in the reference's Belos/ML pairing."""
+    without it "amg" means Jacobi, as in the reference's Belos/ML pairing.
+    ``M_override`` is a ready preconditioner apply (a cached AMG cycle, see
+    :func:`_amg_cached`) that takes the place of the ladder below."""
     sc = cfg.solver
     # dtype-aware tolerance floor: the Belos default 1e-8 presumes f64; in
     # f32 the attainable relative residual bottoms out near ~30 eps
     tol = max(sc.tol, 30.0 * float(torch.finfo(b.dtype).eps))
-    if amg is not None and sc.precond == "amg":
-        raise NotImplementedError("AMG not yet ported")
-    if sc.precond == "ilu":
+    if M_override is not None:
+        M = M_override
+    elif amg is not None and sc.precond == "amg":
+        # AMG hierarchy (replaces ML, precond_ml.h); the null vector rides
+        # into the hierarchy (ML setNullVector parity)
+        x_pos, domain, cutoff = amg
+        M = build_amg(A, x_pos, domain, cutoff, null_vec=null_vec).apply
+    elif sc.precond == "ilu":
         raise NotImplementedError("ILU preconditioner not yet ported")
-    if sc.precond in ("jacobi", "amg"):
+    elif sc.precond in ("jacobi", "amg"):
         M = jacobi(A)
     else:
         M = None
@@ -228,8 +236,16 @@ def poisson_system(
 def solve_poisson(
     state: ParticleState, geom: PairGeom, pre: Precomputed, cfg: SimulationConfig,
     vstar: torch.Tensor, *, domain: Optional[Domain] = None,
-) -> Tuple[torch.Tensor, KrylovResult]:
-    """Solve the pressure Poisson system; returns (dp, result).
+    amg_cache: Optional[AMGCache] = None, amg_rebuild: Optional[bool] = None,
+) -> Tuple[torch.Tensor, KrylovResult, Optional[AMGCache]]:
+    """Solve the pressure Poisson system; returns (dp, result, cache).
+
+    ``amg_rebuild`` None solves without a hierarchy cache (AMG, when
+    configured and ``domain`` is given, is built for this solve alone).
+    Otherwise the max-age policy applies: the hierarchy is built from the
+    current matrix when ``amg_rebuild`` is true, else ``amg_cache`` is
+    reused with a fresh fine-level smoother, and the cache in use comes
+    back as ``cache`` (None when no cache applies).
 
     With homogeneous-Neumann walls the system is block triangular: fluid
     rows touch only fluid columns, so the fluid block is solved alone (the
@@ -249,12 +265,27 @@ def solve_poisson(
         A_f = A.zero_rows(~fluid_rows).with_diag(
             torch.where(fluid_rows, A.diag, torch.ones_like(A.diag)))
         b_f = torch.where(fluid_rows, b, 0.0)
-        res = _solve(cfg, A_f, b_f, x0, null_vec=null_vec, amg=amg)
+        M, cache = _amg_cached(cfg, A_f, amg, null_vec, amg_cache, amg_rebuild)
+        res = _solve(cfg, A_f, b_f, x0, null_vec=null_vec, amg=amg, M_override=M)
         dp = relax_wall_pressure(A, b, res.x, state, pre)
-        return dp, res
+        return dp, res, cache
 
-    res = _solve(cfg, A, b, x0, null_vec=null_vec, amg=amg)
-    return res.x, res
+    M, cache = _amg_cached(cfg, A, amg, null_vec, amg_cache, amg_rebuild)
+    res = _solve(cfg, A, b, x0, null_vec=null_vec, amg=amg, M_override=M)
+    return res.x, res, cache
+
+
+def _amg_cached(cfg: SimulationConfig, A: ELL, amg, null_vec, amg_cache, amg_rebuild):
+    """Max-age AMG: rebuild the hierarchy when ``amg_rebuild`` is true (or
+    there is no cache yet), else reuse the cached coarse levels with a
+    fresh fine-level smoother diagonal.  Returns (M or None, cache or
+    None); (None, None) when no cache applies."""
+    if amg_rebuild is None or amg is None or cfg.solver.precond != "amg":
+        return None, None
+    if amg_rebuild or amg_cache is None:
+        x_pos, domain, cutoff = amg
+        amg_cache = cache_of(build_amg(A, x_pos, domain, cutoff, null_vec=null_vec))
+    return amg_from_cache(A, amg_cache, null_vec=null_vec).apply, amg_cache
 
 
 def relax_wall_pressure(
@@ -341,6 +372,24 @@ def advance_time(
 # Full NS sub-step (Helmholtz -> Poisson -> correct)
 # ---------------------------------------------------------------------------
 
+def amg_rebuild_due(state: ParticleState, cfg: SimulationConfig) -> Optional[bool]:
+    """The AMG max-age policy (solver_nox_stratimikos.h precond max-age):
+    None when no hierarchy is carried between steps (precond other than
+    "amg", or ``precond_max_age`` <= 1: AMG is then built for every solve);
+    else whether this step builds a fresh one.  It does when the state
+    carries no cache yet, whatever its step, and on every
+    ``precond_max_age``-th step.  From step 0 this is the JAX package's
+    schedule; a state that enters elsewhere without a cache builds one at
+    its first solve instead of running on a zero-filled one until the next
+    age boundary (``isph_tpu/models/driver.py:100-114``)."""
+    sc = cfg.solver
+    if sc.precond != "amg" or sc.precond_max_age <= 1:
+        return None
+    if state.amg_cache is None or state.step is None:
+        return True
+    return int(state.step) % sc.precond_max_age == 0
+
+
 def navier_stokes_step(
     state: ParticleState,
     geom: PairGeom,
@@ -357,7 +406,11 @@ def navier_stokes_step(
     if cfg.solver.recycle_k > 0:
         raise NotImplementedError("recycle_k (GCRO-DR recycling GMRES) not yet ported")
     vstar, hinfo = solve_helmholtz(state, geom, pre, cfg)
-    dp, pinfo = solve_poisson(state, geom, pre, cfg, vstar, domain=domain)
+    dp, pinfo, cache = solve_poisson(
+        state, geom, pre, cfg, vstar, domain=domain,
+        amg_cache=state.amg_cache, amg_rebuild=amg_rebuild_due(state, cfg))
+    if cache is not None:
+        state = state.replace(amg_cache=cache)
     if cfg.ns.use_incremental_pressure:
         dp = zero_mean_pressure(dp, state)
     vstar = correct_velocity(state, geom, pre, cfg, vstar, dp)

@@ -1,5 +1,5 @@
 """Preconditioners (PyTorch port of ``isph_tpu/solvers/precond.py``, Jacobi
-only; Chebyshev, ILU and AMG are not ported yet)."""
+only; Chebyshev and ILU are not ported yet, AMG is ``solvers/amg.py``)."""
 
 from __future__ import annotations
 

@@ -86,6 +86,9 @@ class ParticleState:
     dp: Optional[torch.Tensor] = None  # (N,) pressure increment
     f: Optional[torch.Tensor] = None  # (D, N) body force accumulator
     step: Optional[torch.Tensor] = None  # () int32 timestep counter
+    # AMG hierarchy carried between steps under the max-age policy
+    # (solvers/amg.py AMGCache); None until the first AMG solve builds one
+    amg_cache: Optional[object] = None
 
     @property
     def n(self) -> int:

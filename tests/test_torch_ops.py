@@ -122,10 +122,13 @@ def test_domain_wrap_and_minimum_image_match_jnp():
 def test_interop_config_roundtrip_and_state_fields():
     jsim, jstate = jtgv.make_tgv(16, gather_chunks=8)
     jd = dataclasses.asdict(jsim.cfg)
+    jd["neighbor"]["stream_window"] = 3072
     td = dataclasses.asdict(interop.config_from_dict(jd))
-    for f in ("gather_chunks", "stream_window", "stream_subcap"):
-        jd["neighbor"].pop(f)
-    assert td == jd
+    jd["neighbor"].pop("gather_chunks")
+    assert td == jd  # stream_window and stream_subcap carried with a plan
+    jd["neighbor"]["gather_chunks"] = 0  # JAX streams only through a plan
+    td = dataclasses.asdict(interop.config_from_dict(jd))
+    assert td["neighbor"]["stream_window"] == 0 and td["neighbor"]["stream_subcap"] == 64
     st = port_state(jstate)
     assert st.kind.dtype == torch.int32 and st.valid.dtype == torch.bool
     assert st.x.dtype == F64 and st.step.dtype == torch.int32
