@@ -12,8 +12,12 @@ Phases (each raises on failure; the script then exits non-zero):
    sm_90a and print the build time and the compiler's register report;
 3. kernels: on the pressure-Poisson matrix of the 256^2 Taylor-Green lattice
    (65,536 particles, K = 32, ~1.79M nonzeros), hold the ELL SpMV kernel
-   (C = 1, 2, 3 in f32 and f64) and the take kernel (f32, int32, bool)
-   against their plain PyTorch versions, and time both with CUDA events;
+   (C = 1, 2, 3 in f32 and f64) and the take kernel (f32, f64, int32, uint8
+   and bool at (N,), (2, N) and (3, N), three fields that start one element
+   into a larger buffer, and a ragged K = 33 by m = 65,573 gather of every
+   type) against their plain PyTorch versions (take exactly) and against
+   one library call (a CSR product, index_select); time each with CUDA
+   events beside its bound, the least time the card's HBM rate allows;
 4. main path: three 256^2 Taylor-Green projection steps in f32 with
    Jacobi through Simulation.run, one step per call so that each step is
    timed (the same steps as run(state, 3)), with the launch counters reset
@@ -23,10 +27,11 @@ Phases (each raises on failure; the script then exits non-zero):
    2% (the bar tests/test_f32.py holds the JAX package to);
 6. band kernels: on the pressure-Poisson matrix of the 1024^2 Taylor-Green
    lattice (1,048,576 particles, K = 32, stream window 3072, subcap 64,
-   ~29M nonzeros), hold the band-window SpMV (C = 1, 2, 3 in f32, C = 1 in
-   f64) and take (f32, int32, bool) against their plain versions, time
-   them beside the plain versions and the non-band kernels, warm and with
-   L2 flushed, and show that a window of 128 with subcap 1 overflows;
+   ~29M nonzeros), the same for the band-window SpMV (C = 1, 2, 3 in f32,
+   C = 1 in f64) and take (every type and shape of phase 3 but the ragged
+   one, and an index array one element into a larger buffer), timed
+   beside the non-band kernels, warm and with L2 flushed, and show that a
+   window of 128 with subcap 1 overflows;
 7. large-N path: three 1024^2 f32 steps through Simulation.run with the
    default AMG preconditioner (max age 8) on the streaming neighbor list;
    checks overflow, the Poisson iteration cap, volume, the decaying vmax,
@@ -34,7 +39,9 @@ Phases (each raises on failure; the script then exits non-zero):
    synchronized breakdown with the AMG build and the V-cycles apart.
 
 The last lines are the card's name and power limit from nvidia-smi, one
-JSON line describing the kernels, and the result line
+JSON line describing the kernels (time, launches on the main path, plain
+and library times and bound of each, at the f32 (N,) shape of its phase),
+and the result line
 {"ok": true, "device": {...}}.  Without a CUDA device it prints no result
 and exits non-zero.
 """
@@ -96,7 +103,7 @@ def _tgv(dev, n_lat, precond, **neighbor):
     from isph_tpu_torch.models import tgv
     from isph_tpu_torch.ops.neighbors import lattice_cell_capacity
 
-    sim0, _ = tgv.make_tgv(n_lat, dtype=torch.float32)
+    sim0, _ = tgv.make_tgv(n_lat, dtype=torch.float32, device=dev)
     cap = lattice_cell_capacity(sim0.domain, sim0.cfg.cut, 2 * math.pi / n_lat)
     sim, state = tgv.make_tgv(n_lat, dtype=torch.float32, max_neighbors=32,
                               pad_multiple=128, cell_capacity=cap, device=dev)
@@ -137,6 +144,182 @@ def _spmv_rel_err(yk, yp, diag, vals, idx, x):
     return float(((yk - yp).abs() / terms).max()), float((yk - yp).abs().max())
 
 
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
+FLOPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}  # H100 SXM, no tensor cores
+
+
+def _bound(nbytes: float, flops: float = 0.0, dtype=torch.float32):
+    """(least ms the card could take, "bytes" or "operations"): the larger
+    of the bytes over the HBM rate and the operations over the peak rate."""
+    tb = 1e3 * nbytes / HBM_BYTES_PER_S
+    tf = 1e3 * flops / FLOPS_PER_S[dtype]
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def _spmv_bound(nnz, n, ncomp, dtype):
+    """An SpMV reads each nonzero's value and int32 column once (the
+    diagonal apart), diag and x once, and writes y once; 2 flops a nonzero."""
+    item = torch.empty((), dtype=dtype).element_size()
+    nbytes = (nnz - n) * (item + 4) + n * item + 2 * ncomp * n * item
+    return _bound(nbytes, 2.0 * ncomp * nnz, dtype), nbytes
+
+
+def _csr_of(diag, vals, idx, mask):
+    """The ELL matrix, diagonal folded in, as a CSR tensor with int32
+    indices: the library SpMV's operand, built outside the timed windows."""
+    K, n = vals.shape
+    ar = torch.arange(n, device=vals.device)
+    keep = mask.reshape(-1) != 0
+    rows = torch.cat([ar.repeat(K)[keep], ar])
+    cols = torch.cat([idx.reshape(-1).long()[keep], ar])
+    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]),
+                                  torch.cat([vals.reshape(-1)[keep], diag]), (n, n))
+    csr = coo.coalesce().to_sparse_csr()
+    return torch.sparse_csr_tensor(csr.crow_indices().int(), csr.col_indices().int(),
+                                   csr.values(), (n, n))
+
+
+def _library_spmv(csr, x):
+    return csr @ x if x.ndim == 1 else (csr @ x.T).T
+
+
+def _library_take(x, idx):
+    """One PyTorch call computing take: index_select over the flat index."""
+    return torch.index_select(x, -1, idx.reshape(-1)).reshape(*x.shape[:-1], *idx.shape)
+
+
+TAKE_TYPES = (("f32", torch.float32), ("f64", torch.float64), ("int32", torch.int32),
+              ("uint8", torch.uint8), ("bool", torch.bool))
+# the fields the main path gathers (positions and velocities (2, N), scalar
+# f32 fields, kind bitmasks) and the bool rows of earlier PRs
+TAKE_MAIN_SHAPES = ("f32 (N,)", "f32 (2,N)", "int32 (N,)", "bool (N,)")
+
+
+def _field(rng, shape, dtype, dev, offset=False):
+    """Seeded field; with ``offset`` a view starting one element into a
+    larger buffer (its base breaks every vector alignment)."""
+    size = math.prod(shape) + int(offset)
+    if dtype == torch.bool:
+        a = rng.random(size) < 0.5
+    elif dtype in (torch.int32, torch.uint8):
+        a = rng.integers(0, 256 if dtype == torch.uint8 else 2**31 - 1, size)
+    else:
+        a = rng.standard_normal(size)
+    t = torch.as_tensor(a, device=dev).to(dtype)
+    return (t[1:] if offset else t).view(shape)
+
+
+def _take_fields(rng, n, dev):
+    """Every type at (N,), (2, N) and (3, N), and three offset views."""
+    fields = {}
+    for tname, dtype in TAKE_TYPES:
+        for c in (1, 2, 3):
+            shape = (n,) if c == 1 else (c, n)
+            fields[f"{tname} ({'N,' if c == 1 else f'{c},N'})"] = _field(rng, shape, dtype, dev)
+    for tname, dtype, shape in (("f32", torch.float32, (3, n)), ("f64", torch.float64, (n,)),
+                                ("bool", torch.bool, (2, n))):
+        fields[f"{tname} {tuple(shape)} offset 1"] = _field(rng, shape, dtype, dev, offset=True)
+    return fields
+
+
+def _take_bytes(x, idx):
+    """idx and x read once, the (C, K, m) output written once."""
+    ncomp = 1 if x.ndim == 1 else x.shape[0]
+    return idx.numel() * 4 + (x.numel() + ncomp * idx.numel()) * x.element_size()
+
+
+def _take_sweep(tag, kernel, idx, fields, flush, beside=None):
+    """Hold ``kernel(x, idx)`` against take_plain, atol 0, on every field,
+    and the library call too; time the kernel and the library call at each
+    field, and for the main-path shapes also the plain version, the kernel
+    with L2 flushed and ``beside`` (the non-band kernel)."""
+    from isph_tpu_torch.ops import spmv_cuda as sc
+
+    rows = {}
+    for name, f in fields.items():
+        gk = kernel(f, idx)
+        gp = sc.take_plain(f, idx)
+        gl = _library_take(f, idx)
+        torch.cuda.synchronize()
+        if gk.dtype != f.dtype or gk.shape != gp.shape or not torch.equal(gk, gp):
+            raise RuntimeError(f"{tag} kernel disagrees with plain ({name})")
+        if not torch.equal(gl, gp):
+            raise RuntimeError(f"{tag} library call disagrees with plain ({name})")
+        tk, hk = _median_ms(lambda: kernel(f, idx))
+        tl, _ = _median_ms(lambda: _library_take(f, idx), reps=10)
+        nbytes = _take_bytes(f, idx)
+        bound, by = _bound(nbytes)
+        row = dict(ms=tk, library_ms=tl, bound_ms=bound, bound_by=by, plain_ms=None)
+        more = ""
+        if name in TAKE_MAIN_SHAPES:
+            row["plain_ms"], _ = _median_ms(lambda: sc.take_plain(f, idx), reps=10)
+            tkc, _ = _median_ms(lambda: kernel(f, idx), flush=flush)
+            more = f", L2 flushed {tkc:.4f} ms, plain={row['plain_ms']:.4f} ms"
+            if beside is not None:
+                tb, _ = _median_ms(lambda: beside(f, idx))
+                more += f", non-band take={tb:.4f} ms"
+        rows[name] = row
+        _log(f"{tag}: {name}: exact; kernel={tk:.4f} ms, bound={bound:.4f} ms "
+             f"({nbytes / 1e6:.1f} MB), share={bound / tk:.3f}, library={tl:.4f} ms"
+             f"{more}; host enqueue {hk:.1f} us")
+    return rows
+
+
+def _spmv_sweep(tag, kernel, A, nnz, flush, rng, shapes, beside=None):
+    """Hold ``kernel(diag, vals, idx, x)`` against spmv_plain and the
+    library CSR product on every (dtype, C) of ``shapes``; time all three
+    (and ``beside``, the non-band kernel, where given), warm and with L2
+    flushed."""
+    from isph_tpu_torch.ops import spmv_cuda as sc
+
+    # bound: y_k - y_p is a difference of two summation orders (and FMA
+    # contraction) of the row's terms, so it is held relative to the sum of
+    # the terms' magnitudes: f32 rtol 1e-5 (~K eps), f64 rtol 1e-12; the
+    # library product is held to the same bound
+    K, n = A.vals.shape
+    err = 0.0
+    rows = {}
+    for dtype, comps in shapes:
+        rtol = 1e-5 if dtype == torch.float32 else 1e-12
+        diag, vals = A.diag.to(dtype), A.vals.to(dtype)
+        csr = _csr_of(diag, vals, A.idx, A.mask)
+        for ncomp in comps:
+            shape = (n,) if ncomp == 1 else (ncomp, n)
+            x = torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
+                                device=A.vals.device)
+            yk = kernel(diag, vals, A.idx, x)
+            yp = sc.spmv_plain(diag, vals, A.idx, x)
+            yl = _library_spmv(csr, x)
+            torch.cuda.synchronize()
+            rel, abs_err = _spmv_rel_err(yk, yp, diag, vals, A.idx, x)
+            rel_l, _ = _spmv_rel_err(yl, yp, diag, vals, A.idx, x)
+            err = max(err, abs_err)
+            if not (rel <= rtol and bool(torch.isfinite(yk).all())):
+                raise RuntimeError(f"{tag} disagrees with plain ({dtype}, C={ncomp}): "
+                                   f"rel {rel:.3e}")
+            if not rel_l <= rtol:
+                raise RuntimeError(f"{tag} library CSR product disagrees with plain "
+                                   f"({dtype}, C={ncomp}): rel {rel_l:.3e}")
+            tk, hk = _median_ms(lambda: kernel(diag, vals, A.idx, x))
+            tkc, _ = _median_ms(lambda: kernel(diag, vals, A.idx, x), flush=flush)
+            tp, _ = _median_ms(lambda: sc.spmv_plain(diag, vals, A.idx, x), reps=10)
+            tl, _ = _median_ms(lambda: _library_spmv(csr, x), reps=10)
+            (bound, by), nbytes = _spmv_bound(nnz, n, ncomp, dtype)
+            more = ""
+            if beside is not None:
+                te, _ = _median_ms(lambda: beside(diag, vals, A.idx, x))
+                more = f", non-band ell_spmv={te:.4f} ms"
+            rows[(dtype, ncomp)] = dict(ms=tk, plain_ms=tp, library_ms=tl, bound_ms=bound,
+                                        bound_by=by)
+            _log(f"{tag}: {str(dtype)[6:]} C={ncomp}: max_abs_err={abs_err:.3e} "
+                 f"rel_to_terms={rel:.3e} (rtol {rtol:.0e}); kernel={tk:.4f} ms "
+                 f"(L2 flushed {tkc:.4f}), bound={bound:.4f} ms ({nbytes / 1e6:.1f} MB {by}), "
+                 f"share={bound / tk:.3f}, plain={tp:.4f} ms, library CSR={tl:.4f} ms"
+                 f"{more}; {ncomp * nnz / tk / 1e6:.2f} Gnnz/s; host enqueue {hk:.1f} us")
+        del csr
+    return rows, err
+
+
 def phase_kernels(dev, flush):
     """Kernels against their plain versions on the TGV-256 Poisson matrix."""
     from isph_tpu_torch.ops import spmv_cuda as sc
@@ -147,57 +330,18 @@ def phase_kernels(dev, flush):
     nnz = int(A.mask.sum().item()) + n
     _log(f"kernels: TGV-256 Poisson matrix N={n} K={K} nnz={nnz}")
     rng = np.random.default_rng(0)
+    spmv, spmv_err = _spmv_sweep("kernels: spmv", sc.ell_spmv, A, nnz, flush, rng,
+                                 ((torch.float32, (1, 2, 3)), (torch.float64, (1, 2, 3))))
+    take = _take_sweep("kernels: take", sc.take, A.idx, _take_fields(rng, n, dev), flush)
 
-    # --- SpMV: f32 and f64, C = 1, 2, 3 -----------------------------------
-    # bound: y_k - y_p is a difference of two summation orders (and FMA
-    # contraction) of the row's terms, so it is held relative to the sum of
-    # the terms' magnitudes: f32 rtol 1e-5 (~K eps), f64 rtol 1e-12
-    spmv_err = 0.0
-    spmv_ms = {}
-    for dtype, rtol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
-        diag, vals = A.diag.to(dtype), A.vals.to(dtype)
-        for ncomp in (1, 2, 3):
-            shape = (n,) if ncomp == 1 else (ncomp, n)
-            x = torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=dev)
-            yk = sc.ell_spmv(diag, vals, A.idx, x)
-            yp = sc.spmv_plain(diag, vals, A.idx, x)
-            torch.cuda.synchronize()
-            rel, abs_err = _spmv_rel_err(yk, yp, diag, vals, A.idx, x)
-            spmv_err = max(spmv_err, abs_err)
-            ok = rel <= rtol and bool(torch.isfinite(yk).all())
-            tk, hk = _median_ms(lambda: sc.ell_spmv(diag, vals, A.idx, x))
-            tp, hp = _median_ms(lambda: sc.spmv_plain(diag, vals, A.idx, x))
-            tkc, _ = _median_ms(lambda: sc.ell_spmv(diag, vals, A.idx, x), flush=flush)
-            spmv_ms[(dtype, ncomp)] = (tk, tp)
-            _log(f"kernels: spmv {str(dtype)[6:]} C={ncomp}: max_abs_err={abs_err:.3e} "
-                 f"rel_to_terms={rel:.3e} (rtol {rtol:.0e}) kernel={tk:.4f} ms "
-                 f"(L2 flushed {tkc:.4f} ms, {ncomp * nnz / tk / 1e6:.2f} Gnnz/s) "
-                 f"plain={tp:.4f} ms; host enqueue kernel={hk:.1f} us plain={hp:.1f} us")
-            if not ok:
-                raise RuntimeError(f"spmv kernel disagrees with plain ({dtype}, C={ncomp})")
-
-    # --- take: f32 (N,) and (D, N), int32, bool ------------------------------
-    fields = {
-        "f32 (N,)": torch.as_tensor(rng.standard_normal(n), dtype=torch.float32, device=dev),
-        "f32 (D,N)": state.x.contiguous(),
-        "int32 kind": state.kind,
-        "bool": torch.as_tensor(rng.random(n) < 0.5, device=dev),
-    }
-    take_ms = {}
-    for name, f in fields.items():
-        gk = sc.take(f, A.idx)
-        gp = sc.take_plain(f, A.idx)
-        torch.cuda.synchronize()
-        if gk.dtype != f.dtype or not torch.equal(gk, gp):
-            raise RuntimeError(f"take kernel disagrees with plain ({name})")
-        tk, hk = _median_ms(lambda: sc.take(f, A.idx))
-        tp, hp = _median_ms(lambda: sc.take_plain(f, A.idx))
-        tkc, _ = _median_ms(lambda: sc.take(f, A.idx), flush=flush)
-        take_ms[name] = (tk, tp)
-        _log(f"kernels: take {name}: exact, kernel={tk:.4f} ms (L2 flushed {tkc:.4f} ms) "
-             f"plain={tp:.4f} ms; host enqueue kernel={hk:.1f} us plain={hp:.1f} us")
-    return dict(spmv_err=spmv_err, spmv_ms=spmv_ms[(torch.float32, 1)],
-                take_ms=take_ms["f32 (N,)"])
+    # a ragged rectangular gather into an x of another width: K = 33 slots
+    # over m = 65,536 + 37 rows, the matrix's columns repeated (a halo strip
+    # keeps the neighbor list's locality)
+    idx_r = A.idx[torch.arange(33, device=dev) % K][:, torch.arange(65536 + 37, device=dev) % n]
+    ragged = {f"{t} ({'N,' if c == 1 else f'{c},N'}) ragged": _field(
+        rng, (n,) if c == 1 else (c, n), dt, dev) for t, dt in TAKE_TYPES for c in (1, 3)}
+    _take_sweep("kernels: take K=33 m=65573", sc.take, idx_r, ragged, flush)
+    return dict(spmv_err=spmv_err, spmv=spmv[(torch.float32, 1)], take=take["f32 (N,)"])
 
 
 def phase_main_path(dev):
@@ -283,9 +427,6 @@ def _breakdown(sim, state):
          f"poisson_iters={int(pinfo.iters)}")
 
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
-
-
 def phase_band_kernels(dev, flush):
     """Band kernels against their plain versions (and beside the non-band
     kernels) on the TGV-1024 Poisson matrix of the streaming list."""
@@ -299,64 +440,24 @@ def phase_band_kernels(dev, flush):
     K, n = A.vals.shape
     nnz = int(A.mask.sum().item()) + n
     win = band.rows + 2 * band.window
-    rows = min(band.rows, 1024)
+    plan = (sc.take_band_plan(n, K, 1, 4, band, sc._smem_optin(0), sc._sm_count(0))
+            if torch.device(dev).type == "cuda" else None)
     _log(f"band: TGV-1024 Poisson matrix N={n} K={K} nnz={nnz}; window W={band.window}, "
-         f"step rows S={band.rows}, block rows {rows}, window re-read factor "
-         f"(S+2W)/rows = {win / rows:.1f}; vals+idx stream {8 * K * n / 1e6:.1f} MB (f32)")
+         f"step rows S={band.rows}; spmv_band blocks of {min(band.rows, 1024)} rows, window "
+         f"re-read {win / min(band.rows, 1024):.1f}x; take_band f32 plan {plan}; "
+         f"vals+idx stream {8 * K * n / 1e6:.1f} MB (f32)")
     rng = np.random.default_rng(1)
-
-    # bounds as in phase 3: f32 1e-5, f64 1e-12 of the row's sum of |terms|
-    err = 0.0
-    res = {}
-    for dtype, rtol, comps in ((torch.float32, 1e-5, (1, 2, 3)), (torch.float64, 1e-12, (1,))):
-        diag, vals = A.diag.to(dtype), A.vals.to(dtype)
-        for ncomp in comps:
-            shape = (n,) if ncomp == 1 else (ncomp, n)
-            x = torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=dev)
-            yk = sc.ell_spmv_band(diag, vals, A.idx, x, band)
-            yp = sc.spmv_plain(diag, vals, A.idx, x)
-            torch.cuda.synchronize()
-            rel, abs_err = _spmv_rel_err(yk, yp, diag, vals, A.idx, x)
-            err = max(err, abs_err)
-            if not (rel <= rtol and bool(torch.isfinite(yk).all())):
-                raise RuntimeError(f"ell_spmv_band disagrees with plain ({dtype}, C={ncomp}): "
-                                   f"rel {rel:.3e}")
-            tb, hb = _median_ms(lambda: sc.ell_spmv_band(diag, vals, A.idx, x, band))
-            tbc, _ = _median_ms(lambda: sc.ell_spmv_band(diag, vals, A.idx, x, band),
-                                flush=flush)
-            te, _ = _median_ms(lambda: sc.ell_spmv(diag, vals, A.idx, x))
-            tec, _ = _median_ms(lambda: sc.ell_spmv(diag, vals, A.idx, x), flush=flush)
-            tp, _ = _median_ms(lambda: sc.spmv_plain(diag, vals, A.idx, x), reps=10)
-            res[(dtype, ncomp)] = (tb, tp)
-            model = 12 * nnz if dtype == torch.float32 else 20 * nnz
-            _log(f"band: spmv {str(dtype)[6:]} C={ncomp}: max_abs_err={abs_err:.3e} "
-                 f"rel_to_terms={rel:.3e} (rtol {rtol:.0e}); band={tb:.4f} ms "
-                 f"(L2 flushed {tbc:.4f}), ell_spmv={te:.4f} ms (L2 flushed {tec:.4f}), "
-                 f"plain={tp:.4f} ms; band {ncomp * nnz / tb / 1e6:.2f} Gnnz/s, "
-                 f"{model / 1e6:.1f} MB model -> {model / (tb * 1e-3) / HBM_BYTES_PER_S:.3f} "
-                 f"of HBM peak warm, {model / (tbc * 1e-3) / HBM_BYTES_PER_S:.3f} cold; "
-                 f"host enqueue {hb:.1f} us")
-
-    fields = {
-        "f32 (N,)": torch.as_tensor(rng.standard_normal(n), dtype=torch.float32, device=dev),
-        "f32 (D,N)": state.x.contiguous(),
-        "int32 kind": state.kind,
-        "bool": torch.as_tensor(rng.random(n) < 0.5, device=dev),
-    }
-    take_ms = {}
-    for name, f in fields.items():
-        gk = sc.take_band(f, A.idx, band)
-        gp = sc.take_plain(f, A.idx)
-        torch.cuda.synchronize()
-        if gk.dtype != f.dtype or not torch.equal(gk, gp):
-            raise RuntimeError(f"take_band disagrees with plain ({name})")
-        tb, _ = _median_ms(lambda: sc.take_band(f, A.idx, band))
-        tbc, _ = _median_ms(lambda: sc.take_band(f, A.idx, band), flush=flush)
-        te, _ = _median_ms(lambda: sc.take(f, A.idx))
-        tp, _ = _median_ms(lambda: sc.take_plain(f, A.idx), reps=10)
-        take_ms[name] = (tb, tp)
-        _log(f"band: take {name}: exact; band={tb:.4f} ms (L2 flushed {tbc:.4f}), "
-             f"take={te:.4f} ms, plain={tp:.4f} ms")
+    spmv, err = _spmv_sweep("band: spmv", lambda d, v, i, x: sc.ell_spmv_band(d, v, i, x, band),
+                            A, nnz, flush, rng,
+                            ((torch.float32, (1, 2, 3)), (torch.float64, (1,))),
+                            beside=sc.ell_spmv)
+    take = _take_sweep("band: take", lambda f, i: sc.take_band(f, i, band), A.idx,
+                       _take_fields(rng, n, dev), flush, beside=sc.take)
+    # an index array one element into a larger buffer: the scalar path
+    idx_off = torch.empty(K * n + 1, dtype=torch.int32, device=dev)[1:].view(K, n)
+    idx_off.copy_(A.idx)
+    _take_sweep("band: take, idx offset 1", lambda f, i: sc.take_band(f, i, band), idx_off,
+                {f"{t} (N,)": _field(rng, (n,), dt, dev) for t, dt in TAKE_TYPES}, flush)
 
     small = dataclasses.replace(sim, cfg=sim.cfg.replace(neighbor=dataclasses.replace(
         sim.cfg.neighbor, stream_window=128, stream_subcap=1)))
@@ -364,7 +465,7 @@ def phase_band_kernels(dev, flush):
     _log(f"band: window 128, subcap 1 at TGV-1024: overflow={ovf}")
     if ovf <= 0:
         raise RuntimeError("a too-small band window reported no overflow")
-    return dict(spmv_err=err, spmv_ms=res[(torch.float32, 1)], take_ms=take_ms["f32 (N,)"])
+    return dict(spmv_err=err, spmv=spmv[(torch.float32, 1)], take=take["f32 (N,)"])
 
 
 def phase_large_n(dev):
@@ -550,20 +651,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches_large = phase_large_n(dev)
 
+    def row(name, source, replaces, launched, err, t):
+        return dict(name=name, route="cuda", source=f"isph_tpu_torch/csrc/{source}",
+                    replaces=f"isph_tpu/ops/spmv_pallas.py:{replaces}", launches=launched,
+                    max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
+                    bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                    library_ms=t["library_ms"])
+
     kernels = [
-        dict(name="ell_spmv", route="cuda", source="isph_tpu_torch/csrc/spmv.cu",
-             replaces="isph_tpu/ops/spmv_pallas.py:298", launches=launches["ell_spmv"],
-             max_abs_err=k["spmv_err"], ms=k["spmv_ms"][0], plain_ms=k["spmv_ms"][1]),
-        dict(name="take", route="cuda", source="isph_tpu_torch/csrc/take.cu",
-             replaces="isph_tpu/ops/spmv_pallas.py:332", launches=launches["take"],
-             max_abs_err=0.0, ms=k["take_ms"][0], plain_ms=k["take_ms"][1]),
-        dict(name="ell_spmv_band", route="cuda", source="isph_tpu_torch/csrc/spmv_band.cu",
-             replaces="isph_tpu/ops/spmv_pallas.py:458",
-             launches=launches_large["ell_spmv_band"], max_abs_err=kb["spmv_err"],
-             ms=kb["spmv_ms"][0], plain_ms=kb["spmv_ms"][1]),
-        dict(name="take_band", route="cuda", source="isph_tpu_torch/csrc/take_band.cu",
-             replaces="isph_tpu/ops/spmv_pallas.py:635", launches=launches_large["take_band"],
-             max_abs_err=0.0, ms=kb["take_ms"][0], plain_ms=kb["take_ms"][1]),
+        row("ell_spmv", "spmv.cu", 298, launches["ell_spmv"], k["spmv_err"], k["spmv"]),
+        row("take", "take.cu", 332, launches["take"], 0.0, k["take"]),
+        row("ell_spmv_band", "spmv_band.cu", 458, launches_large["ell_spmv_band"],
+            kb["spmv_err"], kb["spmv"]),
+        row("take_band", "take_band.cu", 635, launches_large["take_band"], 0.0, kb["take"]),
     ]
     print(_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -94,7 +94,8 @@ def load_library() -> ctypes.CDLL:
     lib.isph_take.restype = i32
     lib.isph_spmv_band.argtypes = [i32, vp, vp, vp, vp, vp, i32, i64, i32, i64, i32, i32, vp]
     lib.isph_spmv_band.restype = i32
-    lib.isph_take_band.argtypes = [i32, vp, vp, vp, i32, i32, i64, i64, i32, i32, vp]
+    lib.isph_take_band.argtypes = [i32, vp, vp, vp, i32, i32, i64, i64, i32, i64, i32,
+                                   i32, vp]
     lib.isph_take_band.restype = i32
     lib.isph_smem_optin.argtypes = [i32]
     lib.isph_smem_optin.restype = i32

@@ -4,8 +4,9 @@
 // guarantees that every column j of a row in step s (rows [s*S, (s+1)*S))
 // lies in the band window [s*S - W, s*S + S + W) of the particle axis, taken
 // with the periodic wrap.  A block of the band kernels covers rows of one
-// step and copies that step's whole window, S + 2W elements per component,
-// from x in device memory into shared memory:
+// step (spmv_band.cu) or of R consecutive rows in whole steps (take_band.cu)
+// and copies their window, S + 2W (R + 2W) elements per component, from x in
+// device memory into shared memory:
 //
 //     win[c][p] = x[c][(start + p) mod n],   start = (s*S - W) mod n
 //
@@ -14,8 +15,8 @@
 // The copy is cp.async of 16-byte pieces (global -> shared without passing
 // through registers).  S, W and n are multiples of 128 elements, so every
 // wrapped segment of the window starts on a 128-element boundary and no
-// 16-byte piece straddles the wrap; x must be 16-byte aligned (the wrapper
-// checks it).
+// 16-byte piece straddles the wrap; x must be 16-byte aligned (the SpMV's
+// wrapper checks it; the gather copies an unaligned x with copy_window).
 
 #pragma once
 
@@ -31,8 +32,11 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
+__device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
@@ -44,10 +48,11 @@ __device__ __forceinline__ int64_t window_start(int64_t row0, int64_t step_rows,
   return start < 0 ? start + n : start;
 }
 
-// Copy the C components' windows of win_len elements into win (C * win_len
-// elements of shared memory), then barrier.
+// Start copying the C components' windows of win_len elements into win
+// (C * win_len elements of shared memory) as one committed cp.async group;
+// the block may issue other loads before wait_window().
 template <typename T>
-__device__ __forceinline__ void stage_window(T* win, const T* __restrict__ x,
+__device__ __forceinline__ void issue_window(T* win, const T* __restrict__ x,
                                              int C, int64_t n, int64_t start,
                                              int win_len) {
   constexpr int kVec = 16 / sizeof(T);
@@ -60,8 +65,36 @@ __device__ __forceinline__ void stage_window(T* win, const T* __restrict__ x,
     cp_async16(win + static_cast<int64_t>(c) * win_len + e,
                x + static_cast<int64_t>(c) * n + src);
   }
+  cp_async_commit();
+}
+
+// Wait for this thread's cp.async groups, then barrier: the window is whole.
+__device__ __forceinline__ void wait_window() {
   cp_async_wait_all();
   __syncthreads();
+}
+
+// issue_window + wait_window.
+template <typename T>
+__device__ __forceinline__ void stage_window(T* win, const T* __restrict__ x,
+                                             int C, int64_t n, int64_t start,
+                                             int win_len) {
+  issue_window(win, x, C, n, start, win_len);
+  wait_window();
+}
+
+// The window copied element by element through registers, for an x whose
+// base is not 16-byte aligned (cp.async pieces need it); wait_window()
+// then only barriers.
+template <typename T>
+__device__ __forceinline__ void copy_window(T* win, const T* __restrict__ x, int C,
+                                            int64_t n, int64_t start, int win_len) {
+  for (int v = threadIdx.x; v < C * win_len; v += blockDim.x) {
+    const int c = v / win_len;
+    int64_t src = start + (v - c * win_len);
+    if (src >= n) src %= n;
+    win[v] = x[static_cast<int64_t>(c) * n + src];
+  }
 }
 
 // Window position of column j, or -1 when j lies outside the window (only

@@ -47,12 +47,19 @@ def make_tgv(
     shift: float = 0.0,
     max_neighbors: int = 48,
     dtype: torch.dtype = torch.float64,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
     pad_multiple: int = 8,
     cell_capacity: Optional[int] = None,
 ) -> Tuple[Simulation, ParticleState]:
     """n x n lattice over [0, 2pi]^2 with the decaying-vortex velocity (the
-    2-D deck; the JAX package's 3-D variant is not ported yet)."""
+    2-D deck; the JAX package's 3-D variant is not ported yet).
+
+    The state lives on the card unless ``device`` says otherwise; without
+    CUDA the default raises rather than building on the CPU."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"make_tgv(device={str(device)!r}) needs a CUDA device and none is "
+            "available; pass device='cpu' to build on the CPU")
     L = 2.0 * math.pi
     dx = L / n
     h = h_factor * dx

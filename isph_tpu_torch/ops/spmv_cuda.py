@@ -11,15 +11,17 @@ live in ``isph_tpu_torch/csrc/`` and are built at first use
   (K, N) stream coalesced and shares it across the C components.
 - ``csrc/take.cu`` replaces ``_take_kernel`` (spmv_pallas.py:332-349):
   out[c, k, i] = x[c, idx[k, i]], for f32, f64, int32, uint8 and bool.
-  Bytes bound: 4 B idx read + one element written per output; coalesced
-  along i, x through the read-only path.
+  Bytes bound: 4 B idx read + one element written per output.  Each thread
+  keeps several 16-byte idx loads in flight and writes 16-byte vectors;
+  x through the read-only path.
 - ``csrc/spmv_band.cu`` replaces ``_spmv_stream_kernel`` (spmv_pallas.py:
   458-506) and ``csrc/take_band.cu`` replaces ``_take_stream_kernel``
   (:635-663): the same two functions for a streaming neighbor list, whose
   band check guarantees that every column of a row lies in the band window
   of the row's step (:class:`BandSpec`).  A block stages that window of x
-  into shared memory and gathers from there.  Their plain versions are
-  ``spmv_plain`` and ``take_plain``: the function is the same.
+  into shared memory and gathers from there; ``take_band_plan`` sizes the
+  gather's blocks.  Their plain versions are ``spmv_plain`` and
+  ``take_plain``: the function is the same.
 
 Dispatch rule: a wrapper uses the plain PyTorch version only when it is
 given CPU tensors.  On CUDA tensors it checks device, dtype, shape and
@@ -53,7 +55,6 @@ class BandSpec(NamedTuple):
 _SPMV_DTYPES = {torch.float32: 0, torch.float64: 1}
 _TAKE_DTYPES = {torch.float32: 0, torch.float64: 1, torch.int32: 2,
                 torch.uint8: 3, torch.bool: 3}
-_MAX_GRID_Y = 65535
 
 
 def spmv_plain(diag: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
@@ -137,7 +138,6 @@ def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     _require(x.ndim in (1, 2), f"x must be (nx,) or (C, nx), got {tuple(x.shape)}")
     _require(x.is_contiguous() and idx.is_contiguous(), "x and idx must be contiguous")
     K, m = idx.shape
-    _require(K <= _MAX_GRID_Y, f"K={K} exceeds the grid's y limit {_MAX_GRID_Y}")
     ncomp, nx = (1, x.shape[0]) if x.ndim == 1 else x.shape
     lib = _build.load_library()
     out = torch.empty(((K, m) if x.ndim == 1 else (ncomp, K, m)), dtype=x.dtype,
@@ -212,6 +212,54 @@ def ell_spmv_band(diag: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
 ell_spmv_band.launches = 0
 
 
+_BAND_THREADS = 512  # threads per take_band block (csrc/take_band.cu kThreads)
+# rows a take_band thread covers per slot, by element size (Tile<W>::V in
+# csrc/gather_vec.cuh); slot groups are a multiple of every Tile<W>::U
+_BAND_VEC = {1: 16, 4: 4, 8: 2}
+_BAND_SLOT_MULTIPLE = 4
+_BAND_BLOCKS_PER_SM = 1  # take_band blocks the grid aims at, per SM
+
+
+class TakeBandPlan(NamedTuple):
+    """Launch geometry of one ``take_band`` call: block (b, g) gathers rows
+    [b*R, min((b+1)*R, N)) (whole steps) for slots [g*Kg, min((g+1)*Kg, K))
+    and stages the R + 2W window of those rows' steps once."""
+
+    block_rows: int  # R
+    k_per_group: int  # Kg
+    grid: tuple[int, int]  # (row blocks, slot groups)
+    smem: int  # shared memory per block, bytes
+    reread: float  # window elements staged per row, over all slot groups
+
+
+@functools.cache
+def take_band_plan(n: int, K: int, ncomp: int, itemsize: int, band: BandSpec,
+                   smem_limit: int, n_sm: int) -> TakeBandPlan:
+    """Rows per block: whole steps, at least one pass of the block's
+    threads where the steps are shorter than that and the windows fit
+    ``smem_limit``.  Slots are split into groups until the grid has
+    ``_BAND_BLOCKS_PER_SM`` blocks for each of the ``n_sm`` SMs; every group
+    restages its rows' window."""
+    W, S = band
+    steps = max(1, min(n // S, _BAND_THREADS * _BAND_VEC[itemsize] // S))
+    while steps > 1 and ncomp * (steps * S + 2 * W) * itemsize > smem_limit:
+        steps -= 1
+    R = steps * S
+    row_blocks = -(-n // R)
+    groups = min(-(-K // _BAND_SLOT_MULTIPLE), -(-_BAND_BLOCKS_PER_SM * n_sm // row_blocks))
+    kg = -(-K // groups)
+    kg = -(-kg // _BAND_SLOT_MULTIPLE) * _BAND_SLOT_MULTIPLE
+    groups = -(-K // kg)
+    return TakeBandPlan(block_rows=R, k_per_group=kg, grid=(row_blocks, groups),
+                        smem=ncomp * (min(R, n) + 2 * W) * itemsize,
+                        reread=groups * (R + 2 * W) / R)
+
+
+@functools.cache
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def take_band(x: torch.Tensor, idx: torch.Tensor, band: BandSpec | None) -> torch.Tensor:
     """``take`` for a streaming neighbor list and a square (K, N) index
     array: x is read through the band window of each step
@@ -228,21 +276,24 @@ def take_band(x: torch.Tensor, idx: torch.Tensor, band: BandSpec | None) -> torc
     _require(x.shape[-1] == n, f"take_band needs a square gather: x {tuple(x.shape)}, "
              f"idx {tuple(idx.shape)}")
     ncomp = 1 if x.ndim == 1 else x.shape[0]
-    per_call = _band_plan(band, n, x.element_size(), ncomp, x.device.index)
-    _require_aligned(x)
-    if per_call < ncomp:
-        return torch.stack([take_band(x[c], idx, band) for c in range(ncomp)])
+    dev = x.device.index
+    per_call = _band_plan(band, n, x.element_size(), ncomp, dev)
     lib = _build.load_library()
     out = torch.empty(((K, n) if x.ndim == 1 else (ncomp, K, n)), dtype=x.dtype,
                       device=x.device)
-    if K == 0:
+    if K == 0 or n == 0:
         return out
-    err = lib.isph_take_band(_TAKE_DTYPES[x.dtype], x.data_ptr(), idx.data_ptr(),
-                             out.data_ptr(), ncomp, K, n, band.rows, band.window,
-                             x.device.index, _stream(x))
-    if err != 0:
-        raise RuntimeError(f"take_band kernel launch failed: cudaError {err}")
-    take_band.launches += 1
+    plan = take_band_plan(n, K, per_call, x.element_size(), band, _smem_optin(dev),
+                          _sm_count(dev))
+    # components whose windows together exceed shared memory: one launch
+    # each, straight into its slice of out
+    for xc, oc in ([(x, out)] if per_call == ncomp else zip(x, out)):
+        err = lib.isph_take_band(_TAKE_DTYPES[x.dtype], xc.data_ptr(), idx.data_ptr(),
+                                 oc.data_ptr(), per_call, K, n, band.rows, band.window,
+                                 plan.block_rows, plan.k_per_group, dev, _stream(x))
+        if err != 0:
+            raise RuntimeError(f"take_band kernel launch failed: cudaError {err}")
+        take_band.launches += 1
     return out
 
 

@@ -86,7 +86,7 @@ def _system(n):
     (port sim, port state, port A, b, null vector) and the same (A, b, null,
     x) as JAX arrays; cached per lattice for the module."""
     if n not in _SYSTEMS:
-        sim, st = tgv.make_tgv(n)
+        sim, st = tgv.make_tgv(n, device="cpu")
         geom = sim.geometry(st, sim.neighbors(st))
         pre = sim.precompute(st, geom)
         A, b = tns.poisson_system(st, geom, pre, sim.cfg, st.v)
@@ -249,7 +249,7 @@ def test_state_entering_off_boundary_builds_hierarchy():
     its first solve instead of running on a zero-filled one: the step
     equals the rebuild-every-solve step (max age 1) exactly, and the state
     leaves with a filled cache."""
-    sim, state = tgv.make_tgv(16)
+    sim, state = tgv.make_tgv(16, device="cpu")
     state = state.replace(step=torch.tensor(5, dtype=torch.int32))
     assert sim.cfg.solver.precond == "amg" and sim.cfg.solver.precond_max_age == 8
     assert tns.amg_rebuild_due(state, sim.cfg) is True

@@ -13,6 +13,7 @@ orders); states after a step 1e-9 absolute, as tests/test_torch_step.py.
 """
 
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -202,3 +203,117 @@ def test_band_wrappers_raise_instead_of_falling_back(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         spmv_cuda.take_band(x, idx, band)
     assert (spmv_cuda.ell_spmv_band.launches, spmv_cuda.take_band.launches) == before
+
+
+def _header_tiles():
+    """(V, U) per element size and the take_band block size, read from the
+    CUDA sources the plan has to agree with."""
+    from isph_tpu_torch import _build
+
+    hdr = (_build.CSRC / "gather_vec.cuh").read_text()
+    size = {"uint32_t": 4, "unsigned long long": 8, "uint8_t": 1}
+    tiles = {size[t]: (int(v), int(u)) for t, v, u in re.findall(
+        r"struct Tile<([\w ]+)> \{\s*static constexpr int V = (\d+), U = (\d+);", hdr)}
+    threads = int(re.search(r"constexpr int kThreads = (\d+);",
+                            (_build.CSRC / "take_band.cu").read_text()).group(1))
+    return tiles, threads
+
+
+def test_take_band_plan_matches_the_kernel_sources():
+    from isph_tpu_torch.ops import spmv_cuda
+
+    tiles, threads = _header_tiles()
+    assert threads == spmv_cuda._BAND_THREADS
+    assert {s: v for s, (v, _) in tiles.items()} == spmv_cuda._BAND_VEC
+    assert all(spmv_cuda._BAND_SLOT_MULTIPLE % u == 0 for _, u in tiles.values())
+    # the 1M main path: one 8192-row step per block, two groups of 16 slots
+    plan = spmv_cuda.take_band_plan(1 << 20, 32, 1, 4, BandSpec(3072, 8192), 232448, 132)
+    assert plan == (8192, 16, (128, 2), 57344, 3.5)
+
+
+@pytest.mark.parametrize("n, K, ncomp, itemsize, W, S, n_sm", [
+    (640, 33, 1, 4, 128, 128, 132),  # ragged K, five one-tile steps in one block
+    (1920, 7, 3, 1, 256, 384, 4),  # steps of three tiles, bytes
+    (896, 5, 2, 8, 128, 128, 3),  # f64 pairs, groups smaller than U*4
+    (4096, 32, 1, 4, 1024, 1024, 8),  # one step per block, slots split in two
+])
+def test_take_band_tiling_covers_every_output_once(n, K, ncomp, itemsize, W, S, n_sm):
+    """The plan's blocks, walked with take_band.cu's own index arithmetic
+    (iteration it: slots k0 + it // passes * U + u, row vector
+    it % passes * threads + t), write every (k, i) exactly once, each
+    block's rows are whole steps, and its windows fit the limit."""
+    from isph_tpu_torch.ops import spmv_cuda
+
+    smem_limit = 232448
+    tiles, threads = _header_tiles()
+    V, U = tiles[itemsize]
+    plan = spmv_cuda.take_band_plan(n, K, ncomp, itemsize, BandSpec(W, S), smem_limit, n_sm)
+    R, kg = plan.block_rows, plan.k_per_group
+    assert R % S == 0 and plan.smem <= smem_limit
+    assert plan.reread == plan.grid[1] * (R + 2 * W) / R
+    count = np.zeros((K, n), np.int32)
+    for b in range(plan.grid[0]):
+        row0 = b * R
+        rows = min(R, n - row0)
+        nvec = rows // V
+        passes = -(-nvec // threads)
+        for g in range(plan.grid[1]):
+            k0, k1 = g * kg, min(K, g * kg + kg)
+            for it in range(-(-(k1 - k0) // U) * passes):
+                vec = it % passes * threads + np.arange(threads)
+                vec = vec[vec < nvec]
+                cols = row0 + (vec[:, None] * V + np.arange(V)).ravel()
+                for k in range(k0 + it // passes * U, min(k1, k0 + it // passes * U + U)):
+                    count[k, cols] += 1
+    np.testing.assert_array_equal(count, 1)
+
+
+def _wrapper_cases():
+    band = BandSpec(window=128, rows=256)
+    take_band = ("take_band", lambda x, i: _spmv_cuda().take_band(x, i, band))
+    take = ("take", lambda x, i: _spmv_cuda().take(x, i))
+    n = 256
+    idx = _meta(4, n, dtype=torch.int32)
+    cases = []
+    for name, fn in (take, take_band):
+        cases += [
+            (name, fn, _meta(n, dtype=torch.float16), idx, ValueError, "no kernel"),
+            (name, fn, _meta(n), _meta(4, n, dtype=torch.int64), ValueError, "int32"),
+            (name, fn, _meta(n), _meta(4 * n, dtype=torch.int32), ValueError, "int32"),
+            (name, fn, _meta(2, 2, n), idx, ValueError, "x must be"),
+            (name, fn, _meta(n, 2).T, idx, ValueError, "contiguous"),
+            (name, fn, _meta(n), _meta(n, 4, dtype=torch.int32).T, ValueError, "contiguous"),
+            # an x one element into a larger buffer passes every check: the
+            # kernels gather it (x reads are scalar, the window copy falls
+            # back to element-wise) and only the missing build stops it here
+            (name, fn, _meta(3 * n + 1)[1:].view(3, n), idx, RuntimeError, "nvcc"),
+        ]
+    return cases
+
+
+def _spmv_cuda():
+    from isph_tpu_torch.ops import spmv_cuda
+
+    return spmv_cuda
+
+
+@pytest.mark.parametrize("name, fn, x, idx, exc, match", _wrapper_cases(),
+                         ids=lambda v: v if isinstance(v, str) else None)
+def test_take_wrappers_check_before_launching(monkeypatch, name, fn, x, idx, exc, match):
+    """dtype, ndim and contiguity are refused with a ValueError before the
+    build is touched, and no launch is counted."""
+    from isph_tpu_torch import _build
+
+    sc = _spmv_cuda()
+
+    def no_build():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(sc, "_require_cuda", lambda *ts: None)
+    monkeypatch.setattr(_build, "load_library", no_build)
+    monkeypatch.setattr(sc, "_smem_optin", lambda device: 232448)
+    monkeypatch.setattr(sc, "_sm_count", lambda device: 132)
+    before = getattr(sc, name).launches
+    with pytest.raises(exc, match=match):
+        fn(x, idx)
+    assert getattr(sc, name).launches == before

@@ -89,12 +89,12 @@ def test_run_equals_steps_and_conserves(jax_run):
 def test_run_regrows_on_neighbor_overflow():
     """K=16 cannot hold the 28 TGV neighbors: run() discards the step and
     retries with grown shapes (16 -> 24 -> 32) and gets the K=48 result."""
-    sim, state = tgv.make_tgv(16, max_neighbors=16)
+    sim, state = tgv.make_tgv(16, max_neighbors=16, device="cpu")
     sim = dataclasses.replace(sim, cfg=_jacobi(sim.cfg))
     assert int(sim.neighbors(state).overflow) > 0
     out, aux = sim.run(state, 1)
     assert int(aux.neighbor_overflow) == 0
-    sim48, _ = tgv.make_tgv(16)
+    sim48, _ = tgv.make_tgv(16, device="cpu")
     ref, _ = dataclasses.replace(sim48, cfg=_jacobi(sim48.cfg)).run(state, 1)
     np.testing.assert_allclose(out.p.numpy(), ref.p.numpy(), rtol=0, atol=1e-12)
 
@@ -102,7 +102,7 @@ def test_run_regrows_on_neighbor_overflow():
 def _golden_run(n, nsteps, **kw):
     """tests/test_tgv.py::_run through the port (error taken before the final
     advance, as the reference's fix_isph_tgv prints it)."""
-    sim, state = tgv.make_tgv(n, **kw)
+    sim, state = tgv.make_tgv(n, device="cpu", **kw)
     relres = None
     for step in range(1, nsteps + 1):
         nbrs = sim.neighbors(state)
@@ -133,8 +133,23 @@ def test_golden_table_f32():
     assert abs(float(err.velocity_l2) / gv - 1.0) < 2e-2
 
 
+def test_make_tgv_defaults_to_the_card(monkeypatch):
+    """Without CUDA the default device raises instead of building on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tgv.make_tgv(16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tgv.make_tgv(16, device=torch.device("cuda", 0))
+
+
+def test_make_tgv_builds_on_the_cpu_when_asked():
+    sim, state = tgv.make_tgv(16, device="cpu")
+    assert state.x.device.type == "cpu" and state.x.shape == (2, 256)
+    assert int(state.valid.sum()) == 256 and sim.cfg.dim == 2
+
+
 def test_cell_list_equals_bruteforce():
-    sim, state = tgv.make_tgv(16)
+    sim, state = tgv.make_tgv(16, device="cpu")
     sim = dataclasses.replace(sim, cfg=_jacobi(sim.cfg))
     s1, _ = sim.run(state, 1)
     s2, _ = dataclasses.replace(sim, use_bruteforce_neighbors=True).run(state, 1)
@@ -159,7 +174,7 @@ _ON = dict(enabled=True)
 ])
 def test_unported_features_raise(feature, cfg_kw):
     """Every enabled feature that is not ported fails loudly by name."""
-    sim, state = tgv.make_tgv(16)
+    sim, state = tgv.make_tgv(16, device="cpu")
     cfg = sim.cfg
     for name, value in cfg_kw.items():
         if isinstance(value, dict):
@@ -172,7 +187,7 @@ def test_unported_features_raise(feature, cfg_kw):
 def test_amg_without_domain_is_jacobi():
     """Without domain info in scope "amg" means Jacobi, as in the
     reference's Belos/ML pairing (the Helmholtz solves always run so)."""
-    sim, state = tgv.make_tgv(16)  # precond "amg"
+    sim, state = tgv.make_tgv(16, device="cpu")  # precond "amg"
     nbrs = sim.neighbors(state)
     geom = sim.geometry(state, nbrs)
     pre = sim.precompute(state, geom)
