@@ -12,12 +12,16 @@ Phases (each raises on failure; the script then exits non-zero):
    sm_90a and print the build time and the compiler's register report;
 3. kernels: on the pressure-Poisson matrix of the 256^2 Taylor-Green lattice
    (65,536 particles, K = 32, ~1.79M nonzeros), hold the ELL SpMV kernel
-   (C = 1, 2, 3 in f32 and f64) and the take kernel (f32, f64, int32, uint8
-   and bool at (N,), (2, N) and (3, N), three fields that start one element
-   into a larger buffer, and a ragged K = 33 by m = 65,573 gather of every
-   type) against their plain PyTorch versions (take exactly) and against
-   one library call (a CSR product, index_select); time each with CUDA
-   events beside its bound, the least time the card's HBM rate allows;
+   (C = 1, 2, 3 in f32 and f64, and on two ragged K = 33 ELLs, N = 65,573
+   and N = 65,533: the one-row path) against its plain version on the
+   same slot format (rtol 1e-5 f32, 1e-12 f64, relative to the row's
+   terms) and the take kernel (f32, f64, int32, uint8 and bool at (N,),
+   (2, N) and (3, N), three fields that start one element into a larger
+   buffer, and a ragged K = 33 by m = 65,573 gather of every type) against
+   take_plain exactly, and both against one library call (a CSR product,
+   index_select); time each with CUDA events beside its bound, the least
+   time the card's HBM rate allows for the bytes of its format, and log
+   the bytes the SpMV streams;
 4. main path: three 256^2 Taylor-Green projection steps in f32 with
    Jacobi through Simulation.run, one step per call so that each step is
    timed (the same steps as run(state, 3)), with the launch counters reset
@@ -27,11 +31,13 @@ Phases (each raises on failure; the script then exits non-zero):
    2% (the bar tests/test_f32.py holds the JAX package to);
 6. band kernels: on the pressure-Poisson matrix of the 1024^2 Taylor-Green
    lattice (1,048,576 particles, K = 32, stream window 3072, subcap 64,
-   ~29M nonzeros), the same for the band-window SpMV (C = 1, 2, 3 in f32,
-   C = 1 in f64) and take (every type and shape of phase 3 but the ragged
-   one, and an index array one element into a larger buffer), timed
-   beside the non-band kernels, warm and with L2 flushed, and show that a
-   window of 128 with subcap 1 overflows;
+   ~27M nonzeros), the same for the band SpMV on its 16-bit window offsets
+   (C = 1, 2, 3 in f32 and f64, and an x one element into a larger buffer),
+   the non-band SpMV, and take (every type and shape of phase 3 but the
+   ragged one, and an index array one element into a larger buffer),
+   timed beside the non-band kernels, warm and with L2 flushed; log the
+   take_band plan, its window re-read and the bytes each SpMV streams;
+   show that a window of 128 with subcap 1 overflows;
 7. large-N path: three 1024^2 f32 steps through Simulation.run with the
    default AMG preconditioner (max age 8) on the streaming neighbor list;
    checks overflow, the Poisson iteration cap, volume, the decaying vmax,
@@ -156,12 +162,52 @@ def _bound(nbytes: float, flops: float = 0.0, dtype=torch.float32):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def _spmv_bound(nnz, n, ncomp, dtype):
-    """An SpMV reads each nonzero's value and int32 column once (the
-    diagonal apart), diag and x once, and writes y once; 2 flops a nonzero."""
+def _spmv_bound(nnz, n, ncomp, dtype, col_bytes=4, slot_ends=True):
+    """An SpMV reads each nonzero's value and column once (the diagonal
+    apart; ``col_bytes`` the width of the format's column code: 4 for the
+    int32 index, 2 for band offsets), diag, x and (``slot_ends``) the 2-byte
+    slot ends once, and writes y once; 2 flops a nonzero.  Without slot ends
+    and with 4-byte columns it is the first kernels' bound."""
     item = torch.empty((), dtype=dtype).element_size()
-    nbytes = (nnz - n) * (item + 4) + n * item + 2 * ncomp * n * item
+    nbytes = ((nnz - n) * (item + col_bytes) + n * item + 2 * ncomp * n * item
+              + (2 * n if slot_ends else 0))
     return _bound(nbytes, 2.0 * ncomp * nnz, dtype), nbytes
+
+
+def _spmv_tiles():
+    """(V by value size, kMinVecThreads) of the SpMV kernels, read from
+    csrc/spmv_vec.cuh."""
+    from isph_tpu_torch import _build
+
+    hdr = (_build.CSRC / "spmv_vec.cuh").read_text()
+    size = {"float": 4, "double": 8}
+    vec = {size[t]: int(v) for t, v in re.findall(
+        r"struct Tile<(\w+)> \{\s*static constexpr int V = (\d+),", hdr)}
+    min_vec = re.search(r"constexpr int64_t kMinVecThreads = 1 << (\d+);", hdr).group(1)
+    return vec, 1 << int(min_vec)
+
+
+def _spmv_rows_per_thread(n, item, aligned=True):
+    """Rows a thread of the SpMV kernels covers (spmv_vec.cuh:use_vec): V,
+    or 1 on the one-row path (a small N, an N that V does not divide, an
+    unaligned pointer)."""
+    vec, min_vec = _spmv_tiles()
+    v = vec[item]
+    return v if aligned and n % v == 0 and n // v >= min_vec else 1
+
+
+def _spmv_streamed(slot_end, K, n, ncomp, item, col_bytes, vec):
+    """Bytes an SpMV kernel moves: on the V-row path (``vec`` > 1) each warp
+    (32 * vec rows) streams values and column codes up to its rows' largest
+    slot end and reads the slot ends, on the one-row path every thread all
+    K slots; then diag, x and y once."""
+    if vec == 1:
+        return K * n * (item + col_bytes) + n * item + 2 * ncomp * n * item
+    se = slot_end.to(torch.int64)
+    rows = 32 * vec
+    se = torch.nn.functional.pad(se, (0, -n % rows)).view(-1, rows).amax(1)
+    slots = min(int(se.sum()) * rows, K * n)
+    return slots * (item + col_bytes) + n * (item + 2) + 2 * ncomp * n * item
 
 
 def _csr_of(diag, vals, idx, mask):
@@ -256,8 +302,9 @@ def _take_sweep(tag, kernel, idx, fields, flush, beside=None):
             tkc, _ = _median_ms(lambda: kernel(f, idx), flush=flush)
             more = f", L2 flushed {tkc:.4f} ms, plain={row['plain_ms']:.4f} ms"
             if beside is not None:
-                tb, _ = _median_ms(lambda: beside(f, idx))
-                more += f", non-band take={tb:.4f} ms"
+                row["beside_ms"], _ = _median_ms(lambda: beside(f, idx))
+                more += (f", non-band take={row['beside_ms']:.4f} ms (the same function on "
+                         f"the same inputs: its plain and library times are this row's)")
         rows[name] = row
         _log(f"{tag}: {name}: exact; kernel={tk:.4f} ms, bound={bound:.4f} ms "
              f"({nbytes / 1e6:.1f} MB), share={bound / tk:.3f}, library={tl:.4f} ms"
@@ -265,11 +312,15 @@ def _take_sweep(tag, kernel, idx, fields, flush, beside=None):
     return rows
 
 
-def _spmv_sweep(tag, kernel, A, nnz, flush, rng, shapes, beside=None):
-    """Hold ``kernel(diag, vals, idx, x)`` against spmv_plain and the
-    library CSR product on every (dtype, C) of ``shapes``; time all three
-    (and ``beside``, the non-band kernel, where given), warm and with L2
-    flushed."""
+def _spmv_sweep(tag, kernel, plain, A, nnz, flush, rng, shapes, beside=None,
+                x_offset=False):
+    """Hold ``kernel(diag, vals, x)`` against ``plain(diag, vals, x)``, the
+    plain version on the kernel's own inputs (A.slots), and against the
+    library CSR product on every (dtype, C) of ``shapes``; check that the
+    plain version equals spmv_plain; time all three (and ``beside(diag,
+    vals, x)``, another kernel on the same matrix, where given), warm and
+    with L2 flushed.  With ``x_offset`` x starts one element into a larger
+    buffer (the one-row path)."""
     from isph_tpu_torch.ops import spmv_cuda as sc
 
     # bound: y_k - y_p is a difference of two summation orders (and FMA
@@ -277,20 +328,24 @@ def _spmv_sweep(tag, kernel, A, nnz, flush, rng, shapes, beside=None):
     # the terms' magnitudes: f32 rtol 1e-5 (~K eps), f64 rtol 1e-12; the
     # library product is held to the same bound
     K, n = A.vals.shape
+    col_bytes = 4 if A.slots.off is None else 2
     err = 0.0
     rows = {}
     for dtype, comps in shapes:
         rtol = 1e-5 if dtype == torch.float32 else 1e-12
+        item = torch.empty((), dtype=dtype).element_size()
         diag, vals = A.diag.to(dtype), A.vals.to(dtype)
         csr = _csr_of(diag, vals, A.idx, A.mask)
         for ncomp in comps:
             shape = (n,) if ncomp == 1 else (ncomp, n)
-            x = torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
-                                device=A.vals.device)
-            yk = kernel(diag, vals, A.idx, x)
-            yp = sc.spmv_plain(diag, vals, A.idx, x)
+            x = _field(rng, shape, dtype, A.vals.device, offset=x_offset)
+            yk = kernel(diag, vals, x)
+            yp = plain(diag, vals, x)
             yl = _library_spmv(csr, x)
             torch.cuda.synchronize()
+            if not torch.equal(yp, sc.spmv_plain(diag, vals, A.idx, x)):
+                raise RuntimeError(f"{tag} plain version differs from spmv_plain "
+                                   f"({dtype}, C={ncomp})")
             rel, abs_err = _spmv_rel_err(yk, yp, diag, vals, A.idx, x)
             rel_l, _ = _spmv_rel_err(yl, yp, diag, vals, A.idx, x)
             err = max(err, abs_err)
@@ -300,24 +355,73 @@ def _spmv_sweep(tag, kernel, A, nnz, flush, rng, shapes, beside=None):
             if not rel_l <= rtol:
                 raise RuntimeError(f"{tag} library CSR product disagrees with plain "
                                    f"({dtype}, C={ncomp}): rel {rel_l:.3e}")
-            tk, hk = _median_ms(lambda: kernel(diag, vals, A.idx, x))
-            tkc, _ = _median_ms(lambda: kernel(diag, vals, A.idx, x), flush=flush)
-            tp, _ = _median_ms(lambda: sc.spmv_plain(diag, vals, A.idx, x), reps=10)
+            tk, hk = _median_ms(lambda: kernel(diag, vals, x))
+            tkc, _ = _median_ms(lambda: kernel(diag, vals, x), flush=flush)
+            tp, _ = _median_ms(lambda: plain(diag, vals, x), reps=10)
             tl, _ = _median_ms(lambda: _library_spmv(csr, x), reps=10)
-            (bound, by), nbytes = _spmv_bound(nnz, n, ncomp, dtype)
+            (bound, by), nbytes = _spmv_bound(nnz, n, ncomp, dtype, col_bytes)
+            (bound32, _), nbytes32 = _spmv_bound(nnz, n, ncomp, dtype, slot_ends=False)
+            vec = _spmv_rows_per_thread(n, item, aligned=not x_offset)
+            streamed = _spmv_streamed(A.slots.slot_end, K, n, ncomp, item, col_bytes, vec)
             more = ""
             if beside is not None:
-                te, _ = _median_ms(lambda: beside(diag, vals, A.idx, x))
-                more = f", non-band ell_spmv={te:.4f} ms"
+                te, _ = _median_ms(lambda: beside(diag, vals, x))
+                more = f", beside {te:.4f} ms"
             rows[(dtype, ncomp)] = dict(ms=tk, plain_ms=tp, library_ms=tl, bound_ms=bound,
                                         bound_by=by)
             _log(f"{tag}: {str(dtype)[6:]} C={ncomp}: max_abs_err={abs_err:.3e} "
                  f"rel_to_terms={rel:.3e} (rtol {rtol:.0e}); kernel={tk:.4f} ms "
-                 f"(L2 flushed {tkc:.4f}), bound={bound:.4f} ms ({nbytes / 1e6:.1f} MB {by}), "
-                 f"share={bound / tk:.3f}, plain={tp:.4f} ms, library CSR={tl:.4f} ms"
-                 f"{more}; {ncomp * nnz / tk / 1e6:.2f} Gnnz/s; host enqueue {hk:.1f} us")
+                 f"(L2 flushed {tkc:.4f}), bound={bound:.4f} ms ({nbytes / 1e6:.1f} MB {by}, "
+                 f"{col_bytes}-byte columns and slot ends; first kernels' bound "
+                 f"{bound32:.4f} ms, {nbytes32 / 1e6:.1f} MB), "
+                 f"share={bound / tk:.3f} (of the first kernels' bound {bound32 / tk:.3f}), "
+                 f"streamed {streamed / 1e6:.1f} MB (V={vec}), "
+                 f"plain={tp:.4f} ms, library CSR={tl:.4f} ms{more}; "
+                 f"{ncomp * nnz / tk / 1e6:.2f} Gnnz/s; host enqueue {hk:.1f} us")
         del csr
     return rows, err
+
+
+def _ell_paths(A):
+    """(kernel, plain) of ell_spmv on A's pattern and slot ends, taking
+    (diag, vals, x)."""
+    from isph_tpu_torch.ops import spmv_cuda as sc
+
+    idx, slots = A.idx, A.slots
+
+    def kernel(d, v, x):
+        return sc.ell_spmv(d, v, idx, x, slots)
+
+    def plain(d, v, x):
+        return sc.spmv_slots_plain(d, v, idx, slots.slot_end, x)
+
+    return kernel, plain
+
+
+def _unbanded(A):
+    """A matrix of a streaming list as a plain ELL (its slot format without
+    band offsets), for the non-band kernel."""
+    from isph_tpu_torch.ops.ell import ELL
+
+    return A if A.band is None else ELL(diag=A.diag, vals=A.vals, idx=A.idx, mask=A.mask)
+
+
+def _sweep_ell(tag, A, nnz, flush, rng, shapes, **kw):
+    """_spmv_sweep of ell_spmv on A."""
+    A = _unbanded(A)
+    return _spmv_sweep(tag, *_ell_paths(A), A, nnz, flush, rng, shapes, **kw)
+
+
+def _ragged_ell(A, K, m):
+    """A synthetic ELL of K slots over m rows, repeating A's slots, rows and
+    columns (taken mod m, so it keeps the lattice's locality)."""
+    from isph_tpu_torch.ops.ell import ELL
+
+    dev = A.vals.device
+    ks = torch.arange(K, device=dev) % A.vals.shape[0]
+    rows = torch.arange(m, device=dev) % A.n
+    return ELL(diag=A.diag[rows].contiguous(), vals=A.vals[ks][:, rows].contiguous(),
+               idx=(A.idx[ks][:, rows] % m).contiguous(), mask=A.mask[ks][:, rows].contiguous())
 
 
 def phase_kernels(dev, flush):
@@ -330,8 +434,15 @@ def phase_kernels(dev, flush):
     nnz = int(A.mask.sum().item()) + n
     _log(f"kernels: TGV-256 Poisson matrix N={n} K={K} nnz={nnz}")
     rng = np.random.default_rng(0)
-    spmv, spmv_err = _spmv_sweep("kernels: spmv", sc.ell_spmv, A, nnz, flush, rng,
-                                 ((torch.float32, (1, 2, 3)), (torch.float64, (1, 2, 3))))
+    both = ((torch.float32, (1, 2, 3)), (torch.float64, (1, 2, 3)))
+    spmv, spmv_err = _sweep_ell("kernels: spmv", A, nnz, flush, rng, both)
+    # ragged synthetic ELLs, the scalar (V = 1) path, at N on both sides of
+    # 65,536
+    for m in (65536 + 37, 65536 - 3):
+        R = _ragged_ell(A, 33, m)
+        _, err_r = _sweep_ell(f"kernels: spmv K=33 N={m}", R, int(R.mask.sum().item()) + m,
+                              flush, rng, ((torch.float32, (1, 3)), (torch.float64, (1, 3))))
+        spmv_err = max(spmv_err, err_r)
     take = _take_sweep("kernels: take", sc.take, A.idx, _take_fields(rng, n, dev), flush)
 
     # a ragged rectangular gather into an x of another width: K = 33 slots
@@ -439,18 +550,35 @@ def phase_band_kernels(dev, flush):
         raise RuntimeError("the TGV-1024 matrix carries no band spec")
     K, n = A.vals.shape
     nnz = int(A.mask.sum().item()) + n
-    win = band.rows + 2 * band.window
-    plan = (sc.take_band_plan(n, K, 1, 4, band, sc._smem_optin(0), sc._sm_count(0))
-            if torch.device(dev).type == "cuda" else None)
-    _log(f"band: TGV-1024 Poisson matrix N={n} K={K} nnz={nnz}; window W={band.window}, "
-         f"step rows S={band.rows}; spmv_band blocks of {min(band.rows, 1024)} rows, window "
-         f"re-read {win / min(band.rows, 1024):.1f}x; take_band f32 plan {plan}; "
-         f"vals+idx stream {8 * K * n / 1e6:.1f} MB (f32)")
+    cuda = torch.device(dev).type == "cuda"
+    smem, n_sm = (sc._smem_optin(0), sc._sm_count(0)) if cuda else (232448, 132)
+    plan = sc.take_band_plan(n, K, 1, 4, band, smem, n_sm)
+    live = int(A.slots.slot_end.to(torch.int64).sum())
+    streamed = _spmv_streamed(A.slots.slot_end, K, n, 1, 4, 2, _spmv_rows_per_thread(n, 4))
+    _log(f"band: TGV-1024 Poisson matrix N={n} K={K} nnz={nnz} ({live} live slots, "
+         f"{K * n - live} padding); window W={band.window}, step rows S={band.rows}; "
+         f"spmv_band reads x through L2 (no window staged); take_band f32 plan {plan} "
+         f"(window re-read {plan.reread:.2f}x); spmv_band f32 stream {streamed / 1e6:.1f} MB "
+         f"(values + 16-bit offsets to the warps' slot ends, diag, x, y) against the first "
+         f"kernels' {(8 * K * n + 12 * n) / 1e6:.1f} MB (8 B on every slot)")
     rng = np.random.default_rng(1)
-    spmv, err = _spmv_sweep("band: spmv", lambda d, v, i, x: sc.ell_spmv_band(d, v, i, x, band),
-                            A, nnz, flush, rng,
-                            ((torch.float32, (1, 2, 3)), (torch.float64, (1,))),
-                            beside=sc.ell_spmv)
+    slots = A.slots
+
+    def band_kernel(d, v, x):
+        return sc.ell_spmv_band(d, v, A.idx, x, band, slots)
+
+    def band_plain(d, v, x):
+        return sc.spmv_band_plain(d, v, slots.off, slots.slot_end, x, band)
+
+    nonband, _ = _ell_paths(_unbanded(A))
+    both = ((torch.float32, (1, 2, 3)), (torch.float64, (1, 2, 3)))
+    spmv, err = _spmv_sweep("band: spmv", band_kernel, band_plain, A, nnz, flush, rng, both,
+                            beside=nonband)
+    _, err_o = _spmv_sweep("band: spmv, x offset 1", band_kernel, band_plain, A, nnz, flush,
+                           rng, ((torch.float32, (1,)), (torch.float64, (1,))), x_offset=True)
+    _, err32 = _sweep_ell("band: non-band spmv", A, nnz, flush, rng,
+                          ((torch.float32, (1,)), (torch.float64, (1,))))
+    err = max(err, err_o)
     take = _take_sweep("band: take", lambda f, i: sc.take_band(f, i, band), A.idx,
                        _take_fields(rng, n, dev), flush, beside=sc.take)
     # an index array one element into a larger buffer: the scalar path
@@ -465,7 +593,8 @@ def phase_band_kernels(dev, flush):
     _log(f"band: window 128, subcap 1 at TGV-1024: overflow={ovf}")
     if ovf <= 0:
         raise RuntimeError("a too-small band window reported no overflow")
-    return dict(spmv_err=err, spmv=spmv[(torch.float32, 1)], take=take["f32 (N,)"])
+    return dict(spmv_err=err, spmv32_err=err32, spmv=spmv[(torch.float32, 1)],
+                take=take["f32 (N,)"])
 
 
 def phase_large_n(dev):
@@ -659,7 +788,8 @@ def main() -> int:
                     library_ms=t["library_ms"])
 
     kernels = [
-        row("ell_spmv", "spmv.cu", 298, launches["ell_spmv"], k["spmv_err"], k["spmv"]),
+        row("ell_spmv", "spmv.cu", 298, launches["ell_spmv"],
+            max(k["spmv_err"], kb["spmv32_err"]), k["spmv"]),
         row("take", "take.cu", 332, launches["take"], 0.0, k["take"]),
         row("ell_spmv_band", "spmv_band.cu", 458, launches_large["ell_spmv_band"],
             kb["spmv_err"], kb["spmv"]),

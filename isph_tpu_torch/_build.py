@@ -88,11 +88,12 @@ def load_library() -> ctypes.CDLL:
     (each pointer and the stream as ``c_void_p``, so none is cut to 32 bits)."""
     lib = ctypes.CDLL(str(build()))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.isph_ell_spmv.argtypes = [i32, vp, vp, vp, vp, vp, i32, i64, i32, i32, vp]
+    lib.isph_ell_spmv.argtypes = [i32, vp, vp, vp, vp, vp, vp, i32, i64, i32, i32, vp]
     lib.isph_ell_spmv.restype = i32
     lib.isph_take.argtypes = [i32, vp, vp, vp, i32, i32, i64, i64, i32, vp]
     lib.isph_take.restype = i32
-    lib.isph_spmv_band.argtypes = [i32, vp, vp, vp, vp, vp, i32, i64, i32, i64, i32, i32, vp]
+    lib.isph_spmv_band.argtypes = [i32, vp, vp, vp, vp, vp, vp, i32, i64, i32, i64, i32,
+                                   i32, vp]
     lib.isph_spmv_band.restype = i32
     lib.isph_take_band.argtypes = [i32, vp, vp, vp, i32, i32, i64, i64, i32, i64, i32,
                                    i32, vp]

@@ -197,3 +197,12 @@ extern "C" int isph_take_band(int dtype, const void* x, const void* idx, void* o
       return cudaErrorInvalidValue;
   }
 }
+
+// Shared memory one block may use after opting in, in bytes (227 KB on an
+// H100), or the negated cudaError_t.
+extern "C" int isph_smem_optin(int device) {
+  int bytes = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  return err == cudaSuccess ? bytes : -static_cast<int>(err);
+}

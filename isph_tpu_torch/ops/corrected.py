@@ -374,7 +374,8 @@ def laplacian_matrix(
 
     vals = alpha * (off1 + off2) * rowf[None, :] * geom.mask
     diag = alpha * (diag1 + diag2) * rowf
-    return ELL(diag=diag, vals=vals, idx=geom.idx, mask=geom.mask, band=geom.band)
+    return ELL(diag=diag, vals=vals, idx=geom.idx, mask=geom.mask, band=geom.band,
+               slots=geom.slots)
 
 
 def gradient_dot_matrix(
@@ -406,4 +407,5 @@ def gradient_dot_matrix(
         diag = alpha * aij.sum(dim=0) * row
     else:
         diag = -alpha * aij.sum(dim=0) * row
-    return ELL(diag=diag, vals=vals, idx=geom.idx, mask=geom.mask, band=geom.band)
+    return ELL(diag=diag, vals=vals, idx=geom.idx, mask=geom.mask, band=geom.band,
+               slots=geom.slots)

@@ -8,6 +8,9 @@ separate.  Assembly is scatter-free elementwise arithmetic; SpMV is one
 gather + reduction, which on CUDA tensors is the hand-written kernel
 (``ops/spmv_cuda.py``): the band-window kernel when the matrix was built
 on a streaming neighbor list (``band`` set), else the plain ELL kernel.
+Both read the pattern's :class:`SlotFormat` (slot ends, and band offsets
+on a streaming list), which the neighbor build makes once and every matrix
+on that list shares; on CPU tensors the kernels' plain versions decode it.
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ from typing import Optional
 
 import torch
 
-from isph_tpu_torch.ops.spmv_cuda import BandSpec, ell_spmv, ell_spmv_band
+from isph_tpu_torch.ops.spmv_cuda import (BandSpec, SlotFormat, ell_spmv, ell_spmv_band,
+                                          slot_format)
 
 
 @dataclasses.dataclass
@@ -29,6 +33,13 @@ class ELL:
     idx: torch.Tensor  # (K, N) int32
     mask: torch.Tensor  # (K, N) float 0/1
     band: Optional[BandSpec] = None  # band spec of a streaming neighbor list
+    # the kernels' stream of the pattern; built here when not passed in
+    # (AMG's coarse levels, matrices made by hand)
+    slots: Optional[SlotFormat] = None
+
+    def __post_init__(self):
+        if self.slots is None:
+            self.slots = slot_format(self.idx, self.mask, self.band)
 
     @property
     def n(self) -> int:
@@ -36,33 +47,35 @@ class ELL:
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """x: (N,) -> (N,); or (d, N) multivector -> (d, N) in one kernel
-        launch (the vals/idx stream is shared by the components).
+        launch (the vals/column stream is shared by the components).
 
         INVARIANT: ``vals`` holds exact zeros on masked slots — every
         constructor multiplies by the pair mask at assembly."""
         if self.band is not None:
-            return ell_spmv_band(self.diag, self.vals, self.idx, x, self.band)
-        return ell_spmv(self.diag, self.vals, self.idx, x)
+            return ell_spmv_band(self.diag, self.vals, self.idx, x, self.band, self.slots)
+        return ell_spmv(self.diag, self.vals, self.idx, x, self.slots)
 
     def left_scale(self, s: torch.Tensor) -> "ELL":
         """Row scaling (Epetra LeftScale, used to apply 1/rho)."""
-        return ELL(self.diag * s, self.vals * s[None, :], self.idx, self.mask, self.band)
+        return ELL(self.diag * s, self.vals * s[None, :], self.idx, self.mask, self.band,
+                   self.slots)
 
     def scale(self, a) -> "ELL":
-        return ELL(self.diag * a, self.vals * a, self.idx, self.mask, self.band)
+        return ELL(self.diag * a, self.vals * a, self.idx, self.mask, self.band, self.slots)
 
     def with_diag(self, diag: torch.Tensor) -> "ELL":
-        return ELL(diag, self.vals, self.idx, self.mask, self.band)
+        return ELL(diag, self.vals, self.idx, self.mask, self.band, self.slots)
 
     def add(self, other: "ELL") -> "ELL":
         """Sum of two matrices sharing the same sparsity (idx/mask)."""
         return ELL(self.diag + other.diag, self.vals + other.vals, self.idx, self.mask,
-                   self.band)
+                   self.band, self.slots)
 
     def zero_rows(self, rows: torch.Tensor) -> "ELL":
         """Zero out full rows where ``rows`` (N,) bool is True (keeps diag)."""
         keep = (~rows).to(self.vals.dtype)
-        return ELL(self.diag, self.vals * keep[None, :], self.idx, self.mask, self.band)
+        return ELL(self.diag, self.vals * keep[None, :], self.idx, self.mask, self.band,
+                   self.slots)
 
     def to_dense(self) -> torch.Tensor:
         """(N, N) dense with A[i, j]: AMG's coarsest level is inverted from

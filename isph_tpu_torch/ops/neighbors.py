@@ -22,6 +22,10 @@ the band check of the JAX package's ``to_streaming``
 (``isph_tpu/ops/spmv_pallas.py:135-150``) counts the columns that fall
 outside their step's band window into ``overflow``, and every gather and
 SpMV of such a list goes through the band-window kernels.
+
+Every list carries its :class:`SlotFormat`, built once here: each row's
+slot end and, for a streaming list, the 16-bit window offsets that the SpMV
+kernels read for every matrix on the list.
 """
 
 from __future__ import annotations
@@ -35,7 +39,8 @@ import torch
 
 from isph_tpu_torch.state import Domain
 from isph_tpu_torch.ops.kernels import Kernel
-from isph_tpu_torch.ops.spmv_cuda import LANE, BandSpec, take, take_band
+from isph_tpu_torch.ops.spmv_cuda import (LANE, BandSpec, SlotFormat, slot_format, take,
+                                          take_band)
 
 
 @dataclasses.dataclass
@@ -49,6 +54,7 @@ class NeighborList:
     count: torch.Tensor  # (N,) int32 — true neighbor count per particle
     overflow: torch.Tensor  # () int32 — positive if K, cell capacity or band overflowed
     band: Optional[BandSpec] = None  # set for a streaming list (stream_window > 0)
+    slots: Optional[SlotFormat] = None  # the SpMV kernels' stream of (idx, mask)
 
 
 @dataclasses.dataclass
@@ -65,6 +71,7 @@ class PairGeom:
     dwdr: torch.Tensor  # (K, N) kernel radial derivative
     w_self: torch.Tensor  # () kernel value at r=0
     band: Optional[BandSpec] = None  # copied from the NeighborList
+    slots: Optional[SlotFormat] = None  # copied from the NeighborList
 
     @property
     def n(self) -> int:
@@ -285,7 +292,7 @@ def build_neighbor_list(
         band_ovf, band = band_check(idx, stream_window, stream_subcap)
         overflow = overflow + band_ovf
     return NeighborList(idx=idx, mask=mask, count=count, overflow=overflow.to(i32),
-                        band=band)
+                        band=band, slots=slot_format(idx, mask, band))
 
 
 def build_neighbor_list_bruteforce(
@@ -314,8 +321,9 @@ def build_neighbor_list_bruteforce(
     idx = torch.where(mask, perm.to(torch.int32), i_idx).contiguous()
     count = good.sum(dim=0).to(torch.int32)
     overflow = torch.clamp_min(count.max() - K, 0)
-    return NeighborList(idx=idx, mask=mask.contiguous(), count=count,
-                        overflow=overflow.to(torch.int32))
+    mask = mask.contiguous()
+    return NeighborList(idx=idx, mask=mask, count=count, overflow=overflow.to(torch.int32),
+                        slots=slot_format(idx, mask))
 
 
 def compute_pair_geometry(
@@ -343,4 +351,4 @@ def compute_pair_geometry(
     dwdr = kernel.dw(r, h, dim) * maskf
     w_self = kernel.w(torch.zeros((), dtype=dtype, device=x.device), h, dim)
     return PairGeom(idx=nbrs.idx, mask=maskf, rij=rij, r=r, eij=eij, w=w,
-                    dwdr=dwdr, w_self=w_self, band=nbrs.band)
+                    dwdr=dwdr, w_self=w_self, band=nbrs.band, slots=nbrs.slots)

@@ -5,10 +5,10 @@ live in ``isph_tpu_torch/csrc/`` and are built at first use
 (``isph_tpu_torch/_build.py``):
 
 - ``csrc/spmv.cu`` replaces ``_spmv_kernel`` (spmv_pallas.py:298-329):
-  y = diag*x + sum_k vals[k]*x[..., idx[k]] for x (N,) or (C, N), C <= 3.
-  Bytes bound: 4 B vals + 4 B idx per nnz in f32; the x gather is absorbed
-  by the 50 MB L2 at the main path's N.  One thread per row reads the
-  (K, N) stream coalesced and shares it across the C components.
+  y = diag*x + sum_k vals[k]*x[..., idx[k]] for x (N,) or (C, N), C <= 3,
+  each warp's slots read up to its rows' slot end (:class:`SlotFormat`).
+  Bytes bound: 4 B vals + 4 B int32 column per live slot in f32; the x
+  gather is absorbed by the 50 MB L2 at the main path's N.
 - ``csrc/take.cu`` replaces ``_take_kernel`` (spmv_pallas.py:332-349):
   out[c, k, i] = x[c, idx[k, i]], for f32, f64, int32, uint8 and bool.
   Bytes bound: 4 B idx read + one element written per output.  Each thread
@@ -18,15 +18,21 @@ live in ``isph_tpu_torch/csrc/`` and are built at first use
   458-506) and ``csrc/take_band.cu`` replaces ``_take_stream_kernel``
   (:635-663): the same two functions for a streaming neighbor list, whose
   band check guarantees that every column of a row lies in the band window
-  of the row's step (:class:`BandSpec`).  A block stages that window of x
-  into shared memory and gathers from there; ``take_band_plan`` sizes the
-  gather's blocks.  Their plain versions are ``spmv_plain`` and
-  ``take_plain``: the function is the same.
+  of the row's step (:class:`BandSpec`).  The band SpMV reads each column
+  as its 16-bit offset in that window (``band_offsets``) and reads x
+  through L2; the gather stages the window of x into shared memory, and
+  ``take_band_plan`` sizes its blocks.
+
+Plain versions: ``spmv_plain`` and ``take_plain`` are the functions
+themselves; ``spmv_slots_plain`` and ``spmv_band_plain`` compute the SpMV
+from the kernels' own inputs (slot ends, band offsets) and are what
+``ELL.matvec`` runs on CPU tensors.
 
 Dispatch rule: a wrapper uses the plain PyTorch version only when it is
-given CPU tensors.  On CUDA tensors it checks device, dtype, shape and
-contiguity, then launches its kernel or raises; there is no fallback.
-Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+given CPU tensors.  On CUDA tensors it checks device, dtype, shape,
+contiguity and the slot format, then launches its kernel or raises; there
+is no fallback.  Each wrapper counts its kernel launches in
+``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -57,10 +63,93 @@ _TAKE_DTYPES = {torch.float32: 0, torch.float64: 1, torch.int32: 2,
                 torch.uint8: 3, torch.bool: 3}
 
 
+OUTSIDE = -1  # band offset of a column outside its step's window (0xFFFF)
+
+
+class SlotFormat(NamedTuple):
+    """The SpMV kernels' stream of a (K, N) ELL pattern, built once per
+    neighbor build (``slot_format``).  16-bit arrays are ``torch.int16``
+    holding uint16 bits: the kernels read them as ``uint16_t`` and the plain
+    versions decode them with ``.to(torch.int32) & 0xFFFF``.  The non-band
+    kernel reads the int32 idx itself."""
+
+    slot_end: torch.Tensor  # (N,) int16: 1 + the row's last set slot, 0 if none
+    off: torch.Tensor | None  # (K, N) int16 band offsets (``band_offsets``) when ``band`` is set
+    band: BandSpec | None  # the band the offsets were built for
+
+
+def _to_u16(t: torch.Tensor) -> torch.Tensor:
+    """int32 values in [0, 65536) as int16 tensors holding their uint16 bits."""
+    return torch.where(t < 1 << 15, t, t - (1 << 16)).to(torch.int16)
+
+
+def _from_u16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.int32) & 0xFFFF
+
+
+def _step_starts(n: int, band: BandSpec, device) -> torch.Tensor:
+    """(N,) first particle of each row's step window, (s*S - W) mod N."""
+    rows = torch.arange(n, dtype=torch.int32, device=device)
+    return (rows // band.rows * band.rows - band.window) % n
+
+
+def band_offsets(idx: torch.Tensor, band: BandSpec) -> torch.Tensor:
+    """(K, N) int16 offset of each column in its row's step window,
+    (idx - start(step)) mod N in [0, S + 2W), or ``OUTSIDE`` where the
+    column lies outside the window (the band check counted it as
+    overflow)."""
+    W, S = band
+    _require(S + 2 * W < 0xFFFF, f"band window of {S + 2 * W} elements does not fit "
+             "16-bit offsets (S + 2W < 65,535)")
+    off = (idx - _step_starts(idx.shape[1], band, idx.device)[None, :]) % idx.shape[1]
+    return torch.where(off < S + 2 * W, _to_u16(off), OUTSIDE).contiguous()
+
+
+def slot_format(idx: torch.Tensor, mask: torch.Tensor | None = None,
+                band: BandSpec | None = None) -> SlotFormat:
+    """The slot format of a (K, N) pattern.  ``mask`` (bool or 0/1) gives
+    each row's slot end; without it every slot counts as live."""
+    K, n = idx.shape
+    _require(K < 1 << 15, f"slot ends are 16-bit: K = {K} is too many slots")
+    if mask is None or K == 0:
+        slot_end = torch.full((n,), K if mask is None else 0, dtype=torch.int16,
+                              device=idx.device)
+    else:
+        k1 = torch.arange(1, K + 1, dtype=torch.int32, device=idx.device)[:, None]
+        slot_end = torch.where(mask != 0, k1, 0).amax(0).to(torch.int16)
+    off = None if band is None else band_offsets(idx, band)
+    return SlotFormat(slot_end=slot_end, off=off, band=band)
+
+
 def spmv_plain(diag: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
                x: torch.Tensor) -> torch.Tensor:
     """Plain version of the SpMV kernel: x (N,) -> (N,), (C, N) -> (C, N)."""
     return diag * x + (vals * x[..., idx]).sum(-2)
+
+
+def _live(slot_end: torch.Tensor, K: int) -> torch.Tensor:
+    k = torch.arange(K, dtype=torch.int32, device=slot_end.device)[:, None]
+    return k < slot_end.to(torch.int32)[None, :]
+
+
+def spmv_slots_plain(diag: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
+                     slot_end: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``csrc/spmv.cu`` on its own inputs: terms past each
+    row's slot end left out, the (K, N) reduction of ``spmv_plain`` kept."""
+    terms = torch.where(_live(slot_end, vals.shape[0]), vals * x[..., idx], 0)
+    return diag * x + terms.sum(-2)
+
+
+def spmv_band_plain(diag: torch.Tensor, vals: torch.Tensor, off: torch.Tensor,
+                    slot_end: torch.Tensor, x: torch.Tensor, band: BandSpec) -> torch.Tensor:
+    """Plain version of ``csrc/spmv_band.cu`` on its own inputs: columns
+    decoded from their window offsets, terms at ``OUTSIDE`` and past each
+    row's slot end left out."""
+    n = diag.shape[0]
+    o = _from_u16(off)
+    j = (_step_starts(n, band, off.device)[None, :] + o) % n
+    live = _live(slot_end, vals.shape[0]) & (o != 0xFFFF)
+    return diag * x + torch.where(live, vals * x[..., j], 0).sum(-2)
 
 
 def take_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -88,36 +177,69 @@ def _stream(t: torch.Tensor) -> int:
 
 def _check_spmv(diag, vals, idx, x) -> tuple[int, int, int]:
     """Device, dtype, shape and contiguity checks of an SpMV launch;
-    returns (K, N, C)."""
+    returns (K, N, C).  Each call of a Krylov iteration makes them, so a
+    message is formatted only when its check fails."""
     _require_cuda(diag, vals, idx, x)
-    _require(vals.ndim == 2 and idx.shape == vals.shape,
-             f"vals {tuple(vals.shape)} and idx {tuple(idx.shape)} must be one (K, N) shape")
+    if not (vals.ndim == 2 and idx.shape == vals.shape):
+        raise ValueError(f"vals {tuple(vals.shape)} and idx {tuple(idx.shape)} must be one "
+                         "(K, N) shape")
     K, n = vals.shape
-    _require(idx.dtype == torch.int32, f"idx must be int32, got {idx.dtype}")
-    _require(x.dtype in _SPMV_DTYPES, f"SpMV takes f32/f64, got {x.dtype}")
-    _require(diag.dtype == x.dtype and vals.dtype == x.dtype,
-             "diag, vals and x must share one dtype")
-    _require(diag.shape == (n,), f"diag {tuple(diag.shape)} != ({n},)")
-    _require(x.shape[-1] == n and x.ndim in (1, 2) and (x.ndim == 1 or x.shape[0] <= 3),
-             f"x must be ({n},) or (C <= 3, {n}), got {tuple(x.shape)}")
+    if idx.dtype != torch.int32:
+        raise ValueError(f"idx must be int32, got {idx.dtype}")
+    if x.dtype not in _SPMV_DTYPES:
+        raise ValueError(f"SpMV takes f32/f64, got {x.dtype}")
+    if not (diag.dtype == x.dtype and vals.dtype == x.dtype):
+        raise ValueError("diag, vals and x must share one dtype")
+    if diag.shape != (n,):
+        raise ValueError(f"diag {tuple(diag.shape)} != ({n},)")
+    if not (x.shape[-1] == n and x.ndim in (1, 2) and (x.ndim == 1 or x.shape[0] <= 3)):
+        raise ValueError(f"x must be ({n},) or (C <= 3, {n}), got {tuple(x.shape)}")
     for name, t in (("diag", diag), ("vals", vals), ("idx", idx), ("x", x)):
-        _require(t.is_contiguous(), f"{name} must be contiguous")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
     return K, n, 1 if x.ndim == 1 else x.shape[0]
 
 
+def _check_slots(slots: SlotFormat, K: int, n: int, band: BandSpec | None) -> None:
+    """The slot format matches the (K, N) pattern and the kernel: a slot end
+    per row, and for the band kernel 16-bit offsets of the pattern's shape
+    built for this band.  Messages are formatted only on failure."""
+    if not isinstance(slots, SlotFormat):
+        raise ValueError(f"slots must be a SlotFormat, got {type(slots)}")
+    se, off, sband = slots
+    if not (se.dtype == torch.int16 and se.shape == (n,) and se.is_contiguous()):
+        raise ValueError(f"slot_end must be contiguous ({n},) int16, got {tuple(se.shape)} "
+                         f"{se.dtype}")
+    if sband != band:
+        raise ValueError(f"slot format built for band {sband}, kernel given band {band}")
+    if band is None:
+        return
+    if off is None:
+        raise ValueError("the band kernel needs 16-bit window offsets")
+    if not (off.dtype == torch.int16 and off.shape == (K, n) and off.is_contiguous()):
+        raise ValueError(f"window offsets must be contiguous ({K}, {n}) int16, got "
+                         f"{tuple(off.shape)} {off.dtype}")
+
+
 def ell_spmv(diag: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
-             x: torch.Tensor) -> torch.Tensor:
-    """y = diag*x + sum_k vals[k]*x[..., idx[k]] (vals already masked)."""
+             x: torch.Tensor, slots: SlotFormat) -> torch.Tensor:
+    """y = diag*x + sum_k vals[k]*x[..., idx[k]] (vals already masked),
+    each row's slots read up to its slot end in ``slots``, the pattern's
+    slot format."""
     if x.device.type == "cpu":
-        return spmv_plain(diag, vals, idx, x)
+        _check_slots(slots, *idx.shape, None)
+        return spmv_slots_plain(diag, vals, idx, slots.slot_end, x)
     K, n, ncomp = _check_spmv(diag, vals, idx, x)
+    _check_slots(slots, K, n, None)
+    _require_cuda(x, slots.slot_end)
     lib = _build.load_library()
     y = torch.empty_like(x)
     if n == 0:
         return y
     err = lib.isph_ell_spmv(
         _SPMV_DTYPES[x.dtype], diag.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-        x.data_ptr(), y.data_ptr(), K, n, ncomp, x.device.index, _stream(x))
+        slots.slot_end.data_ptr(), x.data_ptr(), y.data_ptr(), K, n, ncomp, x.device.index,
+        _stream(x))
     if err != 0:
         raise RuntimeError(f"ell_spmv kernel launch failed: cudaError {err}")
     ell_spmv.launches += 1
@@ -164,16 +286,25 @@ def _smem_optin(device: int) -> int:
     return got
 
 
+def _check_band(band: BandSpec | None, n: int) -> None:
+    if band is None:
+        raise ValueError("band kernel needs a BandSpec (stream_window > 0)")
+    W, S = band
+    if n % LANE:
+        raise ValueError(f"band kernel needs N % {LANE} == 0, got N={n}")
+    if not (W > 0 and W % LANE == 0):
+        raise ValueError(f"window {W} must be a positive multiple of {LANE}")
+    if not (S > 0 and S % LANE == 0 and n % S == 0):
+        raise ValueError(f"step rows {S} must be a multiple of {LANE} dividing N={n}")
+
+
 def _band_plan(band: BandSpec | None, n: int, itemsize: int, ncomp: int,
                device: int) -> int:
-    """Check a band launch; returns how many components one launch takes
-    (all of them, or 1 when their windows together exceed shared memory)."""
-    _require(band is not None, "band kernel needs a BandSpec (stream_window > 0)")
+    """Check a launch that stages band windows; returns how many components
+    one launch takes (all of them, or 1 when their windows together exceed
+    shared memory)."""
+    _check_band(band, n)
     W, S = band
-    _require(n % LANE == 0, f"band kernel needs N % {LANE} == 0, got N={n}")
-    _require(W > 0 and W % LANE == 0, f"window {W} must be a positive multiple of {LANE}")
-    _require(S > 0 and S % LANE == 0 and n % S == 0,
-             f"step rows {S} must be a multiple of {LANE} dividing N={n}")
     per = (S + 2 * W) * itemsize
     limit = _smem_optin(device)
     _require(per <= limit, f"band window of {S + 2 * W} elements ({per} B) exceeds "
@@ -181,28 +312,25 @@ def _band_plan(band: BandSpec | None, n: int, itemsize: int, ncomp: int,
     return ncomp if ncomp * per <= limit else 1
 
 
-def _require_aligned(x: torch.Tensor) -> None:
-    _require(x.data_ptr() % 16 == 0, "x must be 16-byte aligned (cp.async pieces)")
-
-
 def ell_spmv_band(diag: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
-                  x: torch.Tensor, band: BandSpec | None) -> torch.Tensor:
-    """``ell_spmv`` for a streaming neighbor list: x is read through the
-    band window of each step (``csrc/spmv_band.cu``)."""
+                  x: torch.Tensor, band: BandSpec | None, slots: SlotFormat) -> torch.Tensor:
+    """``ell_spmv`` for a streaming neighbor list: each column is read as
+    its 16-bit offset in the band window of its row's step
+    (``csrc/spmv_band.cu``); ``slots`` holds the offsets and slot ends."""
     if x.device.type == "cpu":
-        return spmv_plain(diag, vals, idx, x)
+        _check_band(band, idx.shape[1])
+        _check_slots(slots, *idx.shape, band)
+        return spmv_band_plain(diag, vals, slots.off, slots.slot_end, x, band)
     K, n, ncomp = _check_spmv(diag, vals, idx, x)
-    per_call = _band_plan(band, n, x.element_size(), ncomp, x.device.index)
-    _require_aligned(x)
-    if per_call < ncomp:
-        return torch.stack([ell_spmv_band(diag, vals, idx, x[c], band)
-                            for c in range(ncomp)])
+    _check_band(band, n)
+    _check_slots(slots, K, n, band)
+    _require_cuda(x, slots.off, slots.slot_end)
     lib = _build.load_library()
     y = torch.empty_like(x)
     err = lib.isph_spmv_band(
-        _SPMV_DTYPES[x.dtype], diag.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-        x.data_ptr(), y.data_ptr(), K, n, ncomp, band.rows, band.window,
-        x.device.index, _stream(x))
+        _SPMV_DTYPES[x.dtype], diag.data_ptr(), vals.data_ptr(), slots.off.data_ptr(),
+        slots.slot_end.data_ptr(), x.data_ptr(), y.data_ptr(), K, n, ncomp, band.rows,
+        band.window, x.device.index, _stream(x))
     if err != 0:
         raise RuntimeError(f"ell_spmv_band kernel launch failed: cudaError {err}")
     ell_spmv_band.launches += 1

@@ -176,8 +176,9 @@ def test_band_wrappers_raise_instead_of_falling_back(monkeypatch):
     diag, vals, x = _meta(n), _meta(4, n), _meta(n)
     idx = _meta(4, n, dtype=torch.int32)
     band = BandSpec(window=128, rows=256)
+    slots = spmv_cuda.slot_format(idx, band=band)
     with pytest.raises(ValueError, match="CUDA"):
-        spmv_cuda.ell_spmv_band(diag, vals, idx, x, band)
+        spmv_cuda.ell_spmv_band(diag, vals, idx, x, band, slots)
     with pytest.raises(ValueError, match="CUDA"):
         spmv_cuda.take_band(x, idx, band)
 
@@ -191,7 +192,7 @@ def test_band_wrappers_raise_instead_of_falling_back(monkeypatch):
     for bad, match in ((None, "BandSpec"), (BandSpec(100, 256), "window"),
                        (BandSpec(128, 96), "step rows")):
         with pytest.raises(ValueError, match=match):
-            spmv_cuda.ell_spmv_band(diag, vals, idx, x, bad)
+            spmv_cuda.ell_spmv_band(diag, vals, idx, x, bad, slots)
         with pytest.raises(ValueError, match=match):
             spmv_cuda.take_band(x, idx, bad)
     with pytest.raises(ValueError, match="N % 128"):
@@ -199,7 +200,7 @@ def test_band_wrappers_raise_instead_of_falling_back(monkeypatch):
     with pytest.raises(ValueError, match="square"):
         spmv_cuda.take_band(_meta(2 * n), idx, band)
     with pytest.raises(RuntimeError, match="nvcc"):
-        spmv_cuda.ell_spmv_band(diag, vals, idx, x, band)
+        spmv_cuda.ell_spmv_band(diag, vals, idx, x, band, slots)
     with pytest.raises(RuntimeError, match="nvcc"):
         spmv_cuda.take_band(x, idx, band)
     assert (spmv_cuda.ell_spmv_band.launches, spmv_cuda.take_band.launches) == before

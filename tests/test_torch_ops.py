@@ -362,10 +362,11 @@ def _meta(*shape, dtype=torch.float32):
 def test_wrappers_raise_instead_of_falling_back(monkeypatch, tmp_path):
     diag, vals, x = _meta(64), _meta(4, 64), _meta(64)
     idx = _meta(4, 64, dtype=torch.int32)
+    slots = spmv_cuda.slot_format(idx)
     # a non-CPU tensor that is not on a CUDA device is refused, never
     # computed by the plain version
     with pytest.raises(ValueError, match="CUDA"):
-        spmv_cuda.ell_spmv(diag, vals, idx, x)
+        spmv_cuda.ell_spmv(diag, vals, idx, x, slots)
     with pytest.raises(ValueError, match="CUDA"):
         spmv_cuda.take(x, idx)
 
@@ -377,15 +378,15 @@ def test_wrappers_raise_instead_of_falling_back(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "load_library", no_build)
     before = (spmv_cuda.ell_spmv.launches, spmv_cuda.take.launches)
     with pytest.raises(RuntimeError, match="nvcc"):
-        spmv_cuda.ell_spmv(diag, vals, idx, x)
+        spmv_cuda.ell_spmv(diag, vals, idx, x, slots)
     with pytest.raises(RuntimeError, match="nvcc"):
         spmv_cuda.take(x, idx)
     assert (spmv_cuda.ell_spmv.launches, spmv_cuda.take.launches) == before
     # shape/dtype/contiguity are checked before the build is touched
     with pytest.raises(ValueError, match="int32"):
-        spmv_cuda.ell_spmv(diag, vals, idx.to(torch.int64), x)
+        spmv_cuda.ell_spmv(diag, vals, idx.to(torch.int64), x, slots)
     with pytest.raises(ValueError, match="C <= 3"):
-        spmv_cuda.ell_spmv(diag, vals, idx, _meta(4, 64))
+        spmv_cuda.ell_spmv(diag, vals, idx, _meta(4, 64), slots)
     with pytest.raises(ValueError, match="contiguous"):
         spmv_cuda.take(_meta(64, 2).T, idx)
 
