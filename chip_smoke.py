@@ -42,11 +42,40 @@ Phases (each raises on failure; the script then exits non-zero):
    default AMG preconditioner (max age 8) on the streaming neighbor list;
    checks overflow, the Poisson iteration cap, volume, the decaying vmax,
    and that both band kernels ran; prints the peak device memory and one
-   synchronized breakdown with the AMG build and the V-cycles apart.
+   synchronized breakdown with the AMG build and the V-cycles apart;
+8. 3-D kernels: on the pressure-Poisson matrices of the Quintic (cut = 3h,
+   K = 392) 3-D Taylor-Green lattices at 64^3 (262,144 particles, ~102M
+   nonzeros) and 24^3 (the reference's per-rank scaling size), the SpMV
+   (C = 1 and 3 in f32 and f64) and take (f32 (N,) and (3, N), int32 and
+   bool) against their plain versions as in phase 3, timed beside their
+   bounds, plain versions and library calls (scripts/spmv_variants.py times
+   the SpMV's two paths forced at these shapes: the measurement behind the
+   path rule of csrc/spmv_vec.cuh);
+9. 3-D path: three TGV-64^3 f32 Quintic steps through Simulation.run with
+   the default AMG; checks overflow, the 388 neighbors a particle, the
+   Poisson iteration cap, finiteness, volume, the decaying vmax and that
+   both kernels ran; prints the neighbor build's own peak, the step's peak
+   device memory, one synchronized breakdown and the Poisson iterations of
+   one more step with Jacobi beside AMG's;
+10. channel kernels: on the matrices of the ny = 1024 Poiseuille channel
+   (424,064 particles padded, K = 48: the one-row SpMV path), the SpMV
+   against its plain version as in phase 3 on the pressure-Poisson matrix
+   with its solid and homogeneous-Neumann wall rows (C = 1 and 2 in f32 and
+   f64), its fluid block (f32 C = 1) and the MorrisHolmes Helmholtz matrix
+   (f32 C = 1 and 2), and take (f32 (N,) and (2, N), int32 and bool) on the
+   neighbor list, timed beside their bounds, plain versions and library
+   calls;
+11. channel: three steps of that channel (MorrisHolmes walls, shift 0.07)
+   in f32 with the default AMG; checks overflow, that the walls neither
+   move nor gain velocity, finiteness, the velocity error against the
+   transient profile (5%, tests/test_channel.py's bar), and that both
+   kernels ran; prints one synchronized breakdown with the shift apart.
 
 The last lines are the card's name and power limit from nvidia-smi, one
 JSON line describing the kernels (time, launches on the main path, plain
-and library times and bound of each, at the f32 (N,) shape of its phase),
+and library times and bound of each, at the f32 (N,) shape of its phase;
+ell_spmv and take also at 64^3 and on the channel, with their launches on
+phases 9 and 11),
 and the result line
 {"ok": true, "device": {...}}.  Without a CUDA device it prints no result
 and exits non-zero.
@@ -147,6 +176,7 @@ def _spmv_rel_err(yk, yp, diag, vals, idx, x):
     """max |kernel - plain| relative to the row's sum of |terms|: the two
     differ only in summation order (and FMA contraction)."""
     terms = (diag * x).abs() + (vals.abs() * x[..., idx].abs()).sum(-2)
+    terms = torch.clamp_min(terms, torch.finfo(terms.dtype).tiny)  # empty padding rows
     return float(((yk - yp).abs() / terms).max()), float((yk - yp).abs().max())
 
 
@@ -183,8 +213,8 @@ def _spmv_tiles():
     size = {"float": 4, "double": 8}
     vec = {size[t]: int(v) for t, v in re.findall(
         r"struct Tile<(\w+)> \{\s*static constexpr int V = (\d+),", hdr)}
-    min_vec = re.search(r"constexpr int64_t kMinVecThreads = 1 << (\d+);", hdr).group(1)
-    return vec, 1 << int(min_vec)
+    mult, shift = re.search(r"constexpr int64_t kMinVecThreads = (\d+) << (\d+);", hdr).groups()
+    return vec, int(mult) << int(shift)
 
 
 def _spmv_rows_per_thread(n, item, aligned=True):
@@ -274,11 +304,11 @@ def _take_bytes(x, idx):
     return idx.numel() * 4 + (x.numel() + ncomp * idx.numel()) * x.element_size()
 
 
-def _take_sweep(tag, kernel, idx, fields, flush, beside=None):
+def _take_sweep(tag, kernel, idx, fields, flush, beside=None, main_shapes=TAKE_MAIN_SHAPES):
     """Hold ``kernel(x, idx)`` against take_plain, atol 0, on every field,
     and the library call too; time the kernel and the library call at each
-    field, and for the main-path shapes also the plain version, the kernel
-    with L2 flushed and ``beside`` (the non-band kernel)."""
+    field, and for ``main_shapes`` also the plain version, the kernel with
+    L2 flushed and ``beside`` (the non-band kernel)."""
     from isph_tpu_torch.ops import spmv_cuda as sc
 
     rows = {}
@@ -297,7 +327,7 @@ def _take_sweep(tag, kernel, idx, fields, flush, beside=None):
         bound, by = _bound(nbytes)
         row = dict(ms=tk, library_ms=tl, bound_ms=bound, bound_by=by, plain_ms=None)
         more = ""
-        if name in TAKE_MAIN_SHAPES:
+        if name in main_shapes:
             row["plain_ms"], _ = _median_ms(lambda: sc.take_plain(f, idx), reps=10)
             tkc, _ = _median_ms(lambda: kernel(f, idx), flush=flush)
             more = f", L2 flushed {tkc:.4f} ms, plain={row['plain_ms']:.4f} ms"
@@ -455,15 +485,15 @@ def phase_kernels(dev, flush):
     return dict(spmv_err=spmv_err, spmv=spmv[(torch.float32, 1)], take=take["f32 (N,)"])
 
 
-def phase_main_path(dev):
-    """Three 256^2 f32 Jacobi projection steps through Simulation.run, one
-    call per step (run(state, 3) in three timed pieces)."""
-    from isph_tpu_torch.models import tgv
-    from isph_tpu_torch.ops import spmv_cuda as sc
-
-    sim, state = _tgv256(dev)
-    sc.ell_spmv.launches = 0
-    sc.take.launches = 0
+def _run_steps(tag, sim, state, wrappers, cap_check=True):
+    """Three steps through Simulation.run, one call per step (run(state, 3)
+    in three timed pieces), the wrappers' launch counters set to 0 just
+    before and read just after.  Fails on a neighbor overflow, a non-finite
+    status and, with ``cap_check``, a Poisson solve at the iteration cap."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers:
+        w.launches = 0
     step_s = []
     for k in range(3):
         torch.cuda.synchronize()
@@ -471,36 +501,54 @@ def phase_main_path(dev):
         state, aux = sim.run(state, 1)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-        _log(f"main: step {k + 1}: {step_s[-1]:.4f} s helmholtz_iters="
+        _log(f"{tag}: step {k + 1}: {step_s[-1]:.4f} s helmholtz_iters="
              f"{int(aux.helmholtz_iters)} poisson_iters={int(aux.poisson_iters)} "
              f"poisson_relres={float(aux.poisson_relres):.3e} "
              f"overflow={int(aux.neighbor_overflow)}")
         if int(aux.neighbor_overflow) != 0:
-            raise RuntimeError("neighbor overflow on the main path")
-    launches = {"ell_spmv": sc.ell_spmv.launches, "take": sc.take.launches}
-    _log(f"main: launches {launches}")
-    if min(launches.values()) <= 0:
-        raise RuntimeError(f"a kernel of the main path never launched: {launches}")
+            raise RuntimeError(f"neighbor overflow on the {tag} path")
+        if cap_check and int(aux.poisson_iters) >= sim.cfg.solver.max_iters:
+            raise RuntimeError(f"Poisson GMRES reached the {sim.cfg.solver.max_iters} cap")
+    launches = {w.__name__: w.launches for w in wrappers}
+    _log(f"{tag}: launches {launches}")
+    step_med = statistics.median(step_s[1:])
+    _log(f"{tag}: step time (median of steps 2-3) {step_med:.4f} s, "
+         f"{state.n / step_med:.0f} particle-steps/s; peak memory "
+         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    if not all(bool(torch.isfinite(t).all()) for t in aux.status):
+        raise RuntimeError(f"non-finite status {aux.status}")
+    return state, aux, launches
 
+
+def _check_vortex(tag, aux, volume):
+    """Volume within 1% of the box and vmax within 5% of the decaying
+    vortex's 0.1 exp(-2 nu t)."""
     st = aux.status
-    if not all(bool(torch.isfinite(t).all()) for t in st):
-        raise RuntimeError(f"non-finite status {st}")
     t = float(st.time)
     vmax_exact = 0.1 * math.exp(-2.0 * 0.1 * t)
     vol = float(st.volume)
-    _log(f"main: t={t:.5f} volume={vol:.6f} (exact {(2 * math.pi) ** 2:.6f}) "
+    _log(f"{tag}: t={t:.6f} volume={vol:.6f} (exact {volume:.6f}) "
          f"vmax={float(st.vmax):.6f} (exact {vmax_exact:.6f})")
-    if abs(vol / (2 * math.pi) ** 2 - 1.0) > 1e-2:
+    if abs(vol / volume - 1.0) > 1e-2:
         raise RuntimeError("volume off by more than 1%")
     if abs(float(st.vmax) / vmax_exact - 1.0) > 5e-2:
         raise RuntimeError("vmax off the decaying vortex by more than 5%")
-    err = tgv.compute_error(state.replace(vstar=state.v), t)
+
+
+def phase_main_path(dev):
+    """Three 256^2 f32 Jacobi projection steps through Simulation.run."""
+    from isph_tpu_torch.models import tgv
+    from isph_tpu_torch.ops import spmv_cuda as sc
+
+    sim, state = _tgv256(dev)
+    state, aux, launches = _run_steps("main", sim, state, (sc.ell_spmv, sc.take),
+                                      cap_check=False)
+    if min(launches.values()) <= 0:
+        raise RuntimeError(f"a kernel of the main path never launched: {launches}")
+    _check_vortex("main", aux, (2 * math.pi) ** 2)
+    err = tgv.compute_error(state.replace(vstar=state.v), float(aux.status.time))
     _log(f"main: L2 error vs exact: pressure={float(err.pressure_l2):.4e} "
          f"velocity={float(err.velocity_l2):.4e}")
-    step_med = statistics.median(step_s[1:])
-    _log(f"main: step time (median of steps 2-3) {step_med:.4f} s, "
-         f"{state.n / step_med:.0f} particle-steps/s; peak memory "
-         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     _breakdown(sim, state)
     return launches
 
@@ -599,61 +647,26 @@ def phase_band_kernels(dev, flush):
 
 def phase_large_n(dev):
     """Three TGV-1024^2 f32 steps through Simulation.run with AMG on the
-    streaming list, one call per step (run(state, 3) in three timed pieces)."""
+    streaming list."""
     from isph_tpu_torch.ops import spmv_cuda as sc
 
     sim, state = _tgv1024(dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    wrappers = (sc.ell_spmv, sc.take, sc.ell_spmv_band, sc.take_band)
-    for w in wrappers:
-        w.launches = 0
-    step_s = []
-    for k in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, aux = sim.run(state, 1)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        _log(f"large: step {k + 1}: {step_s[-1]:.4f} s helmholtz_iters="
-             f"{int(aux.helmholtz_iters)} poisson_iters={int(aux.poisson_iters)} "
-             f"poisson_relres={float(aux.poisson_relres):.3e} "
-             f"overflow={int(aux.neighbor_overflow)}")
-        if int(aux.neighbor_overflow) != 0:
-            raise RuntimeError("neighbor overflow on the large-N path")
-        if int(aux.poisson_iters) >= sim.cfg.solver.max_iters:
-            raise RuntimeError(f"Poisson GMRES reached the {sim.cfg.solver.max_iters} cap")
-    launches = {w.__name__: w.launches for w in wrappers}
-    _log(f"large: launches {launches}")
+    state, aux, launches = _run_steps(
+        "large", sim, state, (sc.ell_spmv, sc.take, sc.ell_spmv_band, sc.take_band))
     if min(launches["ell_spmv_band"], launches["take_band"]) <= 0:
         raise RuntimeError(f"a band kernel never launched on the large-N path: {launches}")
-
-    st = aux.status
-    if not all(bool(torch.isfinite(t).all()) for t in st):
-        raise RuntimeError(f"non-finite status {st}")
-    t = float(st.time)
-    vmax_exact = 0.1 * math.exp(-2.0 * 0.1 * t)
-    vol = float(st.volume)
-    _log(f"large: t={t:.6f} volume={vol:.6f} (exact {(2 * math.pi) ** 2:.6f}) "
-         f"vmax={float(st.vmax):.6f} (exact {vmax_exact:.6f})")
-    if abs(vol / (2 * math.pi) ** 2 - 1.0) > 1e-2:
-        raise RuntimeError("volume off by more than 1%")
-    if abs(float(st.vmax) / vmax_exact - 1.0) > 5e-2:
-        raise RuntimeError("vmax off the decaying vortex by more than 5%")
-    step_med = statistics.median(step_s[1:])
-    _log(f"large: step time (median of steps 2-3) {step_med:.4f} s, "
-         f"{state.n / step_med:.0f} particle-steps/s; peak memory "
-         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    _breakdown_amg(sim, state)
+    _check_vortex("large", aux, (2 * math.pi) ** 2)
+    _breakdown_amg("large", sim, state)
     return launches
 
 
-def _breakdown_amg(sim, state):
-    """One more large-N step, phase by phase with a synchronize after each
-    (host clock), with the AMG build and the V-cycles as their own entries
-    (each V-cycle bracketed by synchronizes, so GMRES's own work is the
-    Poisson solve's time less the V-cycles')."""
+def _breakdown_amg(tag, sim, state):
+    """One more step, phase by phase with a synchronize after each (host
+    clock), with the AMG build, the V-cycles and the shift as their own
+    entries (each V-cycle bracketed by synchronizes, so GMRES's own work is
+    the Poisson solve's time less the V-cycles')."""
     from isph_tpu_torch.physics import ns_projection as ns
+    from isph_tpu_torch.physics import shift
     from isph_tpu_torch.solvers import amg
 
     marks = []
@@ -681,6 +694,8 @@ def _breakdown_amg(sim, state):
     mark("poisson_assembly")
     cache = amg.cache_of(amg.build_amg(A_f, state.x, sim.domain, cfg.cut, null_vec=null))
     mark("amg_build")
+    _log(f"{tag}: AMG coarse grids {cache.grid_shapes}, level-0 transfer "
+         f"{type(cache.transfers[0]).__name__}")
     M = amg.amg_from_cache(A_f, cache, null_vec=null).apply
     vcycles = []
 
@@ -697,17 +712,24 @@ def _breakdown_amg(sim, state):
     dp = ns.zero_mean_pressure(ns.relax_wall_pressure(A, b, res.x, state, pre), state)
     vstar = ns.correct_velocity(state, geom, pre, cfg, vstar, dp)
     state = state.replace(vstar=vstar, dp=dp, p=ns.correct_pressure(state, cfg, dp))
-    ns.advance_time(state, geom, pre, cfg, sim.domain)
+    state = ns.advance_time(state, geom, pre, cfg, sim.domain)
     mark("correct+advance")
+    if cfg.shift.enabled:
+        geom2 = sim.geometry(state, sim.neighbors(state))
+        pre2 = sim.precompute(state, geom2)
+        dr = shift.compute_shift_vectors(state, geom2, cfg)
+        shift.apply_shift(state, geom2, pre2, cfg, dr, sim.domain)
+        mark("shift")
     parts = {b_[0]: 1e3 * (b_[1] - a[1]) for a, b_ in zip(marks, marks[1:])}
     vc = 1e3 * sum(vcycles)
     parts["poisson_gmres"] -= vc
     parts = {**parts, "v_cycles": vc}
     total = sum(parts.values())
-    _log("breakdown (large): " + ", ".join(
+    _log(f"breakdown ({tag}): " + ", ".join(
         f"{k}={v:.2f} ms ({100 * v / total:.1f}%)" for k, v in parts.items())
         + f"; {len(vcycles)} V-cycles, {vc / max(len(vcycles), 1):.3f} ms each; "
         f"helmholtz_iters={int(hinfo.iters.sum())} poisson_iters={int(res.iters)}")
+    return int(res.iters)
 
 
 def phase_golden(dev):
@@ -732,6 +754,166 @@ def phase_golden(dev):
          f"velocity_l2={float(err.velocity_l2):.6e} ({ve:+.4%}) relres={relres:.2e}")
     if abs(pe) > 2e-2 or abs(ve) > 2e-2 or not relres < 5e-5:
         raise RuntimeError("TGV-16 f32 golden off by more than 2%")
+
+
+def _tgv3(dev, n_lat):
+    """TGV-n_lat^3 f32 with the reference's 3-D scaling kernel (Quintic,
+    cut = 3h = 4.5 dx, bench.py:391-438), K = 392 slots for its 388
+    neighbors, padded to 128, default AMG."""
+    from isph_tpu_torch.config import KernelType
+    from isph_tpu_torch.models import tgv
+
+    return tgv.make_tgv(n_lat, dim=3, kernel=KernelType.QUINTIC, max_neighbors=392,
+                        dtype=torch.float32, pad_multiple=128, device=dev)
+
+
+TAKE_3D_SHAPES = ("f32 (N,)", "f32 (3,N)", "int32 (N,)", "bool (N,)")
+
+
+def phase_3d_kernels(dev, flush):
+    """ell_spmv and take against their plain versions on the TGV-64^3 and
+    TGV-24^3 Quintic Poisson matrices (K = 392)."""
+    from isph_tpu_torch.ops import spmv_cuda as sc
+
+    rows, err = {}, 0.0
+    for n_lat in (64, 24):
+        A = _poisson_matrix(*_tgv3(dev, n_lat))
+        K, n = A.vals.shape
+        nnz = int(A.mask.sum().item()) + n
+        live = int(A.slots.slot_end.to(torch.int64).sum())
+        _log(f"3d: TGV-{n_lat}^3 Quintic Poisson matrix N={n} K={K} nnz={nnz} ({live} live "
+             f"slots); f32 stream {K * n * 8 / 1e6:.1f} MB against 50 MB of L2")
+        rng = np.random.default_rng(2)
+        spmv, e = _sweep_ell(f"3d: spmv {n_lat}^3", A, nnz, flush, rng,
+                             ((torch.float32, (1, 3)), (torch.float64, (1, 3))))
+        err = max(err, e)
+        fields = {k: f for k, f in _take_fields(rng, n, dev).items() if k in TAKE_3D_SHAPES}
+        take = _take_sweep(f"3d: take {n_lat}^3", sc.take, A.idx, fields, flush,
+                           main_shapes=TAKE_3D_SHAPES)
+        rows[n_lat] = dict(spmv=spmv[(torch.float32, 1)], take=take["f32 (N,)"])
+        del A, fields
+        torch.cuda.empty_cache()
+    return dict(spmv_err=err, rows=rows)
+
+
+def phase_3d_path(dev):
+    """Three TGV-64^3 f32 Quintic steps through Simulation.run with AMG."""
+    from isph_tpu_torch.ops import spmv_cuda as sc
+
+    sim, state = _tgv3(dev, 64)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    nbrs = sim.neighbors(state)
+    torch.cuda.synchronize()
+    build_peak = torch.cuda.max_memory_allocated() - base
+    cmax, ovf = int(nbrs.count.max()), int(nbrs.overflow)
+    del nbrs
+    _log(f"3d path: TGV-64^3 N={state.n} K={sim.cfg.neighbor.max_neighbors} cell capacity "
+         f"{sim.cfg.neighbor.cell_capacity} subdiv {sim.cfg.neighbor.cell_subdiv}; neighbor "
+         f"build peak {build_peak / 2**30:.2f} GiB above the state; count.max {cmax}, "
+         f"overflow {ovf}")
+    if cmax != 388 or ovf != 0:
+        raise RuntimeError("the 3-D lattice should give 388 neighbors a particle, no overflow")
+    state, aux, launches = _run_steps("3d path", sim, state, (sc.ell_spmv, sc.take))
+    if min(launches.values()) <= 0:
+        raise RuntimeError(f"a kernel of the 3-D path never launched: {launches}")
+    _check_vortex("3d path", aux, (2 * math.pi) ** 3)
+    amg_iters = _breakdown_amg("3d path", sim, state)
+    jacobi = dataclasses.replace(sim, cfg=sim.cfg.replace(
+        solver=dataclasses.replace(sim.cfg.solver, precond="jacobi")))
+    _, aux_j = jacobi.step(state)
+    _log(f"3d path: the same step's Poisson solve with Jacobi: "
+         f"{int(aux_j.poisson_iters)} iterations (relres {float(aux_j.poisson_relres):.3e}) "
+         f"against AMG's {amg_iters}")
+    return launches
+
+
+def _channel(dev):
+    """The ny = 1024 Poiseuille channel, f32, shift 0.07, MorrisHolmes
+    walls, default AMG, K = 48, padded to 128."""
+    from isph_tpu_torch.models import channel
+
+    return channel.make_channel(1024, shift=0.07, dtype=torch.float32, pad_multiple=128,
+                                device=dev)
+
+
+def _channel_matrices(sim, state):
+    """The matrices a channel step applies, as the step assembles them: the
+    pressure-Poisson matrix with its solid and homogeneous-Neumann wall rows
+    (the wall-pressure relaxation's), its fluid block (the GMRES operator)
+    and the Helmholtz matrix with the MorrisHolmes mirror; and the neighbor
+    list's (K, N) idx."""
+    from isph_tpu_torch.physics import ns_projection as ns
+
+    nbrs = sim.neighbors(state)
+    if int(nbrs.overflow) != 0:
+        raise RuntimeError(f"neighbor overflow {int(nbrs.overflow)}")
+    geom = sim.geometry(state, nbrs)
+    pre = sim.precompute(state, geom)
+    A, _ = ns.poisson_system(state, geom, pre, sim.cfg, state.v)
+    fluid = state.is_fluid & state.valid
+    A_f = A.zero_rows(~fluid).with_diag(torch.where(fluid, A.diag, torch.ones_like(A.diag)))
+    A_h, _ = ns.helmholtz_system(state.replace(f=torch.zeros_like(state.v)), geom, pre, sim.cfg)
+    return dict(poisson=A, poisson_fluid=A_f, helmholtz=A_h), nbrs.idx
+
+
+def phase_channel_kernels(dev, flush):
+    """ell_spmv and take against their plain versions at the channel
+    path's shapes (K = 48, N = 424,064: the one-row SpMV path)."""
+    from isph_tpu_torch.ops import spmv_cuda as sc
+
+    sim, state = _channel(dev)
+    mats, idx = _channel_matrices(sim, state)
+    rng = np.random.default_rng(3)
+    err, spmv = 0.0, None
+    shapes = dict(poisson=((torch.float32, (1, 2)), (torch.float64, (1, 2))),
+                  poisson_fluid=((torch.float32, (1,)),),
+                  helmholtz=((torch.float32, (1, 2)),))
+    for name, A in mats.items():
+        K, n = A.vals.shape
+        nnz = int(A.mask.sum().item()) + n
+        _log(f"channel kernels: {name} matrix N={n} K={K} nnz={nnz} "
+             f"(SpMV V={_spmv_rows_per_thread(n, 4)} in f32)")
+        rows, e = _sweep_ell(f"channel kernels: spmv {name}", A, nnz, flush, rng, shapes[name])
+        err = max(err, e)
+        spmv = spmv or rows[(torch.float32, 1)]
+    fields = {k: f for k, f in _take_fields(rng, state.n, dev).items() if k in TAKE_MAIN_SHAPES}
+    take = _take_sweep("channel kernels: take", sc.take, idx, fields, flush)
+    return dict(spmv_err=err, spmv=spmv, take=take["f32 (N,)"])
+
+
+def phase_channel(dev):
+    """Three steps of the ny = 1024 Poiseuille channel with shifting, f32."""
+    from isph_tpu_torch.models import channel
+    from isph_tpu_torch.ops import spmv_cuda as sc
+
+    sim, state = _channel(dev)
+    solid = state.is_solid & state.valid
+    x0 = state.x[:, solid].clone()
+    _log(f"channel: N={state.n} ({int(state.valid.sum())} particles, {int(solid.sum())} "
+         f"wall), walls {sim.cfg.ns.boundary.value}, shift {sim.cfg.shift.shift}, "
+         f"dt {sim.cfg.dt:.6g}, precond {sim.cfg.solver.precond}")
+    state, aux, launches = _run_steps("channel", sim, state, (sc.ell_spmv, sc.take))
+    if min(launches.values()) <= 0:
+        raise RuntimeError(f"a kernel of the channel path never launched: {launches}")
+    moved = float((state.x[:, solid] - x0).abs().max())
+    # the periodic wrap of every position each step may round a wall
+    # particle's coordinate by an ulp of the box, no more
+    ulps = 4 * torch.finfo(state.dtype).eps * float(x0.abs().max())
+    wall_v = float(state.v[:, solid].abs().max())
+    t = float(aux.status.time)
+    err, norm = channel.velocity_error(state, t)
+    rel = float(err / norm)
+    _log(f"channel: t={t:.6g} wall displacement {moved:.3e} (wrap round-off bound "
+         f"{ulps:.3e}), wall speed {wall_v:.3e}; velocity error {float(err):.4e} of "
+         f"{float(norm):.4e} ({rel:.4%}, bar 5%)")
+    if moved > ulps or wall_v != 0.0:
+        raise RuntimeError("the channel walls moved or gained velocity")
+    if not rel < 0.05:
+        raise RuntimeError("channel velocity off the transient Poiseuille profile by 5% or more")
+    _breakdown_amg("channel", sim, state)
+    return launches
 
 
 def main() -> int:
@@ -780,6 +962,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches_large = phase_large_n(dev)
 
+    # phase 8: 3-D kernels; phase 9: the 3-D path; phase 10: channel
+    # kernels; phase 11: the channel path
+    torch.cuda.empty_cache()
+    flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
+    k3 = phase_3d_kernels(dev, flush)
+    del flush
+    torch.cuda.empty_cache()
+    launches_3d = phase_3d_path(dev)
+    torch.cuda.empty_cache()
+    flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
+    kc = phase_channel_kernels(dev, flush)
+    del flush
+    torch.cuda.empty_cache()
+    launches_channel = phase_channel(dev)
+
     def row(name, source, replaces, launched, err, t):
         return dict(name=name, route="cuda", source=f"isph_tpu_torch/csrc/{source}",
                     replaces=f"isph_tpu/ops/spmv_pallas.py:{replaces}", launches=launched,
@@ -787,10 +984,21 @@ def main() -> int:
                     bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                     library_ms=t["library_ms"])
 
+    def times(t):
+        return {key: t[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+
+    def beyond(name):
+        """The launches on phases 9 and 11 and the f32 (N,) rows of phases
+        8 (64^3) and 10 (the channel's Poisson matrix)."""
+        kname = "spmv" if name == "ell_spmv" else name
+        return dict(launches_3d=launches_3d[name], launches_channel=launches_channel[name],
+                    at_64cubed=times(k3["rows"][64][kname]), at_channel=times(kc[kname]))
+
     kernels = [
-        row("ell_spmv", "spmv.cu", 298, launches["ell_spmv"],
-            max(k["spmv_err"], kb["spmv32_err"]), k["spmv"]),
-        row("take", "take.cu", 332, launches["take"], 0.0, k["take"]),
+        {**row("ell_spmv", "spmv.cu", 298, launches["ell_spmv"],
+               max(k["spmv_err"], kb["spmv32_err"], k3["spmv_err"], kc["spmv_err"]), k["spmv"]),
+         **beyond("ell_spmv")},
+        {**row("take", "take.cu", 332, launches["take"], 0.0, k["take"]), **beyond("take")},
         row("ell_spmv_band", "spmv_band.cu", 458, launches_large["ell_spmv_band"],
             kb["spmv_err"], kb["spmv"]),
         row("take_band", "take_band.cu", 635, launches_large["take_band"], 0.0, kb["take"]),

@@ -5,7 +5,9 @@ with a plain C interface, loaded with ctypes.  The library lands in
 ``build/isph_tpu_torch/`` at the repository root under a name keyed on a
 hash of the sources, their ``csrc/*.cuh`` headers and the flags, so an
 edited source rebuilds and an unchanged one loads the existing file.
-Nothing here runs at import time.
+``build_variant`` builds a copy of the sources with some text edited (one
+design choice against another, timed by ``scripts/spmv_variants.py`` and
+``scripts/gather_variants.py``).  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -14,8 +16,10 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
@@ -35,37 +39,38 @@ def _find_nvcc() -> Optional[str]:
     return str(default) if default.exists() else None
 
 
-def sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
+def sources(csrc: Path = CSRC) -> list[Path]:
+    return sorted(csrc.glob("*.cu"))
 
 
-def library_path() -> Path:
+def library_path(csrc: Path = CSRC) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sources() + sorted(CSRC.glob("*.cuh")):
+    for f in sources(csrc) + sorted(csrc.glob("*.cuh")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"libisph_kernels-{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels unless a library of the same sources exists:
-    one ``nvcc -c`` per source, all started together, then one link.  The
-    compiler's report (ptxas registers and spills) is kept beside the
-    library as ``.log``.  Raises when ``nvcc`` is missing or fails."""
-    out = library_path()
+def build(csrc: Path = CSRC) -> Path:
+    """Compile the kernels of ``csrc`` unless a library of the same sources
+    exists: one ``nvcc -c`` per source, all started together, then one
+    link.  The compiler's report (ptxas registers and spills) is kept
+    beside the library as ``.log``.  Raises when ``nvcc`` is missing or
+    fails."""
+    out = library_path(csrc)
     if out.exists():
         return out
     nvcc = _find_nvcc()
     if nvcc is None:
         raise RuntimeError(
             "nvcc not found (PATH or /usr/local/cuda/bin): cannot build the "
-            f"CUDA kernels in {CSRC}")
+            f"CUDA kernels in {csrc}")
     out.parent.mkdir(parents=True, exist_ok=True)
     tag = f"{out.stem}.{os.getpid()}"
-    objs = [out.with_name(f"{tag}.{src.stem}.o") for src in sources()]
+    objs = [out.with_name(f"{tag}.{src.stem}.o") for src in sources(csrc)]
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for src, obj in zip(sources(), objs)]
+             for src, obj in zip(sources(csrc), objs)]
     reports = [p.communicate()[0] for p in procs]
     failed = [(p.returncode, r) for p, r in zip(procs, reports) if p.returncode != 0]
     if failed:
@@ -82,11 +87,48 @@ def build() -> Path:
     return out
 
 
+def build_variant(name: str, edits) -> Path:
+    """Build the kernels with text edits applied: ``edits`` is a sequence of
+    (file name, old text, new text), each old text present in its file.
+    The edited sources go to ``BUILD_DIR/variants/<name>/``, emptied first
+    so that it holds exactly the sources of ``csrc/``."""
+    src = BUILD_DIR / "variants" / name
+    shutil.rmtree(src, ignore_errors=True)
+    src.mkdir(parents=True)
+    for f in [*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]:
+        (src / f.name).write_text(f.read_text())
+    for fname, old, new in edits:
+        text = (src / fname).read_text()
+        if old not in text:
+            raise RuntimeError(f"variant {name!r}: {old!r} not in {fname}")
+        (src / fname).write_text(text.replace(old, new))
+    return build(src)
+
+
+def build_variants(variants) -> dict:
+    """``build_variant`` of each name -> edits of ``variants``, four at a
+    time, each one nvcc per source; returns name -> loaded library."""
+    with ThreadPoolExecutor(4) as ex:
+        paths = {name: ex.submit(build_variant, _slug(name), edits)
+                 for name, edits in variants.items()}
+    return {name: load(p.result()) for name, p in paths.items()}
+
+
+def _slug(name: str) -> str:
+    return re.sub(r"[^A-Za-z0-9_.-]+", "_", name)
+
+
 @functools.cache
 def load_library() -> ctypes.CDLL:
-    """Build if needed, load, and declare every entry point's C signature
-    (each pointer and the stream as ``c_void_p``, so none is cut to 32 bits)."""
-    lib = ctypes.CDLL(str(build()))
+    """Build if needed and load the kernels of ``csrc/``."""
+    return load(build())
+
+
+def load(path: Path) -> ctypes.CDLL:
+    """Load a library built here and declare every entry point's C
+    signature (each pointer and the stream as ``c_void_p``, so none is cut
+    to 32 bits)."""
+    lib = ctypes.CDLL(str(path))
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.isph_ell_spmv.argtypes = [i32, vp, vp, vp, vp, vp, vp, i32, i64, i32, i32, vp]
     lib.isph_ell_spmv.restype = i32

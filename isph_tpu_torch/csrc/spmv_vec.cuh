@@ -30,9 +30,22 @@
 //   all K slots, unrolled (OneRow<T>::kUnroll), so that the compiler issues
 //   the loads of many slots ahead of their x reads.  With V rows the TGV-256^2 grid
 //   would hold 16K threads for 132 SMs, too few to cover each thread's chain
-//   of chunks; explicit chunks on one row lost to this loop there too.  The
-//   stream (11 MB) stays in L2 from one matvec to the next, so its loads
-//   keep the default cache policy.
+//   of chunks; explicit chunks on one row lost to this loop there too.  Its
+//   loads keep the default cache policy: at 256^2 the stream (11 MB) stays
+//   in L2 from one matvec to the next.
+//
+// The threshold counts V-row threads (scripts/spmv_variants.py, each path
+// forced, PERF.md).  The one-row path reads every slot; the V-row path stops
+// each warp at its rows' slot end, so it wins where rows carry padding and
+// enough threads cover the loads' latency.  On the ny = 1024 channel (K = 48,
+// ~52% of the slots live, N / V = 106,016) V rows are 1.9x faster in f32 (33
+// against 64 us).  At TGV-64^3 Quintic (K = 392, 99% live, N / V = 65,536 in
+// f32) nothing is skipped and one row, with 262,144 threads and 32 slots'
+// loads in flight each, is 7% faster at C = 1 (280 against 299 us) and level
+// at C = 3; in f64 (N / V = 131,072) V rows win by 3% (C = 1) and 7% (C = 3).
+// At TGV-256^2 (16,384 V-row threads) one row is 2.9x faster, at TGV-24^3
+// (3,456) 4.4x in f32; only 24^3 f64 at C = 3, off every path, goes the
+// other way.  3 * 2^15 lies between the measured points 65,536 and 106,016.
 
 #pragma once
 
@@ -43,7 +56,7 @@
 namespace isph_spmv {
 
 constexpr int kThreads = 256;  // threads per block
-constexpr int64_t kMinVecThreads = 1 << 17;  // fewer V-row threads: one row each
+constexpr int64_t kMinVecThreads = 3 << 15;  // fewer V-row threads: one row each
 
 // The V-row path's tuning: V rows a thread, U slots a chunk, whether the
 // vals/column stream loads evict-first.
@@ -113,10 +126,10 @@ __device__ __forceinline__ void store_vec(T* __restrict__ p, const T (&a)[V]) {
 // The slots a thread reads.  On the V-row path, up to the largest slot end
 // over the warp's rows: every lane of the warp calls it (an inactive lane
 // passes has = false), and it returns the same count to all of them, capped
-// at K.  On the one-row path, all K: its N keeps the stream in L2, and a
-// slot end read first puts one more load at the head of every thread's
-// chain and keeps the unrolled loop from issuing its loads early (47%
-// slower at TGV-256^2 f32, PERF.md).
+// at K.  On the one-row path, all K: at 256^2 the stream stays in L2, at
+// 64^3 1% of its slots are padding, and a slot end read first puts one
+// more load at the head of every thread's chain and keeps the unrolled
+// loop from issuing its loads early (47% slower at TGV-256^2 f32, PERF.md).
 template <typename P>
 __device__ __forceinline__ int slot_bound(const uint16_t* __restrict__ slot_end, int64_t i,
                                           bool has, int K) {

@@ -24,7 +24,7 @@ from isph_tpu_torch.ops.neighbors import (
     build_neighbor_list_bruteforce,
     compute_pair_geometry,
 )
-from isph_tpu_torch.physics import ns_projection
+from isph_tpu_torch.physics import ns_projection, shift as shift_mod
 from isph_tpu_torch.physics.status import Status, compute_status
 
 
@@ -48,7 +48,6 @@ def unported_features(cfg: SimulationConfig) -> list[str]:
         (cfg.tr.enabled, "tr (solute transport)"),
         (cfg.rs.enabled, "rs (random stress)"),
         (cfg.st.enabled, "st (surface tension)"),
-        (cfg.shift.enabled, "shift (particle shifting)"),
         (cfg.ns.is_block_helmholtz_enabled, "block Helmholtz"),
         (cfg.solver.recycle_k > 0, "recycle_k (recycling GMRES)"),
         (cfg.solver.precond == "ilu", "ILU preconditioner"),
@@ -98,7 +97,7 @@ class Simulation:
     def step(self, state: ParticleState) -> Tuple[ParticleState, StepAux]:
         """One timestep (PairISPH::compute, pair_isph.cpp:1241-1380):
         neighbors -> pair geometry -> computePre -> NS projection
-        (Helmholtz, Poisson, correct) -> advance -> status."""
+        (Helmholtz, Poisson, correct) -> advance -> shifting -> status."""
         cfg = self.cfg
         self.prepare(state)
 
@@ -112,6 +111,17 @@ class Simulation:
         state, info = ns_projection.navier_stokes_step(
             state, geom, pre, cfg, domain=self.domain)
         state = ns_projection.advance_time(state, geom, pre, cfg, self.domain)
+
+        overflow = nbrs.overflow
+        if cfg.shift.enabled:
+            # re-neighbor at the moved positions, recompute geometry, shift
+            # (FixISPH_Shift::final_integrate -> refreshParticles + computePre)
+            nbrs2 = self.neighbors(state)
+            geom2 = self.geometry(state, nbrs2)
+            pre2 = self.precompute(state, geom2)
+            dr = shift_mod.compute_shift_vectors(state, geom2, cfg)
+            state = shift_mod.apply_shift(state, geom2, pre2, cfg, dr, self.domain)
+            overflow = overflow + nbrs2.overflow
 
         if state.step is not None:
             state = state.replace(step=state.step + 1)
@@ -128,7 +138,7 @@ class Simulation:
                               else torch.zeros((), dtype=state.dtype, device=state.device)),
             poisson_iters=info.poisson.iters,
             poisson_relres=info.poisson.relres,
-            neighbor_overflow=nbrs.overflow,
+            neighbor_overflow=overflow,
         )
         return state, aux
 

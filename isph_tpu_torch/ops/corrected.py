@@ -1,6 +1,6 @@
 """Corrected-kernel SPH discretization (PyTorch port of
-``isph_tpu/ops/corrected.py``, restricted to what the Taylor–Green main path
-calls).
+``isph_tpu/ops/corrected.py``, restricted to what the Taylor–Green and
+channel paths call).
 
 Each function consumes the shared per-step :class:`PairGeom` and produces
 per-particle fields or ELL matrices via masked reductions over the padded
@@ -197,6 +197,29 @@ def interface_normal(geom: PairGeom, vfrac: torch.Tensor, kind: torch.Tensor,
     return normal, pnd
 
 
+def morris_holmes_mirror(
+    geom: PairGeom,
+    kind: torch.Tensor,
+    pnd: torch.Tensor,
+    vfrac: torch.Tensor,
+    cut: float,
+    h: float,
+    safe: float = 0.43301,
+) -> torch.Tensor:
+    """Morris-Holmes wall-mirroring coefficient per pair (K, N)
+    (mirror_morris_holmes.h:47-53, called with r = cut).
+
+    xi = pnd * vfrac is the same-side kernel occupancy (1 in the bulk, 0.5 at
+    the wall); d = 2 cut (xi - 0.5) approximates the wall distance.
+    coeff_ij = 1 + d_j / max(d_i, safe h); ``safe`` defaults to sqrt(3)/4
+    (pair_isph_corrected.cpp:1312-1316).  Only consumed for fluid-i/solid-j
+    pairs by :func:`pair_coeff`.
+    """
+    eps = 1.0e-24
+    d = 2.0 * cut * (pnd * vfrac - 0.5) + eps
+    return 1.0 + geom.gather(d) / torch.clamp_min(d[None, :], safe * h)
+
+
 # ---------------------------------------------------------------------------
 # Operator family selection
 # ---------------------------------------------------------------------------
@@ -309,6 +332,79 @@ def divergence(
     if row_mask is not None:
         out = out * row_mask.to(out.dtype)
     return out
+
+
+def boundary_coordinate(geom: PairGeom, x: torch.Tensor, normal: torch.Tensor,
+                        kind: torch.Tensor) -> torch.Tensor:
+    """Normal coordinate of the fluid/solid interface per particle
+    (functor_normal.h:138-190).
+
+    Projects self + neighbors onto the particle's interface normal and finds
+    the 1-D threshold that best separates Fluid from Solid coordinates (the
+    reference walks the sorted coords tracking max(n_solid_remaining,
+    n_fluid_passed) and splits at the first increase); bd_coord is the
+    midpoint of the two coordinates straddling the optimal split.  Zero where
+    the neighborhood has no solid particle.  The sort is stable, as
+    ``jnp.argsort``'s, so tied coordinates keep the JAX package's order.
+    """
+    dtype = x.dtype
+    dim = geom.dim
+    kj = geom.gather(kind)
+    live = geom.mask > 0
+    big = torch.finfo(dtype).max / 4
+
+    # coords (K+1, N): neighbors + self; padded slots pushed to +big
+    ncoord_j = sum(geom.gather(x[d]) * normal[d][None, :] for d in range(dim))
+    ncoord_i = sum(x[d] * normal[d] for d in range(dim))
+    coords = torch.cat([torch.where(live, ncoord_j, big), ncoord_i[None, :]])
+    is_solid = torch.cat([((kj & Kind.SOLID) != 0) & live, ((kind & Kind.SOLID) != 0)[None, :]])
+    is_fluid = torch.cat([((kj & Kind.FLUID) != 0) & live, ((kind & Kind.FLUID) != 0)[None, :]])
+
+    order = torch.argsort(coords, dim=0, stable=True)
+    coords_s = torch.gather(coords, 0, order)
+    solid_s = torch.gather(is_solid, 0, order).to(torch.int32)
+    fluid_s = torch.gather(is_fluid, 0, order).to(torch.int32)
+
+    n_solid_total = solid_s.sum(dim=0)
+    # after passing element t: solid remaining below, fluid passed above
+    cums = torch.cumsum(solid_s, dim=0)
+    cumf = torch.cumsum(fluid_s, dim=0)
+    misclass = torch.maximum(n_solid_total[None, :] - cums, cumf)  # (K+1, N)
+    prev = torch.cat([n_solid_total[None, :], misclass[:-1]])
+    increase = misclass > prev  # first True marks the split (reference break)
+    t_split = torch.argmax(increase.to(torch.int32), dim=0)  # 0 if never increases
+    any_inc = increase.any(dim=0)
+    t_lo = torch.clamp_min(t_split - 1, 0)
+    c_lo = torch.gather(coords_s, 0, t_lo[None, :])[0]
+    c_hi = torch.gather(coords_s, 0, t_split[None, :])[0]
+    bd = 0.5 * (c_lo + c_hi)
+    # fall back to the last finite coordinate when misclass is monotone
+    n_valid = live.sum(dim=0) + 1
+    c_last = torch.gather(coords_s, 0, (n_valid - 1)[None, :])[0]
+    bd = torch.where(any_inc, bd, c_last)
+
+    has_solid = (((kj & Kind.SOLID) != 0) & live).any(dim=0)
+    return torch.where(has_solid, bd, 0.0)
+
+
+def morris_normal_mirror(
+    geom: PairGeom,
+    x: torch.Tensor,
+    normal: torch.Tensor,
+    bd_coord: torch.Tensor,
+    cut: float,
+    h: float,
+    safe: float = 0.43301,
+) -> torch.Tensor:
+    """Morris mirror coefficient using the interface normal and boundary
+    coordinate (mirror_morris_normal.h:41-57): distances of i and j to the
+    boundary plane along n_i; coeff = 1 + d_j / max(d_i, safe h)."""
+    dim = geom.dim
+    xi_i = sum(x[d] * normal[d] for d in range(dim))
+    xi_j = sum(geom.gather(x[d]) * normal[d][None, :] for d in range(dim))
+    d_i = torch.abs(xi_i - bd_coord) + cut * 1e-8
+    d_j = torch.abs(xi_j - bd_coord[None, :])
+    return 1.0 + d_j / torch.clamp_min(d_i[None, :], safe * h)
 
 
 # ---------------------------------------------------------------------------

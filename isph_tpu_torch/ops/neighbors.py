@@ -162,6 +162,84 @@ def band_check(idx: torch.Tensor, window: int, subcap: int) -> Tuple[torch.Tenso
     return ovf.to(torch.int32), BandSpec(window=window, rows=sub * LANE)
 
 
+# working-set bytes of a row block (candidates of all its rows) and what
+# one candidate holds across the block's arrays at once, rounded up: the
+# column (int32), its D positions and rsq, the minimum-image temporaries
+# and the cutoff test (37 bytes measured at TGV-64^3 f32 on the H100).  At
+# TGV-64^3 Quintic (C = 5,000) that is eight blocks of 35,791 rows; blocks
+# of 32,768 rows built faster than larger ones there, with a 6 GiB peak
+# (PERF.md)
+_BLOCK_BYTES = 1 << 33
+_BYTES_PER_CANDIDATE = 48
+
+
+def _compact_rows(r0, r1, c, offsets, table, xtab, xw, valid, domain, cutoff,
+                  ncell, strides, ncells, K, n):
+    """Rows [r0, r1) of the search: gather their candidates from the bucket
+    table (every offset of the cell neighborhood at once), test the cutoff,
+    and keep the K smallest column indices of each row.  Returns ((B, K)
+    int32 idx with masked slots repeating the row's last neighbor, (B, K)
+    bool mask, (B,) int32 count)."""
+    dim = len(ncell)
+    dev = xw.device
+    i32 = torch.int32
+    B = r1 - r0
+    C = len(offsets) * table.shape[1]
+    # (Q, B) cell of each offset and row; out-of-range cells read the empty
+    # park row
+    off = torch.as_tensor(offsets, dtype=i32, device=dev)
+    in_range = torch.ones((len(offsets), B), dtype=torch.bool, device=dev)
+    flat = torch.zeros((len(offsets), B), dtype=i32, device=dev)
+    for d in range(dim):
+        cc = c[d][None, r0:r1] + off[:, d, None]
+        if domain.periodic[d]:
+            ccw = torch.remainder(cc, ncell[d])
+        else:
+            ccw = torch.clamp(cc, 0, ncell[d] - 1)
+            in_range = in_range & (cc >= 0) & (cc < ncell[d])
+        flat = flat + ccw * strides[d]
+    flat = torch.where(in_range, flat, ncells).long()
+    cand = table[flat]  # (Q, B, cap)
+    xc = xtab[:, flat]  # (D, Q, B, cap)
+    # the squared distance summed over axes in order, as the unblocked
+    # (D, N, C) form sums it
+    rsq = 0.0
+    for d in range(dim):
+        rd = domain.minimum_image_axis(xw[d][None, r0:r1, None] - xc[d], d)
+        rsq = rsq + rd * rd
+    del xc
+    i_idx = torch.arange(r0, r1, dtype=i32, device=dev)[:, None]
+    good = (cand != i_idx) & (rsq < cutoff * cutoff) & valid[None, r0:r1, None]
+    del rsq
+    count = good.sum(dim=(0, 2)).to(i32)
+    # each row's candidates last, in any order: the K smallest are exact
+    negkey = torch.where(good, -cand, -n).transpose(0, 1).reshape(B, C)
+    del cand, good
+
+    # topk of the negated key gives the K smallest keys in ascending order
+    # and the neighbor index is the value itself; wide candidate sets go in
+    # two exact stages (any global K-smallest is among its chunk's K-smallest)
+    W1 = 1024
+    if C > 2 * W1 and K < W1:
+        nch = -(-C // W1)
+        neg = torch.full((B, nch * W1), -n, dtype=i32, device=dev)
+        neg[:, :C] = negkey
+        del negkey
+        part = torch.topk(neg.view(B, nch, W1), K, dim=-1).values
+        del neg
+        negtop = torch.topk(part.reshape(B, nch * K), K, dim=-1).values
+    else:
+        negtop = torch.topk(negkey, K, dim=-1).values  # (B, K)
+    mask_nk = negtop > -n
+    idx_nk = torch.where(mask_nk, -negtop, 0).to(i32)
+    # masked slots repeat the row's last valid neighbor (the row itself when
+    # it has none)
+    lastk = torch.clamp(count - 1, 0, K - 1)
+    lastv = torch.gather(idx_nk, 1, lastk[:, None].long())[:, 0]
+    pad = torch.where(count > 0, lastv, i_idx[:, 0])
+    return torch.where(mask_nk, idx_nk, pad[:, None]), mask_nk, count
+
+
 def build_neighbor_list(
     x: torch.Tensor,
     valid: torch.Tensor,
@@ -175,7 +253,9 @@ def build_neighbor_list(
 ) -> NeighborList:
     """Cell-list neighbor search with static shapes.  x is (D, N).  With
     ``stream_window`` > 0 the list is a streaming one: the band check's
-    count joins ``overflow`` and the list carries its :class:`BandSpec`."""
+    count joins ``overflow`` and the list carries its :class:`BandSpec`.
+    The candidate search runs as many rows at a time as fit
+    ``_BLOCK_BYTES`` of working set."""
     dim, n = x.shape
     dev = x.device
     i32 = torch.int32
@@ -219,7 +299,7 @@ def build_neighbor_list(
         xtab[d][rows, cols] = xw[d][order][keep]
     # empty slots at +inf fail every cutoff test
 
-    # --- gather the cell neighborhood -> candidates (N, C) -------------------
+    # --- the cell neighborhood's offsets -----------------------------------
     # periodic axes with too few cells sweep each cell exactly once (offsets
     # wrapping onto the same cell would list its particles twice)
     axis_offs = []
@@ -232,60 +312,22 @@ def build_neighbor_list(
             axis_offs.append(np.arange(-reach, reach + 1))
     offsets = np.array(np.meshgrid(*axis_offs, indexing="ij")).reshape(dim, -1).T
 
-    cand_blocks = []
-    xc_blocks = []
-    for off in offsets:
-        in_range = torch.ones((n,), dtype=torch.bool, device=dev)
-        flat = torch.zeros((n,), dtype=i32, device=dev)
-        for d in range(dim):
-            cc = c[d] + int(off[d])
-            if domain.periodic[d]:
-                ccw = torch.remainder(cc, ncell[d])
-            else:
-                ccw = torch.clamp(cc, 0, ncell[d] - 1)
-                in_range = in_range & (cc >= 0) & (cc < ncell[d])
-            flat = flat + ccw * strides[d]
-        flat = torch.where(in_range, flat, ncells).long()
-        cand_blocks.append(table[flat])  # (N, cap)
-        xc_blocks.append(xtab[:, flat])  # (D, N, cap)
-    cand = torch.cat(cand_blocks, dim=1)  # (N, C)
-    xc = torch.cat(xc_blocks, dim=2)  # (D, N, C)
-
-    # --- cutoff mask -------------------------------------------------------
-    i_idx = torch.arange(n, dtype=i32, device=dev)[:, None]
-    rsq = torch.zeros(cand.shape, dtype=xw.dtype, device=dev)
-    for d in range(dim):
-        rd = domain.minimum_image_axis(xw[d][:, None] - xc[d], d)
-        rsq = rsq + rd * rd
-    good = (cand != i_idx) & (rsq < cutoff * cutoff) & valid[:, None]
-
-    # --- compact to K slots, sorted by column index ------------------------
-    # topk of the negated key gives the K smallest keys in ascending order
-    # and the neighbor index is the value itself; wide candidate sets go in
-    # two exact stages (any global K-smallest is among its chunk's K-smallest)
-    sort_key = torch.where(good, cand, n)
-    C = sort_key.shape[1]
-    W1 = 1024
-    if C > 2 * W1 and K < W1:
-        nch = -(-C // W1)
-        padw = nch * W1 - C
-        if padw:
-            sort_key = torch.cat(
-                [sort_key, torch.full((n, padw), n, dtype=i32, device=dev)], dim=1)
-        part = torch.topk(-sort_key.reshape(n, nch, W1), K, dim=-1).values
-        negtop = torch.topk(part.reshape(n, nch * K), K, dim=-1).values
+    # --- candidates, cutoff mask and top_k, one block of rows at a time ------
+    # each row's result depends only on its own candidates, so the blocks
+    # give the unblocked result exactly; the (rows, C) working set of a
+    # block stays under _BLOCK_BYTES however wide C is (C = 5,000 at 3-D
+    # Quintic)
+    C = len(offsets) * cap
+    rows = max(1, _BLOCK_BYTES // (_BYTES_PER_CANDIDATE * C))
+    blocks = [_compact_rows(r0, min(n, r0 + rows), c, offsets, table, xtab, xw, valid,
+                            domain, cutoff, ncell, strides, ncells, K, n)
+              for r0 in range(0, n, rows)]
+    if len(blocks) == 1:
+        idx_nk, mask_nk, count = blocks[0]
     else:
-        negtop = torch.topk(-sort_key, K, dim=-1).values  # (N, K)
-    mask_nk = negtop > -n
-    idx_nk = torch.where(mask_nk, -negtop, 0)
-    count = good.sum(dim=1).to(i32)
-    # masked slots repeat the row's last valid neighbor (the row itself when
-    # it has none)
-    lastk = torch.clamp(count - 1, 0, K - 1)
-    lastv = torch.gather(idx_nk, 1, lastk[:, None].long())[:, 0].to(i32)
-    pad = torch.where(count > 0, lastv, torch.arange(n, dtype=i32, device=dev))
+        idx_nk, mask_nk, count = (torch.cat(parts) for parts in zip(*blocks))
+    idx = idx_nk.T.contiguous()
     mask = mask_nk.T.contiguous()
-    idx = torch.where(mask, idx_nk.T.to(i32), pad[None, :]).contiguous()
     overflow = torch.clamp_min(count.max() - K, 0) + cell_overflow
     band = None
     if stream_window:

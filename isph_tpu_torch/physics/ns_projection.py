@@ -1,6 +1,6 @@
 """Incompressible Navier-Stokes, projection (pressure-correction) scheme
 (PyTorch port of ``isph_tpu/physics/ns_projection.py`` for the corrected
-backend without wall mirrors or recycling).
+backend without Navier-slip rows, block Helmholtz or recycling).
 
 One timestep (reference PairISPH::computeIncompressibleNavierStokes,
 pair_isph.cpp:910-1034):
@@ -86,11 +86,18 @@ def _fluid_pair_coeff(state: ParticleState, geom: PairGeom, jset: int) -> torch.
     return PairFilter(Kind.FLUID, jset).pair(state.kind, geom).to(state.dtype) * geom.mask
 
 
-def _mirror(cfg: SimulationConfig):
-    """Wall-mirroring coefficients: MorrisHolmes / MorrisNormal are not
-    ported yet; every other treatment assembles with MirrorNothing."""
-    if cfg.ns.boundary in (BoundaryCond.MORRIS_HOLMES, BoundaryCond.MORRIS_NORMAL):
-        raise NotImplementedError(f"wall mirror {cfg.ns.boundary.value} not yet ported")
+def _mirror(state: ParticleState, geom: PairGeom, pre: Precomputed, cfg: SimulationConfig):
+    """Wall-mirroring coefficients (K, N) per the configured treatment:
+    MorrisHolmes (pnd wall distances, mirror_morris_holmes.h:47-53),
+    MorrisNormal (interface-normal boundary coordinate,
+    mirror_morris_normal.h:41-57), else None: ConstExtension, NavierSlip
+    and Neumann assemble with MirrorNothing (pair_isph_corrected.cpp:868-937
+    routes them through the plain Helmholtz functor)."""
+    if cfg.ns.boundary == BoundaryCond.MORRIS_HOLMES:
+        return ops.morris_holmes_mirror(geom, state.kind, pre.pnd, pre.vfrac, cfg.cut, cfg.h)
+    if cfg.ns.boundary == BoundaryCond.MORRIS_NORMAL:
+        bd = ops.boundary_coordinate(geom, state.x, pre.normal, state.kind)
+        return ops.morris_normal_mirror(geom, state.x, pre.normal, bd, cfg.cut, cfg.h)
     return None
 
 
@@ -118,7 +125,8 @@ def helmholtz_system(
     filt = PairFilter(Kind.FLUID, Kind.ALL)
     A = ops.laplacian_matrix(
         geom, pre.vfrac, pre.Gc, pre.Lc, state.kind,
-        alpha=dt, material=mu, filt=filt, family=fam, mirror=_mirror(cfg),
+        alpha=dt, material=mu, filt=filt, family=fam,
+        mirror=_mirror(state, geom, pre, cfg),
     )
     # LeftScale by 1/rho: A = dt/rho * div(mu grad)
     A = A.left_scale(1.0 / state.rho)
@@ -205,9 +213,12 @@ def poisson_system(
         )
         A = A.add(Agd)
 
-    # rhs: fluid -> -div(v*); solid -> 0
+    # rhs: fluid -> -div(v*); solid -> 0.  With Morris walls the divergence
+    # uses the mirror coefficient on fluid-solid pairs (Divergence_MorrisHolmes
+    # in the reference Poisson typedefs, pair_isph_corrected.cpp:174-178); the
+    # Poisson matrix itself stays plain
     div_coeff = ops.pair_coeff(
-        state.kind, geom, PairFilter(Kind.FLUID, Kind.ALL), _mirror(cfg),
+        state.kind, geom, PairFilter(Kind.FLUID, Kind.ALL), _mirror(state, geom, pre, cfg),
     ) * geom.mask
     div = ops.divergence(
         geom, pre.vfrac, pre.Gc, vstar, family=fam,

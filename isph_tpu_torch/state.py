@@ -139,6 +139,15 @@ class Precomputed:
     pnd: Optional[torch.Tensor] = None  # (N,) particle number density
 
 
+def require_device(builder: str, device) -> None:
+    """A model builder's check of its ``device``: the card by default, and
+    without CUDA a clear error rather than a state built on the CPU."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{builder}(device={str(device)!r}) needs a CUDA device and none is "
+            "available; pass device='cpu' to build on the CPU")
+
+
 def make_state(
     x: np.ndarray,
     *,

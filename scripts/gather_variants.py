@@ -7,7 +7,7 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
 Each variant is the kernel sources with one tile constant changed (or one
 plan constant of ops/spmv_cuda.py), built into its own library under
-build/gather_variants/.  Every variant is checked against the plain
+build/isph_tpu_torch/variants/.  Every variant is checked against the plain
 version (exact) and timed with chip_smoke.py's CUDA-event method at the
 main path's shapes: the TGV-256^2 and TGV-1024^2 Poisson matrices' neighbor
 indices (K = 32), the 1024^2 one through its band window.  Variants run in
@@ -17,7 +17,6 @@ gives both medians, in us, and the share of the bytes bound.
 
 from __future__ import annotations
 
-import subprocess
 import sys
 from pathlib import Path
 
@@ -29,7 +28,6 @@ import chip_smoke as cs  # noqa: E402
 from isph_tpu_torch import _build  # noqa: E402
 from isph_tpu_torch.ops import spmv_cuda as sc  # noqa: E402
 
-OUT = Path(__file__).resolve().parent.parent / "build" / "gather_variants"
 HDR = "gather_vec.cuh"
 
 
@@ -54,36 +52,8 @@ VARIANTS = {
 
 
 def build_all():
-    """One nvcc per variant, all started together; returns name -> library."""
-    nvcc = _build._find_nvcc()
-    if nvcc is None:
-        raise RuntimeError("nvcc not found")
-    procs = {}
-    for name, (edits, _) in VARIANTS.items():
-        d = OUT / name.replace(" ", "_").replace("/", "_").replace("=", "")
-        d.mkdir(parents=True, exist_ok=True)
-        for f in [*_build.CSRC.glob("*.cu"), *_build.CSRC.glob("*.cuh")]:
-            (d / f.name).write_text(f.read_text())
-        for fname, old, new in edits:
-            text = (d / fname).read_text()
-            if old not in text:
-                raise RuntimeError(f"variant {name!r}: {old!r} not in {fname}")
-            (d / fname).write_text(text.replace(old, new))
-        so = d / "libgather.so"
-        srcs = [str(d / f.name) for f in _build.CSRC.glob("*.cu")]
-        procs[name] = (subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(so),
-                                         *srcs], stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True), so)
-    libs = {}
-    build, load = _build.build, _build.load_library
-    for name, (p, so) in procs.items():
-        report = p.communicate()[0]
-        if p.returncode != 0:
-            raise RuntimeError(f"variant {name!r} failed to build:\n{report[-3000:]}")
-        _build.build = lambda so=so: so
-        libs[name] = load.__wrapped__()
-    _build.build = build
-    return libs
+    """Every variant's library, built in parallel; returns name -> library."""
+    return _build.build_variants({name: edits for name, (edits, _) in VARIANTS.items()})
 
 
 def main() -> int:

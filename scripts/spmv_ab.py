@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the 256^2 main path's SpMV and steps in two checkouts of this
-repository, in turns, on one CUDA card.
+"""Time the 256^2 main path's SpMV, the neighbor build and the 256^2 steps
+in two checkouts of this repository, in turns, on one CUDA card.
 
 Run from the repository root on a machine with a CUDA card and nvcc, with
 the other checkout (for example the parent commit, unpacked by
@@ -15,16 +15,21 @@ lattice and its pressure-Poisson matrix and times ``ELL.matvec`` (the call
 the Krylov solvers make, wrapper and kernel) for x (N,) and (2, N) in f32
 and x (N,) in f64: the median device time of 30 CUDA-event timed calls
 queued behind a sleep kernel, the host's enqueue time per call there, and
-the host time per call of 2000 calls back to back.  It then runs three steps
-through ``Simulation.run``, one call per step, and one breakdown step
-(``chip_smoke._breakdown``, a synchronize after each phase).  Every line a
-run prints is relayed with the run's label.
+the host time per call of 2000 calls back to back.  It times eight
+neighbor builds (``Simulation.neighbors``, host clock between synchronizes)
+of the 256^2 lattice and of the TGV-1024^2 streaming list
+(``chip_smoke._tgv1024``), logs the median of builds 2-8 and profiles
+one more build by kernel (``torch.profiler``).  It then
+runs three steps through ``Simulation.run``, one call per step, and one
+breakdown step (``chip_smoke._breakdown``, a synchronize after each
+phase).  Every line a run prints is relayed with the run's label.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -64,6 +69,19 @@ def run_one(root: str) -> None:
         torch.cuda.synchronize()
         cs._log(f"ELL.matvec {str(dtype)[6:]} C={ncomp}: device {1e3 * ms:.2f} us, host "
                 f"enqueue {host_us:.1f} us (event-timed), {loop_us:.2f} us a call back to back")
+    # the neighbor build of the 256^2 lattice and of the 1M streaming list
+    for tag, (s_nb, st_nb) in (("256^2", (sim, state)), ("1M", cs._tgv1024(dev))):
+        ts = []
+        for _ in range(8):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s_nb.neighbors(st_nb)
+            torch.cuda.synchronize()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        cs._log(f"neighbor build {tag}: median {statistics.median(ts[1:]):.3f} ms of builds "
+                f"2-8 ({', '.join(f'{t:.2f}' for t in ts)})")
+        profile_kernels(f"neighbor build {tag} profile", lambda: s_nb.neighbors(st_nb))
+        del s_nb, st_nb
     for k in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -73,6 +91,27 @@ def run_one(root: str) -> None:
                 f"helmholtz_iters={int(aux.helmholtz_iters)} "
                 f"poisson_iters={int(aux.poisson_iters)}")
     cs._breakdown(sim, state)
+
+
+def profile_kernels(tag, fn, top=5) -> None:
+    """Device time of ``fn()`` by kernel (torch.profiler, CUDA kernel
+    events only: CPU ops carry their kernels' time too): the total and the
+    ``top`` largest."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+
+    print(f"{tag}: device {sum(map(device_us, events)) / 1e3:.3f} ms over "
+          f"{sum(e.count for e in events)} kernels", flush=True)
+    for e in sorted(events, key=lambda e: -device_us(e))[:top]:
+        print(f"  {device_us(e) / 1e3:8.3f} ms x{e.count:5d} {e.key[:90]}", flush=True)
 
 
 def _smi() -> str:

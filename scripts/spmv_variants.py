@@ -6,8 +6,8 @@ Run from the repository root on a machine with a CUDA card and nvcc:
     python3 scripts/spmv_variants.py
 
 Each variant is the kernel sources with one constant changed, built into
-its own library under build/spmv_variants/: rows per thread V, slots in
-flight U and evict-first stream loads on the V-row path, the N at which
+its own library under build/isph_tpu_torch/variants/: rows per thread V,
+slots in flight U and evict-first stream loads on the V-row path, the N at which
 the V-row path takes over, threads per block, the slot ends (on the V-row
 path "V rows all K slots" reads every slot, as the first kernels did; on
 the one-row path, which reads every slot, "one row to slot end" stops
@@ -21,16 +21,18 @@ row lost to the chosen design and were removed; PERF.md keeps their times.
 
 Every variant is held against the plain version on the kernel's own
 inputs (rtol 1e-5 f32, 1e-12 f64, relative to the row's terms) and timed
-with chip_smoke.py's CUDA-event method at the main path's shapes: the
+with chip_smoke.py's CUDA-event method at the paths' shapes: the
 TGV-256^2 Poisson matrix and the TGV-1024^2 one (band offsets for the band
-kernel, and the non-band kernel on the same matrix).  Variants run in
+kernel, and the non-band kernel on the same matrix), the TGV-64^3 and
+TGV-24^3 Quintic ones (K = 392) and the ny = 1024 channel's (K = 48).
+"V rows at any N" against "one row at any N" is the record behind the
+path rule of spmv_vec.cuh (N / V >= kMinVecThreads).  Variants run in
 order and then in reverse on the same card; a line per case and variant
 gives both medians, in us, and the share of the format's bytes bound.
 """
 
 from __future__ import annotations
 
-import subprocess
 import sys
 from pathlib import Path
 
@@ -43,7 +45,6 @@ from isph_tpu_torch import _build  # noqa: E402
 from isph_tpu_torch.ops import spmv_cuda as sc  # noqa: E402
 from isph_tpu_torch.ops.ell import ELL  # noqa: E402
 
-OUT = Path(__file__).resolve().parent.parent / "build" / "spmv_variants"
 HDR = "spmv_vec.cuh"
 
 
@@ -71,7 +72,7 @@ _COMPILERS_UNROLL = (HDR, "#pragma unroll(kUnroll)\n", "")
 
 
 def _min_vec(threads: str):
-    return (HDR, "constexpr int64_t kMinVecThreads = 1 << 17;",
+    return (HDR, "constexpr int64_t kMinVecThreads = 3 << 15;",
             f"constexpr int64_t kMinVecThreads = {threads};")
 
 
@@ -100,36 +101,8 @@ VARIANTS = {
 
 
 def build_all():
-    """One nvcc per variant, all started together; returns name -> library."""
-    nvcc = _build._find_nvcc()
-    if nvcc is None:
-        raise RuntimeError("nvcc not found")
-    procs = {}
-    for name, edits in VARIANTS.items():
-        d = OUT / name.replace(" ", "_").replace("/", "_").replace("=", "")
-        d.mkdir(parents=True, exist_ok=True)
-        for f in [*_build.CSRC.glob("*.cu"), *_build.CSRC.glob("*.cuh")]:
-            (d / f.name).write_text(f.read_text())
-        for fname, old, new in edits:
-            text = (d / fname).read_text()
-            if old not in text:
-                raise RuntimeError(f"variant {name!r}: {old!r} not in {fname}")
-            (d / fname).write_text(text.replace(old, new))
-        so = d / "libspmv.so"
-        srcs = [str(d / f.name) for f in _build.CSRC.glob("*.cu")]
-        procs[name] = (subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(so),
-                                         *srcs], stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True), so)
-    libs = {}
-    build, load = _build.build, _build.load_library
-    for name, (p, so) in procs.items():
-        report = p.communicate()[0]
-        if p.returncode != 0:
-            raise RuntimeError(f"variant {name!r} failed to build:\n{report[-3000:]}")
-        _build.build = lambda so=so: so
-        libs[name] = load.__wrapped__()
-    _build.build = build
-    return libs
+    """Every variant's library, built in parallel; returns name -> library."""
+    return _build.build_variants(VARIANTS)
 
 
 def _cases(dev, rng):
@@ -167,6 +140,19 @@ def _cases(dev, rng):
     plain_1m = cs._unbanded(A1m)
     add("spmv 1M f32 C=1", plain_1m, torch.float32, 1)
     add("spmv 1M f64 C=1", plain_1m, torch.float64, 1)
+    # K = 392: the TGV-64^3 and TGV-24^3 Quintic Poisson matrices; K = 48:
+    # the channel's Poisson matrix (the GMRES operator's fluid block) and
+    # the Helmholtz matrix's (2, N) product
+    for n_lat in (64, 24):
+        A3 = cs._poisson_matrix(*cs._tgv3(dev, n_lat))
+        for dtype, ncomp in ((torch.float32, 1), (torch.float32, 3), (torch.float64, 1),
+                             (torch.float64, 3)):
+            add(f"spmv {n_lat}^3 {str(dtype)[6:].replace('float', 'f')} C={ncomp}", A3, dtype,
+                ncomp)
+    mats, _ = cs._channel_matrices(*cs._channel(dev))
+    add("spmv channel f32 C=1", mats["poisson_fluid"], torch.float32, 1)
+    add("spmv channel f64 C=1", mats["poisson_fluid"], torch.float64, 1)
+    add("spmv channel Helmholtz f32 C=2", mats["helmholtz"], torch.float32, 2)
     # the launch floor: one slot of 128 rows
     tiny = ELL(diag=torch.ones(128, device=dev), vals=torch.ones((1, 128), device=dev),
                idx=torch.zeros((1, 128), dtype=torch.int32, device=dev),

@@ -144,20 +144,27 @@ def test_hierarchy_matches_jax(n):
     _close_rel(T.apply(_t(r)), M.apply(jnp.asarray(r)), 1e-10)
 
 
-@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("dim", [2, 3, "3-lattice"])
 def test_transfers_dense_and_factored(dim):
     """onehot_budget=0 forces the factored path (tests/test_amg.py:71-93);
     both forms equal JAX's, and each other.  3-D on seeded positions in a
-    periodic box (the 3-D lattice is not ported yet)."""
+    periodic box, and on the TGV 8^3 lattice of ``make_tgv(dim=3)`` over the
+    2^3 coarse grid of coarsen=1 (the default's is one cell)."""
+    coarsen = 3
     if dim == 2:
         sim, st, _, _, _, (_, _, _, _, jdom) = _system(24)
         cut, x = sim.cfg.cut, st.x.numpy()
-    else:
+    elif dim == 3:
         jdom = JDomain(lo=(0.0,) * 3, hi=(2 * np.pi,) * 3, periodic=(True,) * 3)
         cut = 2 * np.pi / 8 * 3.0
         x = np.random.default_rng(2).uniform(0.0, 2 * np.pi, size=(3, 512))
-    jgrid = jamg.make_coarse_grids(jdom, cut)[0]
-    grid = tamg.make_coarse_grids(_port_domain(jdom), cut)[0]
+    else:
+        sim, st = tgv.make_tgv(8, dim=3, max_neighbors=128, device="cpu")
+        d = sim.domain
+        jdom = JDomain(lo=d.lo, hi=d.hi, periodic=d.periodic)
+        cut, x, coarsen = sim.cfg.cut, st.x.numpy(), 1
+    jgrid = jamg.make_coarse_grids(jdom, cut, coarsen=coarsen)[0]
+    grid = tamg.make_coarse_grids(_port_domain(jdom), cut, coarsen=coarsen)[0]
     rng = np.random.default_rng(0)
     v = rng.standard_normal(x.shape[1])
     xc = rng.standard_normal(grid.n)

@@ -395,3 +395,22 @@ def test_wrappers_raise_instead_of_falling_back(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
+
+
+def test_build_variant_copies_exactly_the_current_sources(monkeypatch, tmp_path):
+    """A variant's source directory holds csrc/'s files with the edits
+    applied and nothing left from an earlier copy (a stale source would be
+    compiled into the variant)."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "build", lambda src: src)
+    stale = tmp_path / "variants" / "v" / "removed_kernel.cu"
+    stale.parent.mkdir(parents=True)
+    stale.write_text("__global__ void gone() {}\n")
+    hdr = (_build.CSRC / "spmv_vec.cuh").read_text()
+    src = _build.build_variant("v", [("spmv_vec.cuh", "kThreads = 256", "kThreads = 128")])
+    names = sorted(p.name for p in src.iterdir())
+    assert names == sorted(p.name for p in [*_build.CSRC.glob("*.cu"),
+                                            *_build.CSRC.glob("*.cuh")])
+    assert (src / "spmv_vec.cuh").read_text() == hdr.replace("kThreads = 256", "kThreads = 128")
+    with pytest.raises(RuntimeError, match="not in"):
+        _build.build_variant("v", [("spmv_vec.cuh", "no such text", "")])

@@ -306,3 +306,29 @@ def test_spmv_band_threads_cover_each_row_once_within_its_step(n, itemsize, S):
         rows = vecs[vecs * V < n, None] * V + np.arange(V)
         assert np.all(rows // S == rows[:, :1] // S)
         np.testing.assert_array_equal(np.bincount(rows.ravel(), minlength=n), 1)
+
+
+@pytest.mark.parametrize("n, itemsize, rows", [
+    (1 << 16, 4, 1),  # TGV-256^2: one row
+    (1 << 16, 8, 1),
+    (1 << 20, 4, 4),  # TGV-1024^2: V rows
+    (1 << 20, 8, 2),
+    (64**3, 4, 1),  # TGV-64^3 Quintic, K = 392: one row in f32 (7% faster)
+    (64**3, 8, 2),  # and V rows in f64 (3% faster at C = 1, 7% at C = 3)
+    (24**3, 4, 1),  # TGV-24^3: one row (4.4x faster in f32)
+    (24**3, 8, 1),
+    (424_064, 4, 4),  # the ny = 1024 channel, K = 48: V rows (1.9x faster in f32)
+    (424_064, 8, 2),
+    (1 << 20 | 1, 4, 1),  # a ragged N
+])
+def test_spmv_path_rule_follows_the_measurement(n, itemsize, rows):
+    """spmv_vec.cuh's path rule (N / V >= kMinVecThreads, V dividing N), as
+    parsed by chip_smoke.py's mirror of it, takes at each lattice of the
+    paths the path that scripts/spmv_variants.py measured faster there
+    with each path forced (PERF.md)."""
+    import chip_smoke
+
+    hdr = (_build.CSRC / "spmv_vec.cuh").read_text()
+    assert re.search(r"constexpr int64_t kMinVecThreads = 3 << 15;", hdr)
+    assert "n % V == 0 && n / V >= kMinVecThreads" in hdr
+    assert chip_smoke._spmv_rows_per_thread(n, itemsize) == rows

@@ -19,6 +19,7 @@ import torch
 from isph_tpu.models import tgv as jtgv
 
 from isph_tpu_torch import interop
+from isph_tpu_torch.config import BoundaryCond
 from isph_tpu_torch.models import tgv
 from isph_tpu_torch.models.driver import Simulation
 from isph_tpu_torch.physics import ns_projection as ns
@@ -161,7 +162,7 @@ _ON = dict(enabled=True)
 
 
 @pytest.mark.parametrize("feature, cfg_kw", [
-    ("shift", dict(shift=dict(enabled=True, shift=0.05))),
+    ("Navier-slip", dict(ns=dict(boundary=BoundaryCond.NAVIER_SLIP, beta=5.0))),
     ("ILU", dict(solver=dict(precond="ilu"))),
     ("recycle_k", dict(solver=dict(precond="jacobi", recycle_k=4))),
     ("block Helmholtz", dict(ns=dict(is_block_helmholtz_enabled=True))),
