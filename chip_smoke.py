@@ -69,13 +69,43 @@ Phases (each raises on failure; the script then exits non-zero):
    in f32 with the default AMG; checks overflow, that the walls neither
    move nor gain velocity, finiteness, the velocity error against the
    transient profile (5%, tests/test_channel.py's bar), and that both
-   kernels ran; prints one synchronized breakdown with the shift apart.
+   kernels ran; prints one synchronized breakdown with the shift apart;
+12. electrokinetic kernels: on the Poisson-Boltzmann Jacobian of the
+   electroosmotic channel of phase 14 (K = 48, N = 268,288), the SpMV in
+   f64 C = 1 and take in f64 and int32 (N,) against their plain versions
+   as in phase 3, timed beside their bounds, plain versions and library
+   calls;
+13. electrokinetic goldens, f64: the PB harmonic manufactured solution at
+   N = 16 and 32 within 1e-6 of tests/test_electrokinetics.py's goldens;
+   the channel-EDL potential (nonlinear PB, kappa = 10, MorrisHolmes
+   mirror) at n = 32 within 5% of the reference's table and at n = 256
+   (13,936 particles) below the JAX package's own error at n = 128, with
+   its Newton iterations, NormF and solve time; at n = 512 (53,448
+   particles) the reference's Newton does not converge (JAX's stops at
+   its cap of 100 too), and the script logs the same numbers; applied-efield-potential-2d
+   at n = 64: its error against the Henry field within 1e-6 relative of
+   the JAX package's (henry-efield-2d, whose GMRES stalls in both
+   packages, is logged only);
+14. electroosmotic channel: three f64 steps of channel-edl-linear-2d at
+   n = 512 (268,288 particles, linearized PB, eps = 0.02, default AMG)
+   through Simulation.run; checks overflow, finiteness, fixed walls, the
+   flow in -x and that both kernels ran; one synchronized breakdown of
+   the first step with the PB Newton solve (held to NormF <= 1e-8), the
+   force, Helmholtz and the Poisson V-cycles apart; the idle share of the
+   first step, profiled (torch.profiler, kernel events); then one f32 step
+   of the same deck,
+   whose Newton runs to its cap (the absolute stopping test lies below f32
+   round-off);
+15. transport: five f64 steps of square-concentration-fix-2d at n = 1024
+   (1,048,576 particles, d0 = 0.02) through Simulation.run, held to
+   tests/test_decks.py's bars (L2 error against the heat kernel < 0.06,
+   mass within 0.02 of 0.16).
 
 The last lines are the card's name and power limit from nvidia-smi, one
 JSON line describing the kernels (time, launches on the main path, plain
 and library times and bound of each, at the f32 (N,) shape of its phase;
-ell_spmv and take also at 64^3 and on the channel, with their launches on
-phases 9 and 11),
+ell_spmv and take also at 64^3, on the channel and on the PB Jacobian, with
+their launches on phases 9, 11, 14 and 15),
 and the result line
 {"ok": true, "device": {...}}.  Without a CUDA device it prints no result
 and exits non-zero.
@@ -157,15 +187,21 @@ def _tgv1024(dev):
     return _tgv(dev, 1024, "amg", stream_window=3072, stream_subcap=64)
 
 
-def _poisson_matrix(sim, state):
-    from isph_tpu_torch.ops import corrected as ops
-    from isph_tpu_torch.state import Kind
-
+def _geometry(sim, state):
+    """(neighbor list, pair geometry, computePre) of a state; fails on a
+    neighbor overflow."""
     nbrs = sim.neighbors(state)
     if int(nbrs.overflow) != 0:
         raise RuntimeError(f"neighbor overflow {int(nbrs.overflow)}")
     geom = sim.geometry(state, nbrs)
-    pre = sim.precompute(state, geom)
+    return nbrs, geom, sim.precompute(state, geom)
+
+
+def _poisson_matrix(sim, state):
+    from isph_tpu_torch.ops import corrected as ops
+    from isph_tpu_torch.state import Kind
+
+    _, geom, pre = _geometry(sim, state)
     return ops.laplacian_matrix(
         geom, pre.vfrac, pre.Gc, pre.Lc, state.kind, alpha=-sim.cfg.dt,
         material=1.0 / state.rho, filt=ops.PairFilter(Kind.FLUID, Kind.FLUID),
@@ -485,17 +521,18 @@ def phase_kernels(dev, flush):
     return dict(spmv_err=spmv_err, spmv=spmv[(torch.float32, 1)], take=take["f32 (N,)"])
 
 
-def _run_steps(tag, sim, state, wrappers, cap_check=True):
-    """Three steps through Simulation.run, one call per step (run(state, 3)
-    in three timed pieces), the wrappers' launch counters set to 0 just
-    before and read just after.  Fails on a neighbor overflow, a non-finite
-    status and, with ``cap_check``, a Poisson solve at the iteration cap."""
+def _run_steps(tag, sim, state, wrappers, cap_check=True, nsteps=3):
+    """``nsteps`` steps through Simulation.run, one call per step
+    (run(state, nsteps) in timed pieces), the wrappers' launch counters set
+    to 0 just before and read just after.  Fails on a neighbor overflow, a
+    non-finite status and, with ``cap_check``, a Poisson solve at the
+    iteration cap."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers:
         w.launches = 0
     step_s = []
-    for k in range(3):
+    for k in range(nsteps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, aux = sim.run(state, 1)
@@ -512,7 +549,7 @@ def _run_steps(tag, sim, state, wrappers, cap_check=True):
     launches = {w.__name__: w.launches for w in wrappers}
     _log(f"{tag}: launches {launches}")
     step_med = statistics.median(step_s[1:])
-    _log(f"{tag}: step time (median of steps 2-3) {step_med:.4f} s, "
+    _log(f"{tag}: step time (median of steps 2-{nsteps}) {step_med:.4f} s, "
          f"{state.n / step_med:.0f} particle-steps/s; peak memory "
          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     if not all(bool(torch.isfinite(t).all()) for t in aux.status):
@@ -660,11 +697,13 @@ def phase_large_n(dev):
     return launches
 
 
-def _breakdown_amg(tag, sim, state):
+def _breakdown_amg(tag, sim, state, forcing=None):
     """One more step, phase by phase with a synchronize after each (host
     clock), with the AMG build, the V-cycles and the shift as their own
     entries (each V-cycle bracketed by synchronizes, so GMRES's own work is
-    the Poisson solve's time less the V-cycles')."""
+    the Poisson solve's time less the V-cycles').  ``forcing(state, geom,
+    pre, mark)`` runs the scalar-field solves after the force clear, marking
+    its own phases, and returns (state, a note for the log)."""
     from isph_tpu_torch.physics import ns_projection as ns
     from isph_tpu_torch.physics import shift
     from isph_tpu_torch.solvers import amg
@@ -684,6 +723,9 @@ def _breakdown_amg(tag, sim, state):
     pre = sim.precompute(state, geom)
     mark("compute_pre")
     state = state.replace(f=torch.zeros_like(state.v))
+    note = ""
+    if forcing is not None:
+        state, note = forcing(state, geom, pre, mark)
     vstar, hinfo = ns.solve_helmholtz(state, geom, pre, cfg)
     mark("helmholtz")
     A, b = ns.poisson_system(state, geom, pre, cfg, vstar)
@@ -728,7 +770,7 @@ def _breakdown_amg(tag, sim, state):
     _log(f"breakdown ({tag}): " + ", ".join(
         f"{k}={v:.2f} ms ({100 * v / total:.1f}%)" for k, v in parts.items())
         + f"; {len(vcycles)} V-cycles, {vc / max(len(vcycles), 1):.3f} ms each; "
-        f"helmholtz_iters={int(hinfo.iters.sum())} poisson_iters={int(res.iters)}")
+        f"helmholtz_iters={int(hinfo.iters.sum())} poisson_iters={int(res.iters)}{note}")
     return int(res.iters)
 
 
@@ -846,11 +888,7 @@ def _channel_matrices(sim, state):
     list's (K, N) idx."""
     from isph_tpu_torch.physics import ns_projection as ns
 
-    nbrs = sim.neighbors(state)
-    if int(nbrs.overflow) != 0:
-        raise RuntimeError(f"neighbor overflow {int(nbrs.overflow)}")
-    geom = sim.geometry(state, nbrs)
-    pre = sim.precompute(state, geom)
+    nbrs, geom, pre = _geometry(sim, state)
     A, _ = ns.poisson_system(state, geom, pre, sim.cfg, state.v)
     fluid = state.is_fluid & state.valid
     A_f = A.zero_rows(~fluid).with_diag(torch.where(fluid, A.diag, torch.ones_like(A.diag)))
@@ -915,6 +953,289 @@ def phase_channel(dev):
     _breakdown_amg("channel", sim, state)
     return launches
 
+# the JAX package's own f64 values on the CPU (isph_tpu, the same decks),
+# the bars phase 13 holds the port to on the card
+EDL_POTENTIAL_REL_ERR_JAX_128 = 2.938790772664169e-03
+EDL_POTENTIAL_REL_ERR_JAX_256 = 6.15884748436271e-04  # 9 Newton iterations
+# at n = 512 JAX's Newton (one Jacobi GMRES(80) cycle a step) stops at its
+# cap of 100 with NormF 34.95932689520356, relative error 0.99853
+EDL_POTENTIAL_NORM_F_JAX_512 = 34.95932689520356
+# applied-efield-potential-2d (Henry buffer potential, a solid disk of
+# conductivity ratio 0.001) at n = 64; henry-efield-2d (ratio 1e-6, not
+# carved) stalls at relres 0.4436 after 150 GMRES iterations in JAX
+HENRY_PHI_REL_ERR_JAX_64 = 0.012896379590869126
+GOLDEN_PSI = {16: 1.479161878614346e-02, 32: 3.706069041498665e-03}
+GOLDEN_GRAD = {16: 4.719682089799385e-02, 32: 1.198133743842115e-02}
+
+
+def _edl_flow(dev, dtype=torch.float64):
+    """channel-edl-linear-2d at n = 512: 512 x 524 = 268,288 particles,
+    K = 48, MorrisHolmes walls, linearized PB with eps = 0.02, default AMG."""
+    from isph_tpu_torch.models import decks
+
+    return decks.build_deck("channel-edl-linear-2d", n=512, dtype=dtype, device=dev)
+
+
+def _pb_jacobian(sim, state):
+    """The PB Jacobian at the state's psi, as solve_poisson_boltzmann's
+    Newton assembles it, and the neighbor list's idx."""
+    from isph_tpu_torch.physics import electrokinetics as ek
+
+    nbrs, geom, pre = _geometry(sim, state)
+    _, jacobian = ek.pb_system(state, geom, pre, sim.cfg)
+    return jacobian(state.psi), nbrs.idx
+
+
+def phase_edl_kernels(dev, flush):
+    """ell_spmv (f64 C = 1) and take (f64 and int32 (N,)) against their plain
+    versions on the PB Jacobian of the n = 512 electroosmotic channel."""
+    from isph_tpu_torch.ops import spmv_cuda as sc
+
+    sim, state = _edl_flow(dev)
+    J, idx = _pb_jacobian(sim, state)
+    K, n = J.vals.shape
+    nnz = int(J.mask.sum().item()) + n
+    _log(f"edl kernels: PB Jacobian of channel-edl-linear-2d n=512, N={n} K={K} nnz={nnz} "
+         f"(SpMV V={_spmv_rows_per_thread(n, 8)} in f64)")
+    rng = np.random.default_rng(4)
+    spmv, err = _sweep_ell("edl kernels: spmv", J, nnz, flush, rng, ((torch.float64, (1,)),))
+    shapes = ("f64 (N,)", "int32 (N,)")
+    fields = {k: f for k, f in _take_fields(rng, n, dev).items() if k in shapes}
+    take = _take_sweep("edl kernels: take", sc.take, idx, fields, flush, main_shapes=shapes)
+    return dict(spmv_err=err, spmv=spmv[(torch.float64, 1)], take=take["f64 (N,)"])
+
+
+def _channel_edl_potential(dev, n, converge=True):
+    """The channel-EDL potential deck (nonlinear PB, kappa = 10) solved with
+    the MorrisHolmes mirror (safe 0): (relative psi error, Newton result,
+    solve seconds, particles).  With ``converge`` a Newton that does not
+    converge fails."""
+    from isph_tpu_torch.models import edl
+    from isph_tpu_torch.ops import corrected as ops
+    from isph_tpu_torch.physics import electrokinetics as ek
+
+    sim, state = edl.make_channel_edl(n, device=dev)
+    _, geom, pre = _geometry(sim, state)
+    cfg = sim.cfg
+    mirror = ops.morris_holmes_mirror(geom, state.kind, pre.pnd, pre.vfrac, cfg.cut, cfg.h,
+                                      safe=0.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    psi, _, info = ek.solve_poisson_boltzmann(state, geom, pre, cfg, mirror=mirror)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    err, norm = edl.psi_error(state, psi)
+    if converge and not bool(info.converged):
+        raise RuntimeError(f"channel-EDL n={n}: Newton did not converge "
+                           f"(NormF {float(info.norm_f):.3e})")
+    return float(err / norm), info, secs, int(state.valid.sum())
+
+
+def phase_edl_golden(dev):
+    """The PB harmonic goldens, the channel-EDL table and the Henry field on
+    the card, f64."""
+    from isph_tpu_torch.config import PoissonBoltzmannConfig
+    from isph_tpu_torch.models import decks, tgv
+    from isph_tpu_torch.physics import electrokinetics as ek
+    from isph_tpu_torch.state import Kind
+
+    f64 = torch.float64
+    for n in (16, 32):
+        sim, state = tgv.make_tgv(n, device=dev)
+        cfg = sim.cfg.replace(pb=PoissonBoltzmannConfig(enabled=True, ezcb=0.5, psiref=1.0,
+                                                        gamma=0.0))
+        state = state.replace(eps=torch.ones(state.n, dtype=f64, device=dev),
+                              psi=torch.zeros(state.n, dtype=f64, device=dev),
+                              psi0=torch.zeros(state.n, dtype=f64, device=dev))
+        _, geom, pre = _geometry(sim, state)
+        x, y = state.x[0], state.x[1]
+        ex = torch.sin(x) * torch.cos(y)
+        psi, grad, info = ek.solve_poisson_boltzmann(state, geom, pre, cfg,
+                                                     extra_f=-2.0 * ex - torch.sinh(ex))
+        w = state.valid.to(f64)
+        err = float(torch.sqrt((((psi - ex) * w) ** 2).sum() / w.sum()))
+        gex = torch.stack([torch.cos(x) * torch.cos(y), -torch.sin(x) * torch.sin(y)])
+        gerr = float(torch.sqrt((((grad - gex) * w) ** 2).sum() / w.sum()))
+        pe, ge = err / GOLDEN_PSI[n] - 1.0, gerr / GOLDEN_GRAD[n] - 1.0
+        _log(f"edl golden: PB harmonic N={n}: psi L2 {err:.12e} ({pe:+.3e}), grad L2 "
+             f"{gerr:.12e} ({ge:+.3e}); Newton {int(info.iters)} iterations, "
+             f"{int(info.linear_iters)} GMRES, NormF {float(info.norm_f):.3e}")
+        if not (bool(info.converged) and abs(pe) < 1e-6 and abs(ge) < 1e-6):
+            raise RuntimeError(f"PB harmonic N={n} off its golden by 1e-6 or more")
+
+    rel, info, secs, npart = _channel_edl_potential(dev, 32)
+    _log(f"edl golden: channel-EDL n=32 ({npart} particles): relative psi error {rel:.6e} "
+         f"(table 4.210116e-02, {rel / 4.210116123449621e-02 - 1.0:+.3%}); Newton "
+         f"{int(info.iters)}, NormF {float(info.norm_f):.3e}")
+    if not abs(rel / 4.210116123449621e-02 - 1.0) < 0.05:
+        raise RuntimeError("channel-EDL n=32 off the table by 5% or more")
+    for n in (256, 512):
+        rel, info, secs, npart = _channel_edl_potential(dev, n, converge=n == 256)
+        _log(f"edl golden: channel-EDL n={n} ({npart} particles): relative psi error "
+             f"{rel:.6e} (JAX f64 at n=128: {EDL_POTENTIAL_REL_ERR_JAX_128:.6e}, at n=256: "
+             f"{EDL_POTENTIAL_REL_ERR_JAX_256:.6e}); Newton {int(info.iters)} iterations, "
+             f"{int(info.linear_iters)} GMRES, NormF {float(info.norm_f):.3e}; solve "
+             f"{secs:.4f} s")
+        if bool(info.converged) and not rel < EDL_POTENTIAL_REL_ERR_JAX_128:
+            raise RuntimeError(f"channel-EDL n={n} no more accurate than JAX's n=128")
+        if not bool(info.converged):
+            # the reference's Newton does not converge here: JAX's stops at
+            # its cap too (a record, not a failure, unless non-finite)
+            _log(f"edl golden: channel-EDL n={n}: Newton at its cap, as JAX's (NormF "
+                 f"{EDL_POTENTIAL_NORM_F_JAX_512:.6e} on the CPU)")
+            if not math.isfinite(rel):
+                raise RuntimeError(f"channel-EDL n={n}: non-finite psi")
+
+    for deck in ("applied-efield-potential-2d", "henry-efield-2d"):
+        sim, state, ex = decks.build_deck(deck, n=64, device=dev)
+        _, geom, pre = _geometry(sim, state)
+        phi, _ = ek.solve_applied_electric_potential(state, geom, pre, sim.cfg)
+        w = (state.valid & ((state.kind & Kind.FLUID_BIT) != 0)).to(f64)
+        err = float(torch.sqrt((((phi - ex) * w) ** 2).sum() / ((ex * w) ** 2).sum()))
+        if deck == "henry-efield-2d":  # a record: its GMRES stalls in both packages
+            _log(f"edl golden: {deck} n=64: relative phi error against the Henry field "
+                 f"{err:.6e} from a stalled solve (finite: {bool(torch.isfinite(phi).all())})")
+            if not bool(torch.isfinite(phi).all()):
+                raise RuntimeError(f"{deck}: non-finite phi")
+            continue
+        off = err / HENRY_PHI_REL_ERR_JAX_64 - 1.0
+        _log(f"edl golden: {deck} n=64: relative phi error against the Henry field "
+             f"{err:.12e} (JAX {HENRY_PHI_REL_ERR_JAX_64:.12e}, {off:+.3e})")
+        if not abs(off) < 1e-6:
+            raise RuntimeError("Henry field error off JAX's by 1e-6 relative or more")
+
+
+def _pb_forcing(sim, strict):
+    """The breakdown's scalar-field phases: the PB Newton solve and the
+    electrostatic force; with ``strict`` a Newton that did not converge to
+    NormF <= tol_f fails."""
+    from isph_tpu_torch.physics import electrokinetics as ek
+
+    cfg = sim.cfg
+
+    def forcing(state, geom, pre, mark):
+        psi, psigrad, info = ek.solve_poisson_boltzmann(state, geom, pre, cfg)
+        mark("pb_newton")
+        state = state.replace(psi=psi, psigrad=psigrad)
+        state = state.replace(f=ek.electrostatic_force(state, cfg, psigrad))
+        mark("force")
+        nf = float(info.norm_f)
+        if strict and not (bool(info.converged) and nf <= cfg.newton.tol_f):
+            raise RuntimeError(f"PB Newton did not converge: NormF {nf:.3e} after "
+                               f"{int(info.iters)} iterations")
+        return state, (f"; Newton {int(info.iters)} iterations, {int(info.linear_iters)} "
+                       f"GMRES, NormF {nf:.3e}")
+
+    return forcing
+
+
+def _idle_share(fn):
+    """Device busy and idle share of ``fn()`` (torch.profiler, CUDA kernel
+    events only; one stream, so kernels do not overlap): (wall s, busy s,
+    kernels).  The profiler's own host cost lengthens the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+               for e in events) / 1e6
+    return wall, busy, sum(e.count for e in events)
+
+
+def phase_edl_path(dev):
+    """Three f64 steps of the n = 512 electroosmotic channel through
+    Simulation.run; a breakdown and the idle share of its first step; then
+    one f32 step.  (The deck's transverse velocities grow from step to
+    step in both packages; from the fourth step on the reference's Newton
+    stalls at this size: PERF.md, section 6.)"""
+    from isph_tpu_torch.ops import spmv_cuda as sc
+
+    sim, state = _edl_flow(dev)
+    state0 = state
+    solid = state.is_solid & state.valid
+    fluid = state.is_fluid & state.valid
+    x0 = state.x[:, solid].clone()
+    _log(f"edl path: channel-edl-linear-2d n=512 N={state.n} ({int(fluid.sum())} fluid, "
+         f"{int(solid.sum())} wall), K={sim.cfg.neighbor.max_neighbors}, walls "
+         f"{sim.cfg.ns.boundary.value}, eps {float(state.eps[0]):g}, E {sim.cfg.ae.e[:2]}, "
+         f"dt {sim.cfg.dt:.6g}, precond {sim.cfg.solver.precond}")
+    state, aux, launches = _run_steps("edl path", sim, state, (sc.ell_spmv, sc.take))
+    if min(launches.values()) <= 0:
+        raise RuntimeError(f"a kernel of the electroosmotic path never launched: {launches}")
+    moved = float((state.x[:, solid] - x0).abs().max())
+    ulps = 4 * torch.finfo(state.dtype).eps * float(x0.abs().max())
+    wall_v = float(state.v[:, solid].abs().max())
+    vx = float(state.v[0][fluid].mean())
+    vy = float(state.v[1][fluid].abs().max())
+    finite = all(bool(torch.isfinite(t).all()) for t in (state.v, state.p, state.psi))
+    _log(f"edl path: t={float(aux.status.time):.6g} mean fluid vx {vx:.6e} (expected < 0), "
+         f"vmax {float(aux.status.vmax):.6e}, max |vy| {vy:.6e}, wall displacement "
+         f"{moved:.3e} (bound {ulps:.3e}), wall speed {wall_v:.3e}")
+    if not finite:
+        raise RuntimeError("non-finite v, p or psi on the electroosmotic path")
+    if moved > ulps or wall_v != 0.0:
+        raise RuntimeError("the electroosmotic channel's walls moved or gained velocity")
+    if not vx < 0.0:
+        raise RuntimeError("the electroosmotic flow does not run in -x")
+    _breakdown_amg("edl path, step 1", sim, state0, forcing=_pb_forcing(sim, strict=True))
+    wall, busy, nk = _idle_share(lambda: sim.run(state0, 1))
+    _log(f"edl path: step 1 profiled {wall:.4f} s, device busy {busy:.4f} s over {nk} "
+         f"kernels, idle share {1.0 - busy / wall:.3f}")
+    del state, state0
+    torch.cuda.empty_cache()
+
+    sim32, state32 = _edl_flow(dev, torch.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _breakdown_amg("edl path f32", sim32, state32, forcing=_pb_forcing(sim32, strict=False))
+    _log(f"edl path f32: one step (phase by phase) {time.perf_counter() - t0:.4f} s")
+    return launches
+
+
+TRANSPORT_D0 = 0.02
+
+
+def _transport_box(dev):
+    """square-concentration-fix-2d at n = 1024: 1,048,576 particles, f64,
+    K = 48, d0 = 0.02 (tests/test_decks.py's diffusivity)."""
+    from isph_tpu_torch.models import decks
+
+    return decks.build_deck("square-concentration-fix-2d", n=1024, d0=TRANSPORT_D0,
+                            device=dev)
+
+
+def phase_transport(dev):
+    """Five f64 steps of the 1M transport box through Simulation.run, held
+    to tests/test_decks.py's bars."""
+    from isph_tpu_torch.models import decks
+    from isph_tpu_torch.ops import spmv_cuda as sc
+
+    d0, nsteps = TRANSPORT_D0, 5
+    sim, state = _transport_box(dev)
+    _log(f"transport: square-concentration-fix-2d N={state.n}, "
+         f"K={sim.cfg.neighbor.max_neighbors}, d0 {d0}, dt {sim.cfg.dt:.6g}")
+    state, aux, launches = _run_steps("transport", sim, state, (sc.ell_spmv, sc.take),
+                                      nsteps=nsteps)
+    if min(launches.values()) <= 0:
+        raise RuntimeError(f"a kernel of the transport path never launched: {launches}")
+    t = nsteps * sim.cfg.dt
+    cex = decks.square_concentration_exact(state.x, t, d0=d0, rpatch=0.2)
+    w = state.valid.to(state.dtype)
+    c = state.conc[0]
+    err = float(torch.sqrt((((c - cex) * w) ** 2).sum() / w.sum()))
+    mass = float((c * w).sum() / w.sum())  # the unit box's integral of c
+    _log(f"transport: t={t:.6g} L2 error against the heat kernel {err:.6e} (bar 0.06), "
+         f"mass {mass:.12f} (0.16 +- 0.02), conc in [{float(c.min()):.3e}, "
+         f"{float(c.max()):.6f}]")
+    if not (bool(torch.isfinite(c).all()) and err < 0.06 and abs(mass - 0.16) < 0.02):
+        raise RuntimeError("the transport box is off tests/test_decks.py's bars")
+    return launches
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -977,6 +1298,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches_channel = phase_channel(dev)
 
+    # phase 12: electrokinetic kernels; phase 13: electrokinetic goldens;
+    # phase 14: the electroosmotic channel; phase 15: transport
+    torch.cuda.empty_cache()
+    flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
+    ke = phase_edl_kernels(dev, flush)
+    del flush
+    torch.cuda.empty_cache()
+    phase_edl_golden(dev)
+    launches_edl = phase_edl_path(dev)
+    torch.cuda.empty_cache()
+    launches_transport = phase_transport(dev)
+
     def row(name, source, replaces, launched, err, t):
         return dict(name=name, route="cuda", source=f"isph_tpu_torch/csrc/{source}",
                     replaces=f"isph_tpu/ops/spmv_pallas.py:{replaces}", launches=launched,
@@ -988,15 +1321,20 @@ def main() -> int:
         return {key: t[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
 
     def beyond(name):
-        """The launches on phases 9 and 11 and the f32 (N,) rows of phases
-        8 (64^3) and 10 (the channel's Poisson matrix)."""
+        """The launches on phases 9, 11, 14 and 15, the f32 (N,) rows of
+        phases 8 (64^3) and 10 (the channel's Poisson matrix) and the f64
+        (N,) row of phase 12 (the PB Jacobian)."""
         kname = "spmv" if name == "ell_spmv" else name
         return dict(launches_3d=launches_3d[name], launches_channel=launches_channel[name],
-                    at_64cubed=times(k3["rows"][64][kname]), at_channel=times(kc[kname]))
+                    launches_edl=launches_edl[name],
+                    launches_transport=launches_transport[name],
+                    at_64cubed=times(k3["rows"][64][kname]), at_channel=times(kc[kname]),
+                    at_edl=times(ke[kname]))
 
     kernels = [
         {**row("ell_spmv", "spmv.cu", 298, launches["ell_spmv"],
-               max(k["spmv_err"], kb["spmv32_err"], k3["spmv_err"], kc["spmv_err"]), k["spmv"]),
+               max(k["spmv_err"], kb["spmv32_err"], k3["spmv_err"], kc["spmv_err"],
+                   ke["spmv_err"]), k["spmv"]),
          **beyond("ell_spmv")},
         {**row("take", "take.cu", 332, launches["take"], 0.0, k["take"]), **beyond("take")},
         row("ell_spmv_band", "spmv_band.cu", 458, launches_large["ell_spmv_band"],

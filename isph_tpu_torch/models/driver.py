@@ -10,7 +10,7 @@ skipped.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -24,7 +24,7 @@ from isph_tpu_torch.ops.neighbors import (
     build_neighbor_list_bruteforce,
     compute_pair_geometry,
 )
-from isph_tpu_torch.physics import ns_projection, shift as shift_mod
+from isph_tpu_torch.physics import electrokinetics, ns_projection, shift as shift_mod, transport
 from isph_tpu_torch.physics.status import Status, compute_status
 
 
@@ -43,9 +43,6 @@ def unported_features(cfg: SimulationConfig) -> list[str]:
     """Enabled features of ``cfg`` that the port does not run yet."""
     checks = [
         (cfg.backend == "mls_ale", "mls_ale backend"),
-        (cfg.pb.enabled, "pb (Poisson-Boltzmann)"),
-        (cfg.ae.enabled, "ae (applied electric field)"),
-        (cfg.tr.enabled, "tr (solute transport)"),
         (cfg.rs.enabled, "rs (random stress)"),
         (cfg.st.enabled, "st (surface tension)"),
         (cfg.ns.is_block_helmholtz_enabled, "block Helmholtz"),
@@ -57,11 +54,22 @@ def unported_features(cfg: SimulationConfig) -> list[str]:
 
 @dataclasses.dataclass(frozen=True)
 class Simulation:
-    """Immutable problem setup: domain + config."""
+    """Immutable problem setup: domain + config.
+
+    ``modifier``/``extra_force`` stand in for the reference's fix plugins:
+    ``modifier(state, time) -> state`` runs at the top of every step
+    (FixISPH_Modify{Type,Velocity,Concentration,Phi}: time-dependent
+    boundary or state overrides such as moving walls or inlets);
+    ``extra_force(state, domain) -> f`` gives the body force accumulator
+    right after the force clear (the BondISPH gating,
+    pair_isph.cpp:1320-1331).
+    """
 
     cfg: SimulationConfig
     domain: Domain
     use_bruteforce_neighbors: bool = False
+    modifier: Optional[Callable] = None
+    extra_force: Optional[Callable] = None
 
     # -- neighbor plumbing -------------------------------------------------
     def neighbors(self, state: ParticleState) -> NeighborList:
@@ -96,10 +104,18 @@ class Simulation:
     # -- one full timestep -------------------------------------------------
     def step(self, state: ParticleState) -> Tuple[ParticleState, StepAux]:
         """One timestep (PairISPH::compute, pair_isph.cpp:1241-1380):
-        neighbors -> pair geometry -> computePre -> NS projection
-        (Helmholtz, Poisson, correct) -> advance -> shifting -> status."""
+        modifier -> neighbors -> pair geometry -> computePre -> extra force
+        -> applied E-field -> Poisson-Boltzmann (+ electrostatic force) ->
+        solute transport -> NS projection (Helmholtz, Poisson, correct) ->
+        advance -> shifting -> status.  ``cfg.ns.enabled`` is carried but
+        not read, as in the JAX step."""
         cfg = self.cfg
         self.prepare(state)
+
+        if self.modifier is not None:
+            t_now = (state.step.to(state.dtype) if state.step is not None
+                     else torch.zeros((), dtype=state.dtype, device=state.device)) * cfg.dt
+            state = self.modifier(state, t_now)
 
         nbrs = self.neighbors(state)
         geom = self.geometry(state, nbrs)
@@ -107,6 +123,25 @@ class Simulation:
 
         # clear the per-step force accumulator (LAMMPS force_clear)
         state = state.replace(f=torch.zeros_like(state.v))
+
+        if self.extra_force is not None:
+            state = state.replace(f=self.extra_force(state, self.domain))
+
+        if cfg.ae.enabled:
+            phi, phigrad = electrokinetics.solve_applied_electric_potential(
+                state, geom, pre, cfg)
+            state = state.replace(phi=phi, phigrad=phigrad)
+
+        if cfg.pb.enabled:
+            psi, psigrad, _ = electrokinetics.solve_poisson_boltzmann(state, geom, pre, cfg)
+            state = state.replace(psi=psi, psigrad=psigrad)
+            f = electrokinetics.electrostatic_force(
+                state, cfg, psigrad, phigrad=state.phigrad if cfg.ae.enabled else None)
+            state = state.replace(f=f)
+
+        if cfg.tr.enabled and state.conc is not None:
+            conc, _ = transport.solute_transport_step(state, geom, pre, cfg)
+            state = state.replace(conc=conc)
 
         state, info = ns_projection.navier_stokes_step(
             state, geom, pre, cfg, domain=self.domain)

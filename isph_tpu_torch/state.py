@@ -71,8 +71,9 @@ class ParticleState:
     """SoA particle fields (reference atom.h:53-91 per-atom arrays).
 
     Shapes: N = padded particle count, D = spatial dim (2 or 3).  Vectors
-    are (D, N), scalars (N,).  Only the fields the ported main path touches
-    exist here; ``interop.state_from_numpy`` refuses any other.
+    are (D, N), scalars (N,).  Only the fields of the ported physics exist
+    here; ``interop.state_from_numpy`` refuses any other (``phase``:
+    multiphase is not ported).
     """
 
     x: torch.Tensor  # (D, N) positions
@@ -85,6 +86,15 @@ class ParticleState:
     vstar: Optional[torch.Tensor] = None  # (D, N) intermediate velocity
     dp: Optional[torch.Tensor] = None  # (N,) pressure increment
     f: Optional[torch.Tensor] = None  # (D, N) body force accumulator
+    # electrokinetics (atom->psi/psi0/psigrad/eps/sigma, atom->phi/phigrad)
+    psi: Optional[torch.Tensor] = None  # (N,) electric potential (PB)
+    psi0: Optional[torch.Tensor] = None  # (N,) wall potential
+    psigrad: Optional[torch.Tensor] = None  # (D, N)
+    eps: Optional[torch.Tensor] = None  # (N,) dielectric
+    sigma: Optional[torch.Tensor] = None  # (N,) conductivity
+    phi: Optional[torch.Tensor] = None  # (N,) applied potential
+    phigrad: Optional[torch.Tensor] = None  # (D, N)
+    conc: Optional[torch.Tensor] = None  # (S, N) concentrations (S <= 4)
     step: Optional[torch.Tensor] = None  # () int32 timestep counter
     # AMG hierarchy carried between steps under the max-age policy
     # (solvers/amg.py AMGCache); None until the first AMG solve builds one

@@ -231,11 +231,12 @@ def test_exact_profiles_match_jax():
 
 
 def test_state_with_concentrations_is_refused():
-    """Solute transport (``tr``) is not ported, so a JAX state that carries
-    concentrations, which shifting would transport, is refused by name."""
+    """Multiphase is not ported, so a JAX state that carries phase ids is
+    refused by name.  (Concentrations were refused until solute transport
+    and their shift were ported; the test keeps its name.)"""
     jsim, js = jch.make_channel(16)
     fields = {f.name: np.asarray(getattr(js, f.name))
               for f in dataclasses.fields(js) if getattr(js, f.name) is not None}
-    fields["conc"] = np.zeros((1, js.n))
-    with pytest.raises(NotImplementedError, match="conc"):
+    fields["phase"] = np.zeros(js.n, np.int32)
+    with pytest.raises(NotImplementedError, match="phase"):
         interop.state_from_numpy(fields, "cpu", F64)

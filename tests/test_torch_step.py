@@ -167,9 +167,6 @@ _ON = dict(enabled=True)
     ("recycle_k", dict(solver=dict(precond="jacobi", recycle_k=4))),
     ("block Helmholtz", dict(ns=dict(is_block_helmholtz_enabled=True))),
     ("mls_ale", dict(backend="mls_ale")),
-    ("pb", dict(pb=_ON)),
-    ("ae", dict(ae=_ON)),
-    ("tr", dict(tr=_ON)),
     ("rs", dict(rs=_ON)),
     ("st", dict(st=_ON)),
 ])
