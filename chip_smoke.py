@@ -99,13 +99,32 @@ Phases (each raises on failure; the script then exits non-zero):
 15. transport: five f64 steps of square-concentration-fix-2d at n = 1024
    (1,048,576 particles, d0 = 0.02) through Simulation.run, held to
    tests/test_decks.py's bars (L2 error against the heat kernel < 0.06,
-   mass within 0.02 of 0.16).
+   mass within 0.02 of 0.16);
+16. walls and entry points: (g) the generic analytic-error fix
+   (models/error.py, the TGV deck's Function List strings) on phase 4's
+   state against tgv.compute_error within 1e-5; (a) the block Helmholtz on
+   that wall-free state against the per-component solve within 1e-5, with
+   one take launch in its matvec; (b) three steps of the ny = 1024 channel
+   with Navier-slip friction beta = 0.01 and the coupled block Helmholtz
+   (MorrisHolmes mirrors, shift 0.07) through Simulation.run_adaptive
+   (cfl 0.25, dx = 1/1024): no overflow, the block GMRES converged each
+   step, finite fields, fixed walls, mean fluid vx > 0, both kernels ran;
+   logs the dt sequence, each step's iterations and time, the launches,
+   the peak memory and a synchronized breakdown with the block Helmholtz
+   apart; (d) a checkpoint after step 2 restored into the step-1 state
+   bit for bit (AMG cache included), one more step from both within 1e-6
+   (bit-equality logged); (e) one dump frame through io/dump.py and the
+   native writer, read back equal, both times logged; (f) the wall
+   traction finite, the lower wall's drag along the flow, the largest
+   fluid |div v|, a finite curl, smooth_field of a constant within 1e-6;
+   (c) one step with the scalar Navier-slip rows at beta = 5 and 0:
+   friction lowers the kinetic energy.
 
 The last lines are the card's name and power limit from nvidia-smi, one
 JSON line describing the kernels (time, launches on the main path, plain
 and library times and bound of each, at the f32 (N,) shape of its phase;
 ell_spmv and take also at 64^3, on the channel and on the PB Jacobian, with
-their launches on phases 9, 11, 14 and 15),
+their launches on phases 9, 11, 14, 15 and 16),
 and the result line
 {"ok": true, "device": {...}}.  Without a CUDA device it prints no result
 and exits non-zero.
@@ -116,10 +135,12 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -587,7 +608,7 @@ def phase_main_path(dev):
     _log(f"main: L2 error vs exact: pressure={float(err.pressure_l2):.4e} "
          f"velocity={float(err.velocity_l2):.4e}")
     _breakdown(sim, state)
-    return launches
+    return launches, sim, state, float(aux.status.time)
 
 
 def _breakdown(sim, state):
@@ -704,6 +725,7 @@ def _breakdown_amg(tag, sim, state, forcing=None):
     the Poisson solve's time less the V-cycles').  ``forcing(state, geom,
     pre, mark)`` runs the scalar-field solves after the force clear, marking
     its own phases, and returns (state, a note for the log)."""
+    from isph_tpu_torch.physics import block_helmholtz
     from isph_tpu_torch.physics import ns_projection as ns
     from isph_tpu_torch.physics import shift
     from isph_tpu_torch.solvers import amg
@@ -726,8 +748,12 @@ def _breakdown_amg(tag, sim, state, forcing=None):
     note = ""
     if forcing is not None:
         state, note = forcing(state, geom, pre, mark)
-    vstar, hinfo = ns.solve_helmholtz(state, geom, pre, cfg)
-    mark("helmholtz")
+    if cfg.ns.is_block_helmholtz_enabled:
+        vstar, hinfo = block_helmholtz.solve_block_helmholtz(state, geom, pre, cfg)
+        mark("block_helmholtz")
+    else:
+        vstar, hinfo = ns.solve_helmholtz(state, geom, pre, cfg)
+        mark("helmholtz")
     A, b = ns.poisson_system(state, geom, pre, cfg, vstar)
     fluid = state.is_fluid & state.valid
     A_f = A.zero_rows(~fluid).with_diag(torch.where(fluid, A.diag, torch.ones_like(A.diag)))
@@ -1141,7 +1167,10 @@ def _idle_share(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the step's named phases come back as device-side annotation ranges
+    # that span their kernels: left out, as torch's own table leaves them
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     busy = sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
                for e in events) / 1e6
     return wall, busy, sum(e.count for e in events)
@@ -1186,6 +1215,8 @@ def phase_edl_path(dev):
     wall, busy, nk = _idle_share(lambda: sim.run(state0, 1))
     _log(f"edl path: step 1 profiled {wall:.4f} s, device busy {busy:.4f} s over {nk} "
          f"kernels, idle share {1.0 - busy / wall:.3f}")
+    if not 0.0 < busy <= wall:
+        raise RuntimeError("the profiled device time is not within the step's wall time")
     del state, state0
     torch.cuda.empty_cache()
 
@@ -1237,6 +1268,285 @@ def phase_transport(dev):
     return launches
 
 
+TGV_FUNCS = {  # the TGV deck's analytic solution as the reference XML carries it
+    "u.x": "u.x =  umax*exp(-2.0*nu*t)*sin(pt.x)*cos(pt.y);",
+    "u.y": "u.y = -umax*exp(-2.0*nu*t)*cos(pt.x)*sin(pt.y);",
+    "p": "p   =  rho*umax*umax/4.0*exp(-4.0*nu*t)*(cos(2.0*pt.x)+cos(2.0*pt.y));",
+}
+
+
+WALLS_UMIN = 0.2
+
+
+def _rel(a, b):
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def _walls_block_no_walls(tgv_sim, tgv_state, fail):
+    """(a) The block solve on the wall-free TGV-256^2 state equals the
+    per-component solve, and its matvec runs through the take kernel."""
+    from isph_tpu_torch.ops import spmv_cuda as sc
+    from isph_tpu_torch.physics import block_helmholtz as bh
+    from isph_tpu_torch.physics import ns_projection as ns
+
+    cfg = tgv_sim.cfg
+    _, geom, pre = _geometry(tgv_sim, tgv_state)
+    st = tgv_state.replace(f=torch.zeros_like(tgv_state.v))
+    v_blk, info = bh.solve_block_helmholtz(st, geom, pre, cfg)
+    v_sc, _ = ns.solve_helmholtz(st, geom, pre, cfg)
+    rel = _rel(v_blk, v_sc)
+    A, b = bh.block_helmholtz_system(st, geom, pre, cfg)
+    sc.take.launches = 0
+    A.matvec(b.contiguous())
+    torch.cuda.synchronize()
+    takes = sc.take.launches
+    _log(f"walls (a): TGV-256^2 f32 (theta {cfg.ns.theta}) block solve {int(info.iters)} "
+         f"iterations, relres {float(info.relres):.3e}, against the per-component solve "
+         f"{rel:.3e} relative (bar 1e-5); take launches in one block matvec: {takes}")
+    if not (bool(info.converged) and rel <= 1e-5 and takes == 1):
+        fail("(a) the wall-free block Helmholtz is off the scalar solve, or its matvec did "
+             "not run the take kernel")
+
+
+def _block_f32_against_f64(sim, state):
+    """max |v*_f32 - v*_f64| / max |v*_f64| of the block Helmholtz solve on
+    ``state`` (f32) and on its copy cast to f64 (geometry recomputed in
+    f64), and a note with both solves' iterations and relres."""
+    from isph_tpu_torch.physics import block_helmholtz as bh
+
+    out = []
+    for dtype in (torch.float32, torch.float64):
+        st = dataclasses.replace(state, amg_cache=None, **{
+            f.name: getattr(state, f.name).to(dtype) for f in dataclasses.fields(state)
+            if isinstance(getattr(state, f.name), torch.Tensor)
+            and getattr(state, f.name).is_floating_point()})
+        st = st.replace(f=torch.zeros_like(st.v))
+        _, geom, pre = _geometry(sim, st)
+        out.append(bh.solve_block_helmholtz(st, geom, pre, sim.cfg))
+        del geom, pre
+    (v32, r32), (v64, r64) = out
+    note = (f"f32 {int(r32.iters)} iterations relres {float(r32.relres):.3e} converged "
+            f"{bool(r32.converged)}, f64 {int(r64.iters)} iterations relres "
+            f"{float(r64.relres):.3e} converged {bool(r64.converged)}")
+    return _rel(v32.double(), v64), note
+
+
+class _StepRecorder:
+    """Records every Simulation.step call made inside the block (the dt
+    each step used, its synchronized wall time, overflow, Helmholtz
+    iterations and relres, and the state it returned): run_adaptive keeps
+    its dt sequence and intermediate states to itself."""
+
+    def __enter__(self):
+        from isph_tpu_torch.models import driver
+
+        self.rows, self._cls = [], driver.Simulation
+        self._orig = orig = driver.Simulation.step
+        rows = self.rows
+
+        def step(sim, state):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(sim, state)
+            torch.cuda.synchronize()
+            a = out[1]
+            rows.append(dict(dt=sim.cfg.dt, s=time.perf_counter() - t0,
+                             overflow=int(a.neighbor_overflow), h_iters=int(a.helmholtz_iters),
+                             h_relres=float(a.helmholtz_relres), p_iters=int(a.poisson_iters),
+                             state=out[0]))
+            return out
+
+        driver.Simulation.step = step
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.step = self._orig
+
+
+def _slip_channel(dev, **ns_kw):
+    sim, state = _channel(dev)
+    return dataclasses.replace(sim, cfg=sim.cfg.replace(
+        ns=dataclasses.replace(sim.cfg.ns, **ns_kw))), state
+
+
+def phase_walls(dev, tgv_sim, tgv_state, tgv_t):
+    """Phase 16, walls and entry points, on the ny = 1024 channel.  Every
+    check runs; the phase fails at its end naming each check that did not
+    hold."""
+    from isph_tpu_torch.config import BoundaryCond
+    from isph_tpu_torch.io import checkpoint, dump
+    from isph_tpu_torch.models import error, tgv
+    from isph_tpu_torch.ops import spmv_cuda as sc
+    from isph_tpu_torch.physics import diagnostics as diag
+
+    failures = []
+
+    def fail(msg):
+        _log(f"walls: FAILED {msg}")
+        failures.append(msg)
+
+    # (g) first, on phase 4's state: the generic analytic-error fix
+    fix = error.AnalyticErrorFix.from_function_list(
+        TGV_FUNCS, consts={"umax": 0.1, "nu": 0.1, "rho": 1.0})
+    out = fix.navier_stokes_error(tgv_state, tgv_t)
+    ref = tgv.compute_error(tgv_state.replace(vstar=tgv_state.v), tgv_t)
+    eu = abs(float(out["err.u.norm2"]) / float(ref.velocity_l2) - 1.0)
+    ep = abs(float(out["err.p.norm2"]) / float(ref.pressure_l2) - 1.0)
+    _log(f"walls (g): TGV-256^2 t={tgv_t:.6g} error fix velocity {float(out['err.u.norm2']):.6e} "
+         f"({eu:.2e} off compute_error), pressure {float(out['err.p.norm2']):.6e} ({ep:.2e}); "
+         "bar 1e-5")
+    if not (eu <= 1e-5 and ep <= 1e-5):
+        fail("(g) the analytic-error fix is off tgv.compute_error")
+
+    _walls_block_no_walls(tgv_sim, tgv_state, fail)
+    torch.cuda.empty_cache()
+
+    # (b) the Navier-slip channel, block Helmholtz, CFL timestep
+    sim, state = _slip_channel(dev, beta=0.01, is_block_helmholtz_enabled=True)
+    solid = state.is_solid & state.valid
+    fluid = state.is_fluid & state.valid
+    x0 = state.x[:, solid].clone()
+    dx = 1.0 / 1024
+    tol = max(sim.cfg.solver.tol, 30 * torch.finfo(state.dtype).eps)
+    _log(f"walls (b): channel N={state.n}, walls {sim.cfg.ns.boundary.value}, beta "
+         f"{sim.cfg.ns.beta}, block Helmholtz, shift {sim.cfg.shift.shift}, cfg dt "
+         f"{sim.cfg.dt:.6g}; run_adaptive cfl 0.25 dx {dx:.6g} umin {WALLS_UMIN}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in (sc.ell_spmv, sc.take):
+        w.launches = 0
+    t0 = time.perf_counter()
+    with _StepRecorder() as rec:
+        state3, aux, dt = sim.run_adaptive(state, 3, cfl=0.25, dx=dx, umin=WALLS_UMIN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in (sc.ell_spmv, sc.take)}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    for k, r in enumerate(rec.rows):
+        _log(f"walls (b): step {k + 1}: dt {r['dt']:.6g} (dt nu/dx^2 "
+             f"{r['dt'] * 0.1 / dx**2:.1f}) {r['s']:.4f} s block GMRES {r['h_iters']} "
+             f"iterations relres {r['h_relres']:.3e} (converged: {r['h_relres'] <= tol}, tol "
+             f"{tol:.3e}), poisson_iters {r['p_iters']}, overflow {r['overflow']}")
+    _log(f"walls (b): dt sequence {[r['dt'] for r in rec.rows]}, last {dt:.6g}; "
+         f"{wall:.4f} s for 3 steps; launches {launches} "
+         f"({ {k: v / 3 for k, v in launches.items()} } a step); peak memory {peak:.1f} MiB")
+    moved = float((state3.x[:, solid] - x0).abs().max())
+    ulps = 4 * torch.finfo(state.dtype).eps * float(x0.abs().max())
+    wall_v = float(state3.v[:, solid].abs().max())
+    vx = float(state3.v[0][fluid].mean())
+    finite = all(bool(torch.isfinite(t).all()) for t in (state3.x, state3.v, state3.p))
+    _log(f"walls (b): t={float(aux.status.time):.6g} mean fluid vx {vx:.6e}, vmax "
+         f"{float(aux.status.vmax):.6e}, wall displacement {moved:.3e} (bound {ulps:.3e}), "
+         f"wall speed {wall_v:.3e}")
+    if len(rec.rows) != 3 or any(r["overflow"] for r in rec.rows):
+        fail("(b) the Navier-slip channel overflowed its neighbor list")
+    if not finite or moved > ulps or wall_v != 0.0 or not vx > 0.0:
+        fail("(b) the Navier-slip channel is not finite, its walls moved or gained "
+             "velocity, or the flow does not run in +x")
+    if min(launches.values()) <= 0:
+        fail(f"(b) a kernel of the Navier-slip path never launched: {launches}")
+    state1, state2 = rec.rows[0]["state"], rec.rows[1]["state"]
+    dt2, dt3 = rec.rows[1]["dt"], rec.rows[2]["dt"]
+    sim3 = dataclasses.replace(sim, cfg=sim.cfg.replace(dt=dt3))
+    del rec
+    # the f32 block solve of step 2's system against the f64 solve of the
+    # same system: f32 GMRES may stop on its stagnation exit a little above
+    # 30 eps on this stiff a system, so the solution is held, not the flag
+    err, note = _block_f32_against_f64(
+        dataclasses.replace(sim, cfg=sim.cfg.replace(dt=dt2)), state1)
+    _log(f"walls (b): step 2's block system: {note}; f32 v* against f64 {err:.3e} "
+         "relative (bar 1e-4)")
+    if not err <= 1e-4:
+        fail("(b) the f32 block Helmholtz solution is off the f64 one")
+    _breakdown_amg("walls (b), step 3", sim3, state2)
+
+    # (d) checkpoint after step 2, restored into the step-1 state
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ck.npz")
+        t0 = time.perf_counter()
+        checkpoint.save_checkpoint(path, state2)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored = checkpoint.load_checkpoint(path, state1)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        size = os.path.getsize(path) / 2**20
+    saved = dict(checkpoint.tensor_items("state", state2))
+    back = dict(checkpoint.tensor_items("state", restored))
+    exact = saved.keys() == back.keys() and all(
+        saved[k].dtype == back[k].dtype and torch.equal(saved[k], back[k]) for k in saved)
+    ncache = sum(k.startswith("state/amg_cache/") for k in saved)
+    a, _ = sim3.run(state2, 1)
+    b, _ = sim3.run(restored, 1)
+    bits = all(torch.equal(getattr(a, f), getattr(b, f)) for f in ("x", "v", "p"))
+    rx, rv = _rel(b.x, a.x), _rel(b.v, a.v)
+    _log(f"walls (d): checkpoint {len(saved)} tensors ({ncache} of the AMG cache), "
+         f"{size:.1f} MiB, save {t_save:.3f} s, load {t_load:.3f} s, round trip bitwise: "
+         f"{exact}; one more step from saved and restored: x {rx:.3e}, v {rv:.3e} relative, "
+         f"bit-equal: {bits}")
+    if not exact or ncache == 0 or rx > 1e-6 or rv > 1e-6:
+        fail("(d) the checkpoint round trip or the resumed step is off")
+    del a, b, restored, state1, state2
+    torch.cuda.empty_cache()
+
+    # (e) one dump frame through the Python and the native writer (which
+    # raises when the native library cannot be built)
+    cols = ("id", "type", "x", "y", "vx", "vy", "pressure")
+    with tempfile.TemporaryDirectory() as tmp:
+        p_py, p_nat = os.path.join(tmp, "py.dump"), os.path.join(tmp, "native.dump")
+        t0 = time.perf_counter()
+        with open(p_py, "w") as f:
+            dump.write_dump(f, state3, sim.domain, 3, cols)
+        t_py = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dump.write_dump_native(p_nat, state3, sim.domain, 3, cols)
+        t_nat = time.perf_counter() - t0
+        fa, fb = dump.read_dump_frames(p_py)[0], dump.read_dump_frames(p_nat)[0]
+    same = (fa["columns"] == fb["columns"] and fa["timestep"] == fb["timestep"] == 3
+            and np.array_equal(fa["data"], fb["data"]))
+    _log(f"walls (e): one frame of {fa['data'].shape[0]} particles x {len(cols)} columns: "
+         f"Python writer {t_py:.3f} s, native writer {t_nat:.3f} s; values equal: {same}")
+    if not same or fa["data"].shape[0] != int(state3.valid.sum()):
+        fail("(e) the two dump writers disagree")
+
+    # (f) diagnostics on the channel after (b)
+    _, geom, pre = _geometry(sim, state3)
+    trac = diag.traction_vector(state3, geom, pre, sim.cfg)
+    lower = solid & (state3.x[1] < 0)
+    drag, lift = diag.drag_lift(state3, geom, pre, sim.cfg, lower)
+    div = diag.velocity_divergence(state3, geom, pre, sim.cfg)[fluid].abs().max()
+    curl = diag.velocity_curl(state3, geom, pre, sim.cfg)
+    const = torch.full((state3.n,), 2.5, dtype=state3.dtype, device=dev)
+    smooth = _rel(diag.smooth_field(state3, geom, pre, const), const)
+    _log(f"walls (f): traction on {int(solid.sum())} wall rows finite: "
+         f"{bool(torch.isfinite(trac[:, solid]).all())}; lower wall drag {float(drag):.6e} "
+         f"lift {float(lift):.6e} (the fluid's drag on the wall runs with the flow, the wall's "
+         f"friction against it); max |div v| on fluid rows {float(div):.6e}; curl finite "
+         f"{bool(torch.isfinite(curl).all())}; smooth_field of a constant {smooth:.2e} "
+         "(bar 1e-6)")
+    if not (bool(torch.isfinite(trac[:, solid]).all()) and float(drag) * vx > 0
+            and bool(torch.isfinite(curl).all()) and smooth <= 1e-6):
+        fail("(f) a wall diagnostic is off")
+    del state3, state, geom, pre
+    torch.cuda.empty_cache()
+
+    # (c) the scalar Navier-slip rows: friction lowers the kinetic energy
+    kes = {}
+    for beta in (0.0, 5.0):
+        sim_c, st = _slip_channel(dev, boundary=BoundaryCond.NAVIER_SLIP, beta=beta)
+        st, aux_c = sim_c.run(st, 1)
+        fl = st.is_fluid & st.valid
+        kes[beta] = float((st.v[:, fl].double() ** 2).sum())
+        _log(f"walls (c): scalar Navier-slip beta {beta}: helmholtz_iters "
+             f"{int(aux_c.helmholtz_iters)} relres {float(aux_c.helmholtz_relres):.3e}, "
+             f"kinetic energy sum {kes[beta]:.9e}")
+    if not kes[5.0] < kes[0.0]:
+        fail("(c) wall friction did not lower the kinetic energy")
+    if failures:
+        raise RuntimeError(f"phase 16: {len(failures)} checks failed: {failures}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a "
@@ -1273,7 +1583,7 @@ def main() -> int:
     del flush
 
     # phase 4: main path; phase 5: golden
-    launches = phase_main_path(dev)
+    launches, tgv_sim, tgv_state, tgv_t = phase_main_path(dev)
     phase_golden(dev)
 
     # phase 6: band kernels at 1M; phase 7: the large-N path
@@ -1310,6 +1620,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches_transport = phase_transport(dev)
 
+    # phase 16: walls and entry points
+    torch.cuda.empty_cache()
+    launches_walls = phase_walls(dev, tgv_sim, tgv_state, tgv_t)
+
     def row(name, source, replaces, launched, err, t):
         return dict(name=name, route="cuda", source=f"isph_tpu_torch/csrc/{source}",
                     replaces=f"isph_tpu/ops/spmv_pallas.py:{replaces}", launches=launched,
@@ -1321,13 +1635,14 @@ def main() -> int:
         return {key: t[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
 
     def beyond(name):
-        """The launches on phases 9, 11, 14 and 15, the f32 (N,) rows of
+        """The launches on phases 9, 11, 14, 15 and 16, the f32 (N,) rows of
         phases 8 (64^3) and 10 (the channel's Poisson matrix) and the f64
         (N,) row of phase 12 (the PB Jacobian)."""
         kname = "spmv" if name == "ell_spmv" else name
         return dict(launches_3d=launches_3d[name], launches_channel=launches_channel[name],
                     launches_edl=launches_edl[name],
                     launches_transport=launches_transport[name],
+                    launches_walls=launches_walls[name],
                     at_64cubed=times(k3["rows"][64][kname]), at_channel=times(kc[kname]),
                     at_edl=times(ke[kname]))
 

@@ -417,6 +417,62 @@ def make_square_concentration_mov(
     return Simulation(cfg=cfg, domain=domain), state
 
 
+def make_square_concentration_dump(
+    dump_path: Optional[str] = None,
+    *,
+    frame: int = -1,
+    n: int = 36,
+    d0: float = 0.05,
+    rpatch: float = 0.3,
+    presteps: int = 10,
+    dtype: torch.dtype = torch.float64,
+    device: torch.device | str = "cuda",
+    pad_multiple: int = 8,
+) -> Tuple[Simulation, ParticleState]:
+    """Diffusion on a disordered configuration restarted from a dump
+    (square-concentration-dump-2d.lmp: ``read_dump ...-mov-2d.dump 360``,
+    then transport with NS disabled and the fluid fixed).  With
+    ``dump_path`` the positions load from that frame (read_dump parity
+    through ``io.dump.read_dump_frames``); without it the mov deck is
+    advanced ``presteps`` steps to make the disordered cloud."""
+    require_device("make_square_concentration_dump", device)
+    r, dx = 0.5, 0.5 / n
+    if dump_path is not None:
+        from isph_tpu_torch.io.dump import read_dump_frames
+
+        fr = read_dump_frames(dump_path)[frame]
+        cols = {c: i for i, c in enumerate(fr["columns"])}
+        pts = fr["data"][:, [cols["x"], cols["y"]]]
+        n_real = pts.shape[0]
+        state = make_state(
+            pts, kind=np.full(n_real, Kind.FLUID_BIT, np.int32), rho=1.0, nu=0.1,
+            pad_to=_round_up(n_real, pad_multiple), dtype=dtype, device=device,
+        )
+        in_patch = np.all(np.abs(pts) < rpatch, axis=1)
+        conc = np.pad(np.where(in_patch, 1.0, 0.0), (0, state.n - n_real))
+        state = state.replace(conc=torch.as_tensor(conc, dtype=dtype, device=device)[None, :])
+    else:
+        sim0, state = make_square_concentration_mov(
+            n, d0=d0, rpatch=rpatch, dtype=dtype, device=device, pad_multiple=pad_multiple)
+        state, _ = sim0.run(state, presteps)
+    h = 1.5 * dx
+    cut = 2.0 * h
+    cfg = SimulationConfig(
+        dim=2, h=h, dt=0.2 * dx * dx / d0, dtype=_dtype_name(dtype),
+        kernel=KernelConfig(type=KernelType.WENDLAND, cut_over_h=2.0),
+        ns=NavierStokesConfig(enabled=False),  # fluid:fixed + NS Disabled
+        tr=SoluteTransportConfig(enabled=True, theta=0.5, d=(d0, None, None, None)),
+        neighbor=_neighbor_cfg(dx, cut, 2),
+    )
+    # freeze the particles (xml "Use Fixed Particles"): transport only
+    state = state.replace(
+        kind=torch.where(state.valid, state.kind | Kind.FIXED, state.kind).to(torch.int32),
+        v=torch.zeros_like(state.v),
+    )
+    domain = Domain(lo=(-r, -r), hi=(r, r), periodic=(True, True))
+    return Simulation(cfg=cfg, domain=domain), state
+
+
 # ---------------------------------------------------------------------------
 # registry (reference deck name -> builder)
 # ---------------------------------------------------------------------------
@@ -456,6 +512,7 @@ DECKS: Dict[str, Callable] = {
     "inlet-concentration-2d": make_inlet_concentration,
     "square-concentration-fix-2d": make_square_concentration,
     "square-concentration-mov-2d": make_square_concentration_mov,
+    "square-concentration-dump-2d": make_square_concentration_dump,
 }
 
 # decks of the JAX registry that the port does not build yet, each with the
@@ -481,12 +538,11 @@ WAITING: Dict[str, str] = {
     "square-droplet-2d": _MULTIPHASE,
     "square-droplet-3d": _MULTIPHASE,
     "droplet-in-cylinder-2d": _MULTIPHASE,
-    "liquid-drop-on-solid-2d": _MULTIPHASE + " and Navier-slip walls",
+    "liquid-drop-on-solid-2d": _MULTIPHASE,
     "multiphase-pore-scale-flow-2d": _MULTIPHASE,
     "multiphase-pore-scale-flow-3d": _MULTIPHASE,
     "multiphase-pore-scale-flow-a-3d": _MULTIPHASE,
     "multiphase-pore-scale-flow-b-3d": _MULTIPHASE,
-    "square-concentration-dump-2d": "io/dump.py",
     "isph-micelle": "physics/bonds.py",
     "flow-past-cylinder-2d-mls": _MLS,
     "poisson-operator-2d": _MLS,

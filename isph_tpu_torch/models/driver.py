@@ -2,14 +2,17 @@
 corrected backend).
 
 A step is a function ``state -> (state, aux)`` run eagerly; the neighbor
-rebuild happens inside every step.  Features of the JAX driver that are not
-ported raise ``NotImplementedError`` naming the feature rather than being
-skipped.
+rebuild happens inside every step.  The host loops :meth:`Simulation.run`,
+:meth:`Simulation.run_until` (a quit condition) and
+:meth:`Simulation.run_adaptive` (a CFL timestep) share one overflow policy.
+Features of the JAX driver that are not ported raise ``NotImplementedError``
+naming the feature rather than being skipped.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -26,6 +29,7 @@ from isph_tpu_torch.ops.neighbors import (
 )
 from isph_tpu_torch.physics import electrokinetics, ns_projection, shift as shift_mod, transport
 from isph_tpu_torch.physics.status import Status, compute_status
+from isph_tpu_torch.utils.profiling import named_scope
 
 
 class StepAux(NamedTuple):
@@ -45,7 +49,6 @@ def unported_features(cfg: SimulationConfig) -> list[str]:
         (cfg.backend == "mls_ale", "mls_ale backend"),
         (cfg.rs.enabled, "rs (random stress)"),
         (cfg.st.enabled, "st (surface tension)"),
-        (cfg.ns.is_block_helmholtz_enabled, "block Helmholtz"),
         (cfg.solver.recycle_k > 0, "recycle_k (recycling GMRES)"),
         (cfg.solver.precond == "ilu", "ILU preconditioner"),
     ]
@@ -111,51 +114,63 @@ class Simulation:
         not read, as in the JAX step."""
         cfg = self.cfg
         self.prepare(state)
+        dev = state.device
 
         if self.modifier is not None:
-            t_now = (state.step.to(state.dtype) if state.step is not None
-                     else torch.zeros((), dtype=state.dtype, device=state.device)) * cfg.dt
-            state = self.modifier(state, t_now)
+            with named_scope("modifier", dev):
+                t_now = (state.step.to(state.dtype) if state.step is not None
+                         else torch.zeros((), dtype=state.dtype, device=dev)) * cfg.dt
+                state = self.modifier(state, t_now)
 
-        nbrs = self.neighbors(state)
-        geom = self.geometry(state, nbrs)
-        pre = self.precompute(state, geom)
+        with named_scope("neighbors", dev):
+            nbrs = self.neighbors(state)
+        with named_scope("geometry", dev):
+            geom = self.geometry(state, nbrs)
+        with named_scope("compute_pre", dev):
+            pre = self.precompute(state, geom)
 
         # clear the per-step force accumulator (LAMMPS force_clear)
         state = state.replace(f=torch.zeros_like(state.v))
 
         if self.extra_force is not None:
-            state = state.replace(f=self.extra_force(state, self.domain))
+            with named_scope("extra_force", dev):
+                state = state.replace(f=self.extra_force(state, self.domain))
 
         if cfg.ae.enabled:
-            phi, phigrad = electrokinetics.solve_applied_electric_potential(
-                state, geom, pre, cfg)
+            with named_scope("applied_efield", dev):
+                phi, phigrad = electrokinetics.solve_applied_electric_potential(
+                    state, geom, pre, cfg)
             state = state.replace(phi=phi, phigrad=phigrad)
 
         if cfg.pb.enabled:
-            psi, psigrad, _ = electrokinetics.solve_poisson_boltzmann(state, geom, pre, cfg)
-            state = state.replace(psi=psi, psigrad=psigrad)
-            f = electrokinetics.electrostatic_force(
-                state, cfg, psigrad, phigrad=state.phigrad if cfg.ae.enabled else None)
+            with named_scope("poisson_boltzmann", dev):
+                psi, psigrad, _ = electrokinetics.solve_poisson_boltzmann(state, geom, pre, cfg)
+                state = state.replace(psi=psi, psigrad=psigrad)
+                f = electrokinetics.electrostatic_force(
+                    state, cfg, psigrad, phigrad=state.phigrad if cfg.ae.enabled else None)
             state = state.replace(f=f)
 
         if cfg.tr.enabled and state.conc is not None:
-            conc, _ = transport.solute_transport_step(state, geom, pre, cfg)
+            with named_scope("transport", dev):
+                conc, _ = transport.solute_transport_step(state, geom, pre, cfg)
             state = state.replace(conc=conc)
 
+        # phases "helmholtz", "poisson" and "correct" are scoped inside
         state, info = ns_projection.navier_stokes_step(
             state, geom, pre, cfg, domain=self.domain)
-        state = ns_projection.advance_time(state, geom, pre, cfg, self.domain)
+        with named_scope("advance", dev):
+            state = ns_projection.advance_time(state, geom, pre, cfg, self.domain)
 
         overflow = nbrs.overflow
         if cfg.shift.enabled:
             # re-neighbor at the moved positions, recompute geometry, shift
             # (FixISPH_Shift::final_integrate -> refreshParticles + computePre)
-            nbrs2 = self.neighbors(state)
-            geom2 = self.geometry(state, nbrs2)
-            pre2 = self.precompute(state, geom2)
-            dr = shift_mod.compute_shift_vectors(state, geom2, cfg)
-            state = shift_mod.apply_shift(state, geom2, pre2, cfg, dr, self.domain)
+            with named_scope("shift", dev):
+                nbrs2 = self.neighbors(state)
+                geom2 = self.geometry(state, nbrs2)
+                pre2 = self.precompute(state, geom2)
+                dr = shift_mod.compute_shift_vectors(state, geom2, cfg)
+                state = shift_mod.apply_shift(state, geom2, pre2, cfg, dr, self.domain)
             overflow = overflow + nbrs2.overflow
 
         if state.step is not None:
@@ -187,31 +202,70 @@ class Simulation:
             stream_window=nb.stream_window * 2)
         return dataclasses.replace(self, cfg=self.cfg.replace(neighbor=grown))
 
-    def run(self, state: ParticleState, nsteps: int) -> Tuple[ParticleState, StepAux]:
-        """Host loop (keeps the aux of the last step).
+    def _step_regrown(self, state: ParticleState, done: int
+                      ) -> Tuple["Simulation", ParticleState, StepAux]:
+        """The overflow policy of every host loop: a step that reports
+        ``neighbor_overflow`` is discarded and retried with grown neighbor
+        shapes, so pairs are never silently dropped; an overflow that
+        persists through four growths raises.  Returns the simulation that
+        took the step (grown or not), the new state and its aux."""
+        sim = self
+        for growths in range(5):
+            if growths:
+                sim = sim.with_larger_neighbors()
+            new_state, aux = sim.step(state)
+            if int(aux.neighbor_overflow) == 0:
+                return sim, new_state, aux
+        raise RuntimeError(
+            f"step {done}: neighbor/band overflow persists after {growths} shape "
+            "growths; re-sort the particle order or raise neighbor.stream_window "
+            f"(now {sim.cfg.neighbor.stream_window})")
 
-        Overflow policy: a step that reports ``neighbor_overflow`` is
-        discarded and retried with grown neighbor shapes — pairs are never
-        silently dropped; an overflow that persists through four growths
-        raises."""
+    def run(self, state: ParticleState, nsteps: int) -> Tuple[ParticleState, StepAux]:
+        """Host loop (keeps the aux of the last step), under the overflow
+        policy of :meth:`_step_regrown`."""
+        sim = self
+        state = sim.prepare(state)
+        aux = None
+        for done in range(nsteps):
+            sim, state, aux = sim._step_regrown(state, done)
+        return state, aux
+
+    def run_until(self, state: ParticleState, nsteps: int, quit_fn
+                  ) -> Tuple[ParticleState, Optional[StepAux], int]:
+        """At most ``nsteps`` steps, stopping after the first step for which
+        ``quit_fn(state, aux) -> bool`` (a host predicate on the step's
+        diagnostics) holds: the FixISPH_Quit condition stop
+        (fix_isph_quit.cpp).  Same overflow policy as :meth:`run`.  Returns
+        (state, last aux, steps done)."""
         sim = self
         state = sim.prepare(state)
         aux = None
         done = 0
-        retries = 0
         while done < nsteps:
-            new_state, aux = sim.step(state)
-            if int(aux.neighbor_overflow) > 0:
-                retries += 1
-                if retries > 4:
-                    raise RuntimeError(
-                        f"step {done}: neighbor/band overflow persists after "
-                        f"{retries - 1} shape growths; re-sort the particle order "
-                        "or raise neighbor.stream_window "
-                        f"(now {sim.cfg.neighbor.stream_window})")
-                sim = sim.with_larger_neighbors()
-                continue  # retry the same step with room for every pair
-            state = new_state
+            sim, state, aux = sim._step_regrown(state, done)
             done += 1
-            retries = 0
-        return state, aux
+            if bool(quit_fn(state, aux)):
+                break
+        return state, aux, done
+
+    def run_adaptive(self, state: ParticleState, nsteps: int, *, cfl: float, dx: float,
+                     umin: float = 1e-8, quantize: float = 1.25
+                     ) -> Tuple[ParticleState, Optional[StepAux], float]:
+        """CFL timestep (FixISPH var-dt, fix_isph.cpp:144-152:
+        dt = cfl dx / max(vmax, umin)), each step's dt rounded to the nearest
+        power of ``quantize``, the first from ``cfg.dt``.  The JAX package
+        quantizes to bound its recompiles; the port keeps the same rule so
+        that both take the same dt sequence.  Same overflow policy as
+        :meth:`run` (a grown neighbor shape carries on to the later steps).
+        Returns (state, last aux, last dt)."""
+        sim = self
+        dt = self.cfg.dt
+        aux = None
+        qdt = dt
+        for done in range(nsteps):
+            qdt = quantize ** round(math.log(max(dt, 1e-300), quantize))
+            sim = dataclasses.replace(sim, cfg=sim.cfg.replace(dt=qdt))
+            sim, state, aux = sim._step_regrown(state, done)
+            dt = cfl * dx / max(float(aux.status.vmax), umin)
+        return state, aux, qdt

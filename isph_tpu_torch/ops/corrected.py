@@ -334,6 +334,45 @@ def divergence(
     return out
 
 
+def curl(
+    geom: PairGeom,
+    vfrac: torch.Tensor,
+    Gc: torch.Tensor,
+    f: torch.Tensor,
+    *,
+    family: Family = SYMMETRIC,
+    coeff: Optional[torch.Tensor] = None,
+    row_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Corrected curl (functor_curl.h): 3-D -> (3, N); 2-D -> the scalar
+    vorticity (N,) = d v_y/dx - d v_x/dy."""
+    g = gradient(geom, vfrac, Gc, f, family=family, coeff=coeff, row_mask=row_mask)
+    # g[a, k] = d f_a / d x_k
+    if geom.dim == 3:
+        return torch.stack([g[2, 1] - g[1, 2], g[0, 2] - g[2, 0], g[1, 0] - g[0, 1]])
+    return g[1, 0] - g[0, 1]
+
+
+def curlcurl(
+    geom: PairGeom,
+    vfrac: torch.Tensor,
+    Gc: torch.Tensor,
+    f: torch.Tensor,
+    *,
+    family: Family = SYMMETRIC,
+    row_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Corrected curl of the curl (functor_curlcurl.h:18-121), (D, N): the
+    inner curl is taken on every row, the outer one takes the row filter.
+    In 2-D the outer curl of the scalar vorticity w, read as (0, 0, w), is
+    the rotated gradient (dw/dy, -dw/dx)."""
+    w = curl(geom, vfrac, Gc, f, family=family)  # all rows
+    if geom.dim == 3:
+        return curl(geom, vfrac, Gc, w, family=family, row_mask=row_mask)
+    gw = gradient(geom, vfrac, Gc, w[None, :], family=family, row_mask=row_mask)
+    return torch.stack([gw[0, 1], -gw[0, 0]])
+
+
 def boundary_coordinate(geom: PairGeom, x: torch.Tensor, normal: torch.Tensor,
                         kind: torch.Tensor) -> torch.Tensor:
     """Normal coordinate of the fluid/solid interface per particle

@@ -85,3 +85,27 @@ class ELL:
         rows = torch.arange(n, device=self.vals.device)[None, :].expand(k, n)
         a.index_put_((rows, self.idx.long()), self.vals * self.mask, accumulate=True)
         return a + torch.diag(self.diag)
+
+
+@dataclasses.dataclass
+class BlockELL:
+    """dim x dim block ELL (reference A_blk, pair_isph.h:394-399): the
+    densified form of ``physics.block_helmholtz.FactoredBlockELL``, built
+    only to check it (tests)."""
+
+    diag: torch.Tensor  # (B, B, N)
+    vals: torch.Tensor  # (B, B, K, N)
+    idx: torch.Tensor  # (K, N) int32
+    mask: torch.Tensor  # (K, N) float 0/1
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (B, N) -> (B, N)."""
+        b = self.diag.shape[0]
+        xj = x[:, self.idx.long()]  # (B, K, N)
+        vm = self.vals * self.mask[None, None]
+        rows = []
+        for a in range(b):
+            acc = sum(self.diag[a, c] * x[c] for c in range(b))
+            acc = acc + sum((vm[a, c] * xj[c]).sum(dim=0) for c in range(b))
+            rows.append(acc)
+        return torch.stack(rows)

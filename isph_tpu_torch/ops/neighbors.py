@@ -394,3 +394,41 @@ def compute_pair_geometry(
     w_self = kernel.w(torch.zeros((), dtype=dtype, device=x.device), h, dim)
     return PairGeom(idx=nbrs.idx, mask=maskf, rij=rij, r=r, eij=eij, w=w,
                     dwdr=dwdr, w_self=w_self, band=nbrs.band, slots=nbrs.slots)
+
+
+def spatial_sort_order(x: torch.Tensor, valid: torch.Tensor, domain: Domain,
+                       cutoff: float) -> torch.Tensor:
+    """Permutation ordering particles by cell id, invalid slots last (the
+    analogue of LAMMPS ``atom->sort``): cell-ordered particles give the
+    gathers spatial locality.  The sort is stable, as ``jnp.argsort`` is, so
+    particles of one cell keep their order and the permutation equals the
+    JAX package's.  Apply it with :func:`reorder_by`; external index lists
+    must be remapped with the inverse permutation."""
+    dim, n = x.shape
+    ncell, csize = _cell_grid(domain, cutoff)
+    xw = domain.wrap(x)
+    strides = [1] * dim
+    for d in range(dim - 2, -1, -1):
+        strides[d] = strides[d + 1] * ncell[d + 1]
+    cid = torch.zeros((n,), dtype=torch.int32, device=x.device)
+    for d in range(dim):
+        cd = torch.clamp(torch.floor((xw[d] - domain.lo[d]) / csize[d]).to(torch.int32),
+                         0, ncell[d] - 1)
+        cid = cid + cd * strides[d]
+    cid = torch.where(valid, cid, torch.iinfo(torch.int32).max)
+    return torch.argsort(cid, stable=True)
+
+
+def reorder_by(perm: torch.Tensor, state):
+    """Permute a particle-minor tensor, or every particle-minor tensor of a
+    :class:`ParticleState`, along its last axis (0-d tensors untouched).
+    A state's ``amg_cache`` is left behind: its hierarchy belongs to the old
+    order, and the state builds a new one at its first solve."""
+    def leaf(a):
+        return a if a is None or a.ndim == 0 else a[..., perm]
+
+    if isinstance(state, torch.Tensor):
+        return leaf(state)
+    kw = {f.name: leaf(getattr(state, f.name)) for f in dataclasses.fields(state)
+          if f.name != "amg_cache"}
+    return dataclasses.replace(state, amg_cache=None, **kw)

@@ -1,6 +1,6 @@
 """Incompressible Navier-Stokes, projection (pressure-correction) scheme
 (PyTorch port of ``isph_tpu/physics/ns_projection.py`` for the corrected
-backend without Navier-slip rows, block Helmholtz or recycling).
+backend, without recycling).
 
 One timestep (reference PairISPH::computeIncompressibleNavierStokes,
 pair_isph.cpp:910-1034):
@@ -30,6 +30,7 @@ from isph_tpu_torch.ops.neighbors import PairGeom
 from isph_tpu_torch.solvers.amg import AMGCache, amg_from_cache, build_amg, cache_of
 from isph_tpu_torch.solvers.krylov import KrylovResult, cg, gmres
 from isph_tpu_torch.solvers.precond import jacobi
+from isph_tpu_torch.utils.profiling import named_scope
 
 
 def family_of(cfg: SimulationConfig) -> Family:
@@ -115,8 +116,6 @@ def helmholtz_system(
     (functor_incomp_navier_stokes_helmholtz.h:52-159): (A, b) with A the
     (I - theta dt nu L) operator on fluid rows / unit rows on solid, and b
     the (D, N) right-hand side."""
-    if cfg.ns.boundary == BoundaryCond.NAVIER_SLIP and cfg.ns.beta != 0.0:
-        raise NotImplementedError("Navier-slip wall rows not yet ported")
     fam = family_of(cfg)
     dt, theta = cfg.dt, cfg.ns.theta
     dtype = state.dtype
@@ -152,6 +151,18 @@ def helmholtz_system(
     solid = state.is_solid
     diag = torch.where(solid, torch.ones_like(A.diag), 1.0 + A.diag)
     A = A.with_diag(diag).zero_rows(solid)
+
+    # Navier-slip Robin rows in the scalar path: added to the final A after
+    # scaling, as FunctorBoundaryNavierSlip modifies A.crs after assembly
+    # (pair_isph_corrected.cpp:917-923, functor_boundary_navier_slip.h:
+    # 135-190); every velocity component's system gets the same row.  The
+    # block path projects these terms onto wall-normal coupling blocks
+    # instead (physics/block_helmholtz.py).
+    if cfg.ns.boundary == BoundaryCond.NAVIER_SLIP and cfg.ns.beta != 0.0:
+        from isph_tpu_torch.physics.block_helmholtz import navier_slip_terms
+
+        sdiag, svals = navier_slip_terms(state, geom, pre, cfg.ns.beta, add_neumann=True)
+        A = ELL(A.diag + sdiag, A.vals + svals, A.idx, A.mask, A.band, A.slots)
     return A, b
 
 
@@ -412,20 +423,27 @@ def navier_stokes_step(
     """computeIncompressibleNavierStokes (pair_isph.cpp:910-1034): returns the
     state with updated (vstar, dp, p); positions unchanged (advance_time is a
     separate call)."""
-    if cfg.ns.is_block_helmholtz_enabled:
-        raise NotImplementedError("block Helmholtz not yet ported")
     if cfg.solver.recycle_k > 0:
         raise NotImplementedError("recycle_k (GCRO-DR recycling GMRES) not yet ported")
-    vstar, hinfo = solve_helmholtz(state, geom, pre, cfg)
-    dp, pinfo, cache = solve_poisson(
-        state, geom, pre, cfg, vstar, domain=domain,
-        amg_cache=state.amg_cache, amg_rebuild=amg_rebuild_due(state, cfg))
+    dev = state.device
+    with named_scope("helmholtz", dev):
+        if cfg.ns.is_block_helmholtz_enabled:
+            from isph_tpu_torch.physics.block_helmholtz import solve_block_helmholtz
+
+            vstar, hinfo = solve_block_helmholtz(state, geom, pre, cfg)
+        else:
+            vstar, hinfo = solve_helmholtz(state, geom, pre, cfg)
+    with named_scope("poisson", dev):
+        dp, pinfo, cache = solve_poisson(
+            state, geom, pre, cfg, vstar, domain=domain,
+            amg_cache=state.amg_cache, amg_rebuild=amg_rebuild_due(state, cfg))
     if cache is not None:
         state = state.replace(amg_cache=cache)
-    if cfg.ns.use_incremental_pressure:
-        dp = zero_mean_pressure(dp, state)
-    vstar = correct_velocity(state, geom, pre, cfg, vstar, dp)
-    p = correct_pressure(state, cfg, dp)
-    p = torch.where(state.is_solid, 0.0, p)
+    with named_scope("correct", dev):
+        if cfg.ns.use_incremental_pressure:
+            dp = zero_mean_pressure(dp, state)
+        vstar = correct_velocity(state, geom, pre, cfg, vstar, dp)
+        p = correct_pressure(state, cfg, dp)
+        p = torch.where(state.is_solid, 0.0, p)
     state = state.replace(vstar=vstar, dp=dp, p=p)
     return state, SolveInfo(helmholtz=hinfo, poisson=pinfo)

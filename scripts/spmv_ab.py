@@ -103,7 +103,10 @@ def profile_kernels(tag, fn, top=5) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # named phases (utils/profiling.py) come back as device-side annotation
+    # ranges that span their kernels: left out, as torch's own table does
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
 
     def device_us(e):
         return getattr(e, "self_device_time_total", None) or e.self_cuda_time_total

@@ -19,7 +19,6 @@ import torch
 from isph_tpu.models import tgv as jtgv
 
 from isph_tpu_torch import interop
-from isph_tpu_torch.config import BoundaryCond
 from isph_tpu_torch.models import tgv
 from isph_tpu_torch.models.driver import Simulation
 from isph_tpu_torch.physics import ns_projection as ns
@@ -162,10 +161,9 @@ _ON = dict(enabled=True)
 
 
 @pytest.mark.parametrize("feature, cfg_kw", [
-    ("Navier-slip", dict(ns=dict(boundary=BoundaryCond.NAVIER_SLIP, beta=5.0))),
+    ("pipelined_cg", dict(solver=dict(method="pipelined_cg"))),
     ("ILU", dict(solver=dict(precond="ilu"))),
     ("recycle_k", dict(solver=dict(precond="jacobi", recycle_k=4))),
-    ("block Helmholtz", dict(ns=dict(is_block_helmholtz_enabled=True))),
     ("mls_ale", dict(backend="mls_ale")),
     ("rs", dict(rs=_ON)),
     ("st", dict(st=_ON)),

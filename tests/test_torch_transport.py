@@ -41,8 +41,10 @@ F64 = torch.float64
 
 
 def _fields(js):
-    return {f.name: np.asarray(getattr(js, f.name))
-            for f in dataclasses.fields(js) if getattr(js, f.name) is not None}
+    """A JAX state's fields as numpy, without the AMG cache, which
+    ``interop.state_from_numpy`` leaves behind."""
+    return {f.name: np.asarray(getattr(js, f.name)) for f in dataclasses.fields(js)
+            if getattr(js, f.name) is not None and f.name != "amg_cache"}
 
 
 def _port(jsim, js, **sim_kw):
@@ -222,6 +224,11 @@ _DEFAULT_SIZE = {"poiseuille-flow-2d", "couette-flow-2d", "channel-moving-wall-2
 def _size(name):
     if name in _DEFAULT_SIZE:
         return {}
+    if name == "square-concentration-dump-2d":
+        # the registry's dump deck without its in-process presteps (a run
+        # agrees with JAX's to round-off, not bit for bit; the restart from
+        # a dump is tests/test_torch_io.py's)
+        return {"n": 8, "presteps": 0}
     return {"ny": 16} if name == "inlet-concentration-2d" else {"n": 8}
 
 
