@@ -118,13 +118,47 @@ Phases (each raises on failure; the script then exits non-zero):
    traction finite, the lower wall's drag along the flow, the largest
    fluid |div v|, a finite curl, smooth_field of a constant within 1e-6;
    (c) one step with the scalar Navier-slip rows at beta = 5 and 0:
-   friction lowers the kinetic energy.
+   friction lowers the kinetic energy;
+17. pore-scale kernels (run after phase 18, on its step-1 state): take on
+   the phase ids (int32 (N,)), the Shepard volumes (f64 (N,)) and the wall
+   normals (f64 (3, N)) over the neighbor list, and the SpMV in f64 C = 1
+   on the Poisson fluid block (N = 703,040, K = 88), against their plain
+   versions as in phase 3, timed beside their bounds, plain versions and
+   library calls;
+18. the flagship deck, multiphase-pore-scale-flow-b-3d at its own N = 96
+   (703,040 particles, K = 88, Quintic, f64: CSF surface tension with a
+   10-degree contact angle, phase injection and its ignore band,
+   MorrisHolmes walls on the carved cylinder and beads, shift 0.07,
+   default AMG).  As the deck stands, with the reference's antisymmetric
+   momentum-preserving pressure gradient, it diverges within three steps
+   in its SI parameters and in tests/test_decks.py's gentler regime (g 1,
+   rho 1, nu 2e-4, alpha 1e-4) alike, as the JAX package's does (on the
+   CPU at n = 32 at step 4): both are logged up to the divergence, a
+   record.  Then three steps in the SI parameters with the symmetric
+   corrected gradient (the JAX package's colloid-in-channel deck makes the
+   same change for the same growth) through Simulation.run; checks
+   overflow, finiteness, the Poisson cap, that walls and beads stay
+   put, that the injected phase grows from 0, that the CSF force and
+   curvature vanish in the ignore band where the color gradient does not,
+   and that csf_force on the card equals the same function on a CPU copy
+   of the step-1 state and geometry within 1e-12; one synchronized
+   breakdown with the surface tension apart, the idle share of a profiled
+   step, the peak memory;
+19. the other new paths: three f64 steps of square-droplet-2d at n = 256
+   (262,144 particles, K = 80, pairwise Tartakovsky-Meakin; the drop's
+   anisotropy stays within 1.5x its start); isph-micelle at its deck size
+   (bonds through extra_force: at the rest length nothing moves, at
+   0.8 dx the fluid does, and two runs agree bit for bit); the random
+   stress for one step on phase 4's state (the tensor symmetric and
+   traceless, the force linear in sqrt(kBT), the noise a function of
+   (seed, step) alone).
 
 The last lines are the card's name and power limit from nvidia-smi, one
 JSON line describing the kernels (time, launches on the main path, plain
 and library times and bound of each, at the f32 (N,) shape of its phase;
-ell_spmv and take also at 64^3, on the channel and on the PB Jacobian, with
-their launches on phases 9, 11, 14, 15 and 16),
+ell_spmv and take also at 64^3, on the channel, on the PB Jacobian and on
+the pore-scale deck, with their launches on phases 9, 11, 14-16, 18 and
+19),
 and the result line
 {"ok": true, "device": {...}}.  Without a CUDA device it prints no result
 and exits non-zero.
@@ -542,12 +576,12 @@ def phase_kernels(dev, flush):
     return dict(spmv_err=spmv_err, spmv=spmv[(torch.float32, 1)], take=take["f32 (N,)"])
 
 
-def _run_steps(tag, sim, state, wrappers, cap_check=True, nsteps=3):
+def _run_steps(tag, sim, state, wrappers, cap_check=True, nsteps=3, each=None):
     """``nsteps`` steps through Simulation.run, one call per step
     (run(state, nsteps) in timed pieces), the wrappers' launch counters set
     to 0 just before and read just after.  Fails on a neighbor overflow, a
     non-finite status and, with ``cap_check``, a Poisson solve at the
-    iteration cap."""
+    iteration cap.  ``each(k, state, aux)`` sees every step's result."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers:
@@ -567,6 +601,8 @@ def _run_steps(tag, sim, state, wrappers, cap_check=True, nsteps=3):
             raise RuntimeError(f"neighbor overflow on the {tag} path")
         if cap_check and int(aux.poisson_iters) >= sim.cfg.solver.max_iters:
             raise RuntimeError(f"Poisson GMRES reached the {sim.cfg.solver.max_iters} cap")
+        if each is not None:
+            each(k, state, aux)
     launches = {w.__name__: w.launches for w in wrappers}
     _log(f"{tag}: launches {launches}")
     step_med = statistics.median(step_s[1:])
@@ -1547,6 +1583,304 @@ def phase_walls(dev, tgv_sim, tgv_state, tgv_t):
     return launches
 
 
+# the flagship deck of phases 17-18: two-phase flow through a bead pack at the
+# deck's own size (multiphase-pore-scale-flow-b-3d.lmp: N = 96 across the
+# cylinder)
+PORE_DECK = "multiphase-pore-scale-flow-b-3d"
+PORE_N = 96
+
+
+def _pore3d(dev, **kw):
+    """multiphase-pore-scale-flow-b-3d at N = 96: 703,040 particles, K = 88
+    (Quintic, h = 0.8 dx, cut = 2.4 dx), f64, by default the deck's SI
+    parameters (rho 997.561, nu 8.9087e-7, g 9.8, alpha 0.026, theta 10
+    degrees, kappa_max 1e4, shift 0.07, MorrisHolmes walls on the carved
+    cylinder), its phase injection and ignore band; ``kw`` overrides
+    builder arguments."""
+    from isph_tpu_torch.models import decks
+
+    return decks.build_deck(PORE_DECK, n=PORE_N, device=dev, **kw)
+
+
+# tests/test_decks.py:380-381's gentler regime of the same deck (recorded)
+PORE_GENTLE = dict(g=1.0, rho=1.0, nu=2e-4, alpha=1e-4)
+
+
+def _pore3d_record(dev, nsteps=3, **kw):
+    """The deck as it stands (``kw`` builder overrides), stepped until a
+    step overflows (far-flung positions land in no cell) or leaves
+    non-finite fields: a record of where it diverges, not a check.  With
+    the reference's antisymmetric momentum-preserving pressure gradient
+    the projection amplifies a mode near the walls and beads about tenfold
+    a step, with or without surface tension and at any dt tried; the JAX
+    package's step does the same (on the CPU at n = 32 both diverge at
+    step 4 with the same velocities: scripts/pore_deck_variants.py and
+    scripts/pore_deck_jax.py)."""
+    sim, state = _pore3d(dev, **kw)
+    fluid = state.is_fluid & state.valid
+    for k in range(nsteps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, aux = sim.step(state)
+        torch.cuda.synchronize()
+        ovf = int(aux.neighbor_overflow)
+        finite = all(bool(torch.isfinite(t).all()) for t in (state.x, state.v, state.p))
+        vmax = float(state.v[:, fluid].abs().max()) if finite else float("nan")
+        _log(f"pore3d record {kw or 'SI'}: step {k + 1}: {time.perf_counter() - t0:.4f} s "
+             f"helmholtz_iters="
+             f"{int(aux.helmholtz_iters)} poisson_iters={int(aux.poisson_iters)} "
+             f"poisson_relres={float(aux.poisson_relres):.3e} overflow={ovf}, finite "
+             f"{finite}, max fluid |v| {vmax:.6e}")
+        if ovf or not finite:
+            _log(f"pore3d record {kw or 'SI'}: diverges at step {k + 1}")
+            return k + 1
+    return None
+
+
+def _to_cpu(obj):
+    """A dataclass (state, pair geometry, computePre) with every tensor on
+    the CPU; a geometry drops its slot format (the gathers do not read it)."""
+    kw = {f.name: getattr(obj, f.name).cpu() for f in dataclasses.fields(obj)
+          if isinstance(getattr(obj, f.name), torch.Tensor)}
+    if any(f.name == "slots" for f in dataclasses.fields(obj)):
+        kw["slots"] = None
+    if any(f.name == "amg_cache" for f in dataclasses.fields(obj)):
+        kw["amg_cache"] = None
+    return dataclasses.replace(obj, **kw)
+
+
+def _surface_tension_forcing(sim):
+    """The breakdown's surface-tension phase: the CSF force with its ignore
+    band, as Simulation.step runs it."""
+    from isph_tpu_torch.physics import multiphase as mp
+
+    def forcing(state, geom, pre, mark):
+        f, kappa, _ = mp.csf_force(state, geom, pre, sim.cfg,
+                                   ignore_mask=mp.ignore_phase_gradient_mask(state, sim.cfg))
+        mark("surface_tension")
+        return state.replace(f=f), f"; max |kappa| {float(kappa.abs().max()):.4e}"
+
+    return forcing
+
+
+def phase_pore3d(dev):
+    """Phase 18: the records of the deck as it stands, in its SI and in the
+    gentler regime, then three f64 steps of multiphase-pore-scale-flow-b-3d
+    at its deck size in the SI parameters with the symmetric corrected
+    gradient through Simulation.run; returns the launches and the step-1
+    (simulation, state) for phase 17."""
+    from isph_tpu_torch.ops import spmv_cuda as sc
+    from isph_tpu_torch.physics import multiphase as mp
+
+    _pore3d_record(dev)
+    torch.cuda.empty_cache()
+    _pore3d_record(dev, **PORE_GENTLE)
+    torch.cuda.empty_cache()
+    sim, state = _pore3d(dev)
+    sim = dataclasses.replace(sim, cfg=sim.cfg.replace(
+        ns=dataclasses.replace(sim.cfg.ns, use_momentum_preserve_operator=False)))
+    cfg = sim.cfg
+    solid = state.is_solid & state.valid
+    fluid = state.is_fluid & state.valid
+    x0 = state.x[:, solid].clone()
+    ns_, st_ = cfg.ns, cfg.st
+    _log(f"pore3d: {PORE_DECK} n={PORE_N} N={state.n} ({int(fluid.sum())} fluid, "
+         f"{int(solid.sum())} wall and bead), K={cfg.neighbor.max_neighbors}, kernel "
+         f"{cfg.kernel.type.value} h={cfg.h:.6g} cut={cfg.cut:.6g}, dt {cfg.dt:.6g}, "
+         f"{cfg.dtype}; rho {float(state.rho[0]):g}, nu {float(state.nu[0]):g}, g {ns_.g}, "
+         f"walls {ns_.boundary.value}, momentum-preserving gradient "
+         f"{ns_.use_momentum_preserve_operator}; CSF alpha {st_.alpha} theta {st_.theta} kappa_max "
+         f"{st_.kappa_max}, ignore band |y - {st_.ignore_point:g}| < "
+         f"{cfg.cut * st_.ignore_thres_over_cut:.6g}; shift {cfg.shift.shift}")
+    if cfg.neighbor.max_neighbors != 88 or state.dtype != torch.float64:
+        raise RuntimeError("the deck should give K = 88 slots in f64")
+    kept = {}
+    counts = []
+
+    def each(k, st, aux):
+        counts.append(int(((st.phase == 1) & st.is_fluid & st.valid).sum()))
+        if k == 0:
+            kept["state"] = st
+
+    state, aux, launches = _run_steps("pore3d", sim, state, (sc.ell_spmv, sc.take),
+                                      each=each)
+    if min(launches.values()) <= 0:
+        raise RuntimeError(f"a kernel of the pore-scale path never launched: {launches}")
+    moved = float((state.x[:, solid] - x0).abs().max())
+    ulps = 4 * torch.finfo(state.dtype).eps * float(x0.abs().max())
+    wall_v = float(state.v[:, solid].abs().max())
+    finite = all(bool(torch.isfinite(t).all()) for t in (state.x, state.v, state.p))
+    vy = float(state.v[1][fluid].mean())
+    _log(f"pore3d: t={float(aux.status.time):.6g} vmax {float(aux.status.vmax):.6e}, mean "
+         f"fluid vy {vy:.6e}; phase-1 fluid particles after each step {counts} (0 before); "
+         f"solid displacement {moved:.3e} (wrap round-off bound {ulps:.3e}), solid speed "
+         f"{wall_v:.3e}")
+    if not finite:
+        raise RuntimeError("non-finite x, v or p on the pore-scale path")
+    if moved > ulps or wall_v != 0.0:
+        raise RuntimeError("the walls or beads moved or gained velocity")
+    if not (counts[0] > 0 and counts == sorted(counts)):
+        raise RuntimeError(f"the injected phase did not grow from 0: {counts}")
+
+    # the ignore band and the card-against-CPU CSF cross-check, on step 1
+    st1 = kept["state"].replace(f=torch.zeros_like(kept["state"].v))
+    _, geom, pre = _geometry(sim, st1)
+    band = mp.ignore_phase_gradient_mask(st1, cfg)
+    grad = mp.phase_gradient(st1, geom, pre, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f, kappa, normal = mp.csf_force(st1, geom, pre, cfg, ignore_mask=band)
+    torch.cuda.synchronize()
+    t_csf = time.perf_counter() - t0
+    raw = float(grad[:, band].abs().max())
+    in_band = max(float(f[:, band].abs().max()), float(kappa[band].abs().max()))
+    _log(f"pore3d: ignore band holds {int(band.sum())} particles; the unmasked color "
+         f"gradient there reaches {raw:.4e}, the CSF force and curvature there "
+         f"{in_band:.1e}; outside, max |f| {float(f.abs().max()):.4e}; csf_force "
+         f"{1e3 * t_csf:.2f} ms on the card")
+    if not (raw > 0.0 and in_band == 0.0):
+        raise RuntimeError("the color gradient is not zeroed inside the ignore band")
+    torch.set_num_threads(os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    f_c, kappa_c, normal_c = mp.csf_force(_to_cpu(st1), _to_cpu(geom), _to_cpu(pre), cfg,
+                                          ignore_mask=band.cpu())
+    t_cpu = time.perf_counter() - t0
+    errs = [_rel(a.cpu(), b) for a, b in ((f, f_c), (kappa, kappa_c), (normal, normal_c))]
+    _log(f"pore3d: csf_force on the card against the CPU on the same step-1 state and "
+         f"geometry: f {errs[0]:.3e}, kappa {errs[1]:.3e}, normal {errs[2]:.3e} relative "
+         f"(bar 1e-12); CPU {t_cpu:.2f} s")
+    if not max(errs) <= 1e-12:
+        raise RuntimeError("csf_force on the card is off the CPU's by more than 1e-12")
+    del geom, pre, grad, f, kappa, normal, f_c, kappa_c, normal_c
+    torch.cuda.empty_cache()
+
+    _breakdown_amg("pore3d", sim, state, forcing=_surface_tension_forcing(sim))
+    wall, busy, nk = _idle_share(lambda: sim.run(state, 1))
+    _log(f"pore3d: step 4 profiled {wall:.4f} s, device busy {busy:.4f} s over {nk} "
+         f"kernels, idle share {1.0 - busy / wall:.3f}")
+    if not 0.0 < busy <= wall:
+        raise RuntimeError("the profiled device time is not within the step's wall time")
+    return launches, sim, kept["state"]
+
+
+PORE_TAKE_SHAPES = ("int32 (N,) phase", "f64 (N,) vfrac", "f64 (3,N) normal")
+
+
+def phase_pore3d_kernels(dev, flush, sim, state):
+    """Phase 17: take on the phase ids (int32), the Shepard volumes (f64) and
+    the wall normals (f64 (3, N)) over the step-1 state's neighbor list, and
+    ell_spmv (f64 C = 1) on its Poisson fluid block, against their plain
+    versions as phase 3 holds them."""
+    from isph_tpu_torch.ops import spmv_cuda as sc
+    from isph_tpu_torch.physics import ns_projection as ns
+
+    nbrs, geom, pre = _geometry(sim, state)
+    fields = dict(zip(PORE_TAKE_SHAPES, (state.phase, pre.vfrac, pre.normal.contiguous())))
+    take = _take_sweep("pore3d kernels: take", sc.take, nbrs.idx, fields, flush,
+                       main_shapes=PORE_TAKE_SHAPES)
+    A, _ = ns.poisson_system(state, geom, pre, sim.cfg, state.v)
+    fluid = state.is_fluid & state.valid
+    A_f = A.zero_rows(~fluid).with_diag(torch.where(fluid, A.diag, torch.ones_like(A.diag)))
+    del A, geom
+    K, n = A_f.vals.shape
+    nnz = int(A_f.mask.sum().item()) + n
+    live = int(A_f.slots.slot_end.to(torch.int64).sum())
+    _log(f"pore3d kernels: Poisson fluid block N={n} K={K} nnz={nnz} ({live} live slots, "
+         f"SpMV V={_spmv_rows_per_thread(n, 8)} in f64)")
+    rng = np.random.default_rng(6)
+    spmv, err = _sweep_ell("pore3d kernels: spmv", A_f, nnz, flush, rng,
+                           ((torch.float64, (1,)),))
+    return dict(spmv_err=err, spmv=spmv[(torch.float64, 1)], take=take["f64 (N,) vfrac"],
+                take_rows=take)
+
+
+def phase_droplet(dev):
+    """Phase 19a: three f64 steps of square-droplet-2d at n = 256 (262,144
+    particles, K = 80, pairwise Tartakovsky-Meakin, shift 0.08)."""
+    from isph_tpu_torch.models import decks
+    from isph_tpu_torch.ops import spmv_cuda as sc
+
+    sim, state = decks.build_deck("square-droplet-2d", n=256, device=dev)
+    a0 = float(decks.droplet_anisotropy(state))
+    _log(f"droplet: square-droplet-2d n=256 N={state.n} K={sim.cfg.neighbor.max_neighbors}, "
+         f"{sim.cfg.st.pairwise_model} s={sim.cfg.st.s}, dt {sim.cfg.dt:.6g}; anisotropy "
+         f"{a0:.6f}")
+    state, aux, launches = _run_steps("droplet", sim, state, (sc.ell_spmv, sc.take))
+    if min(launches.values()) <= 0:
+        raise RuntimeError(f"a kernel of the droplet path never launched: {launches}")
+    a = float(decks.droplet_anisotropy(state))
+    _log(f"droplet: anisotropy {a0:.6f} -> {a:.6f} (bar 1.5x), vmax "
+         f"{float(aux.status.vmax):.6e}")
+    if not (math.isfinite(a) and a <= 1.5 * a0):
+        raise RuntimeError("the droplet's anisotropy grew past 1.5x its start")
+    return launches
+
+
+def phase_micelle(dev):
+    """Phase 19b: isph-micelle at its deck size.  At the deck's rest length
+    (r0 = dx, the lattice spacing) the bonds pull nothing; with r0 = 0.8 dx
+    contract the chains and the fluid moves; the bond sum has no atomics,
+    so two runs agree bit for bit."""
+    from isph_tpu_torch.models import decks
+
+    vmaxes = {}
+    for r0f in (1.0, 0.8):
+        sim, state = decks.build_deck("isph-micelle", r0_factor=r0f, device=dev)
+        fb = sim.extra_force(state.replace(f=torch.zeros_like(state.v)), sim.domain)
+        out, aux = sim.run(state, 1)
+        again, _ = sim.run(state, 1)
+        bitwise = torch.equal(out.x, again.x) and torch.equal(out.v, again.v)
+        vmax = float(out.v.abs().max())
+        _log(f"micelle: N={state.n}, r0 = {r0f} dx: max |bond force| {float(fb.abs().max()):.4e}, "
+             f"after one step max |v| {vmax:.4e}, poisson_iters {int(aux.poisson_iters)}, "
+             f"two runs bitwise equal: {bitwise}")
+        if not bitwise or not bool(torch.isfinite(out.v).all()):
+            raise RuntimeError("the micelle step is not finite or not repeatable bit for bit")
+        vmaxes[r0f] = vmax
+    if not (vmaxes[0.8] > 0.0 and vmaxes[0.8] > 10.0 * vmaxes[1.0]):
+        raise RuntimeError("the bond forces did not move the fluid")
+
+
+def phase_random_stress(dev, tgv_sim, tgv_state):
+    """Phase 19c: the random stress for one step on phase 4's TGV-256^2 f32
+    state: the tensor symmetric and traceless, the force linear in
+    sqrt(kBT), the noise a function of (seed, step) alone."""
+    from isph_tpu_torch.config import RandomStressConfig
+    from isph_tpu_torch.physics import fluctuation as fl
+
+    seed, step = 7, int(tgv_state.step)
+    cfg1 = tgv_sim.cfg.replace(rs=RandomStressConfig(enabled=True, kbt=1.0, seed=seed))
+    cfg4 = cfg1.replace(rs=RandomStressConfig(enabled=True, kbt=4.0, seed=seed))
+    st = tgv_state.replace(f=torch.zeros_like(tgv_state.v))
+    _, geom, pre = _geometry(tgv_sim, st)
+    noise = fl.random_stress_noise(seed, step, st)
+    torch.randn(1000, device=dev)  # the global stream does not enter the noise
+    same = torch.equal(noise, fl.random_stress_noise(seed, step, st))
+    other = not torch.equal(noise, fl.random_stress_noise(seed, step + 1, st))
+    S = fl.random_stress_tensor(noise, st)
+    sym = float((S[0, 1] - S[1, 0]).abs().max())
+    trace = float((S[0, 0] + S[1, 1]).abs().max()) / float(S.abs().max())
+    f1 = fl.random_stress_force(st, geom, pre, cfg1, noise)
+    f4 = fl.random_stress_force(st, geom, pre, cfg4, noise)
+    lin = _rel(f4 - st.f, 2.0 * (f1 - st.f))
+    # the step itself at a gentler kBT (1e-6 in the deck's units)
+    sim = dataclasses.replace(tgv_sim, cfg=cfg1.replace(
+        rs=RandomStressConfig(enabled=True, kbt=1e-6, seed=seed)))
+    out, aux = sim.run(tgv_state, 1)
+    base, _ = tgv_sim.run(tgv_state, 1)
+    dv = float((out.v - base.v).abs().max())
+    _log(f"random stress: TGV-256^2 f32 step {step}, seed {seed}: noise std "
+         f"{float(noise.std()):.4f}; same (seed, step) bitwise {same}, another step differs "
+         f"{other}; S symmetric to {sym:.1e}, trace {trace:.1e} of max |S|; "
+         f"f(kbt 4) - f0 against 2 (f(kbt 1) - f0): {lin:.3e} relative; one step with rs "
+         f"(kbt 1e-6): "
+         f"poisson_iters {int(aux.poisson_iters)}, max |v - v without rs| {dv:.4e}")
+    if not (same and other and sym == 0.0 and trace <= 1e-6 and lin <= 1e-6):
+        raise RuntimeError("the random stress failed a check")
+    if not (bool(torch.isfinite(out.v).all()) and dv > 0.0):
+        raise RuntimeError("the random-stress step is not finite or changed nothing")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a "
@@ -1624,6 +1958,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches_walls = phase_walls(dev, tgv_sim, tgv_state, tgv_t)
 
+    # phase 18: the 3-D multiphase pore-scale deck at its own size; phase 17:
+    # the kernels on its step-1 state; phase 19: the droplet, the micelle
+    # and the random stress
+    torch.cuda.empty_cache()
+    launches_pore3d, pore_sim, pore_state = phase_pore3d(dev)
+    torch.cuda.empty_cache()
+    flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
+    kp = phase_pore3d_kernels(dev, flush, pore_sim, pore_state)
+    del flush, pore_sim, pore_state
+    torch.cuda.empty_cache()
+    launches_droplet = phase_droplet(dev)
+    phase_micelle(dev)
+    phase_random_stress(dev, tgv_sim, tgv_state)
+
     def row(name, source, replaces, launched, err, t):
         return dict(name=name, route="cuda", source=f"isph_tpu_torch/csrc/{source}",
                     replaces=f"isph_tpu/ops/spmv_pallas.py:{replaces}", launches=launched,
@@ -1635,21 +1983,24 @@ def main() -> int:
         return {key: t[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
 
     def beyond(name):
-        """The launches on phases 9, 11, 14, 15 and 16, the f32 (N,) rows of
-        phases 8 (64^3) and 10 (the channel's Poisson matrix) and the f64
-        (N,) row of phase 12 (the PB Jacobian)."""
+        """The launches on phases 9, 11, 14-16, 18 and 19a, the f32 (N,) rows
+        of phases 8 (64^3) and 10 (the channel's Poisson matrix) and the f64
+        rows of phases 12 (the PB Jacobian) and 17 (the pore-scale deck's
+        Poisson fluid block, its Shepard volumes)."""
         kname = "spmv" if name == "ell_spmv" else name
         return dict(launches_3d=launches_3d[name], launches_channel=launches_channel[name],
                     launches_edl=launches_edl[name],
                     launches_transport=launches_transport[name],
                     launches_walls=launches_walls[name],
+                    launches_pore3d=launches_pore3d[name],
+                    launches_droplet=launches_droplet[name],
                     at_64cubed=times(k3["rows"][64][kname]), at_channel=times(kc[kname]),
-                    at_edl=times(ke[kname]))
+                    at_edl=times(ke[kname]), at_pore3d=times(kp[kname]))
 
     kernels = [
         {**row("ell_spmv", "spmv.cu", 298, launches["ell_spmv"],
                max(k["spmv_err"], kb["spmv32_err"], k3["spmv_err"], kc["spmv_err"],
-                   ke["spmv_err"]), k["spmv"]),
+                   ke["spmv_err"], kp["spmv_err"]), k["spmv"]),
          **beyond("ell_spmv")},
         {**row("take", "take.cu", 332, launches["take"], 0.0, k["take"]), **beyond("take")},
         row("ell_spmv_band", "spmv_band.cu", 458, launches_large["ell_spmv_band"],

@@ -16,14 +16,14 @@ from isph_tpu_torch import config as C
 from isph_tpu_torch.state import ParticleState
 
 
-_INT_FIELDS = {"kind": torch.int32, "step": torch.int32}
+_INT_FIELDS = {"kind": torch.int32, "step": torch.int32, "phase": torch.int32}
 _BOOL_FIELDS = {"valid"}
 
 
 def state_from_numpy(fields: Mapping[str, np.ndarray], device, dtype: torch.dtype) -> ParticleState:
     """Port state from a JAX state's non-None fields as numpy arrays
     (same names, same layouts).  Floating fields are cast to ``dtype``;
-    ``kind``/``step`` stay int32 and ``valid`` bool.  ``amg_cache`` is
+    ``kind``/``step``/``phase`` stay int32 and ``valid`` bool.  ``amg_cache`` is
     left behind: the port builds its AMG hierarchy at the state's first
     solve.  A field the port does not carry raises: it belongs to a feature
     that is not ported yet."""

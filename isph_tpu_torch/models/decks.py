@@ -31,9 +31,11 @@ from isph_tpu_torch.config import (
     NavierStokesConfig,
     NeighborConfig,
     PoissonBoltzmannConfig,
+    ShiftConfig,
     SimulationConfig,
     SingularPoisson,
     SoluteTransportConfig,
+    SurfaceTensionConfig,
 )
 from isph_tpu_torch.state import Domain, Kind, ParticleState, make_state, require_device
 from isph_tpu_torch.models.driver import Simulation
@@ -42,7 +44,8 @@ from isph_tpu_torch.models import edl as edl_mod
 from isph_tpu_torch.models import tgv as tgv_mod
 from isph_tpu_torch.models.channel import _dtype_name, _round_up
 from isph_tpu_torch.models.tgv import _cell_cap
-from isph_tpu_torch.models.geometry import henry_solution
+from isph_tpu_torch.models.geometry import carve_porous_beads, henry_solution
+from isph_tpu_torch.physics.bonds import BondList, harmonic_bond_force
 
 
 def _square_lattice(lo, hi, dx, dim=2):
@@ -474,6 +477,761 @@ def make_square_concentration_dump(
 
 
 # ---------------------------------------------------------------------------
+# lid-driven cavity (sph-script/lid-driven-cavity-2d.lmp + lid-driven-cavity.xml)
+# ---------------------------------------------------------------------------
+
+def make_lid_driven_cavity(
+    n: int = 32,
+    *,
+    dim: int = 2,
+    umax: float = 10.0,  # deck Umax (lid-driven-cavity-2d.lmp:20)
+    nu: float = 1.0,  # set via the deck's .data file; Re = umax/nu
+    rho: float = 1.0,
+    shift: float = 0.07,  # fix isph/shift 0.07 (deck :91)
+    dtype: torch.dtype = torch.float64,
+    device: torch.device | str = "cuda",
+    pad_multiple: int = 8,
+    max_neighbors: Optional[int] = None,
+) -> Tuple[Simulation, ParticleState]:
+    """Closed box [-1/2, 1/2]^dim, fluid interior, fixed side/bottom walls
+    (type 2), lid layer moving at Umax in +x (type 3 'surface', deck
+    lid-driven-cavity-2d.lmp:100-106).  h = 1.5 dx, dt = 0.1 h / Umax."""
+    require_device("make_lid_driven_cavity", device)
+    L = 1.0
+    dx = L / n
+    h = 1.5 * dx
+    cut = 2.0 * h
+    nwall = int(math.ceil(cut / dx)) + 1
+
+    lo = [-0.5 - nwall * dx] * dim
+    hi = [0.5 + nwall * dx] * dim
+    pts = _square_lattice(lo, hi, dx, dim)
+    inside = np.all(np.abs(pts) < 0.5, axis=1)
+    is_lid = (pts[:, dim - 1] >= 0.5) & np.all(np.abs(pts[:, : dim - 1]) < 0.5, axis=1)
+    kind = np.where(inside, Kind.FLUID_BIT, Kind.SOLID).astype(np.int32)
+    v = np.zeros_like(pts)
+    v[is_lid, 0] = umax
+
+    n_real = pts.shape[0]
+    state = make_state(
+        pts, v=v, kind=kind, rho=rho, nu=nu,
+        pad_to=_round_up(n_real, pad_multiple), dtype=dtype, device=device,
+    )
+    dt = 0.1 * h / umax
+    cfg = SimulationConfig(
+        dim=dim, h=h, dt=dt, dtype=_dtype_name(dtype),
+        kernel=KernelConfig(type=KernelType.WENDLAND, cut_over_h=2.0),
+        ns=NavierStokesConfig(
+            theta=0.5,
+            boundary=BoundaryCond.MORRIS_HOLMES,
+            singular_poisson=SingularPoisson.NULL_SPACE,
+        ),
+        shift=ShiftConfig(enabled=shift > 0.0, shift=shift),
+        neighbor=_neighbor_cfg(dx, cut, dim, max_neighbors),
+    )
+    domain = Domain(lo=tuple(lo), hi=tuple(hi), periodic=(True,) * dim)
+    return Simulation(cfg=cfg, domain=domain), state
+
+
+# ---------------------------------------------------------------------------
+# square droplet / multiphase surface tension
+# (sph-script/square-droplet-2d.lmp + square-droplet.xml)
+# ---------------------------------------------------------------------------
+
+def make_square_droplet(
+    n: int = 36,  # deck N (square-droplet-2d.lmp:13): dx = r/N
+    *,
+    dim: int = 2,
+    r: float = 0.5,
+    rdrop: float = 0.3,
+    umax: float = 0.5,  # velocity scale for dt (deck :33-35)
+    nu: float = 0.1,  # set group all isph_viscosity 0.1 (deck :131)
+    rho: float = 1.0,
+    model: str = "pairwise",  # xml Modeling Method = PairwiseForce
+    s_same: float = 1.0,  # xml s:1:1 / s:2:2
+    s_cross: float = 0.001,  # xml s:1:2 / s:2:1
+    csf_alpha: float = 1.0,  # xml ContinuumSurfaceForce alpha
+    shift: float = 0.08,  # fix isph/shift 0.08 1.0 3h (deck :110-111)
+    dtype: torch.dtype = torch.float64,
+    device: torch.device | str = "cuda",
+    pad_multiple: int = 8,
+    max_neighbors: Optional[int] = None,
+) -> Tuple[Simulation, ParticleState]:
+    """Periodic box [-r, r]^dim; the inner square |x|,|y| < rdrop is phase 0,
+    the rest phase 1; pairwise Tartakovsky-Meakin surface tension relaxes
+    the square into a circle (Laplace pressure jump)."""
+    require_device("make_square_droplet", device)
+    dx = r / n
+    h = 1.4 * dx  # deck :26
+    cut = 3.0 * h  # xml cut over h = 3.0
+    pts = _square_lattice([-r] * dim, [r] * dim, dx, dim)
+    in_drop = np.all(np.abs(pts) < rdrop, axis=1)
+    n_real = pts.shape[0]
+
+    state = make_state(
+        pts, kind=np.full(n_real, Kind.FLUID_BIT, np.int32), rho=rho, nu=nu,
+        pad_to=_round_up(n_real, pad_multiple), dtype=dtype, device=device,
+    )
+    phase = np.zeros(state.n, np.int32)
+    phase[:n_real] = np.where(in_drop, 0, 1)
+    state = state.replace(phase=torch.as_tensor(phase, device=device))
+
+    dt = 0.4 * dx / umax
+    st = SurfaceTensionConfig(
+        enabled=True, model=model, alpha=csf_alpha, kappa_max=0.0,
+        pairwise_model="tartakovsky_meakin",
+        s=((s_same, s_cross), (s_cross, s_same)),
+    )
+    cfg = SimulationConfig(
+        dim=dim, h=h, dt=dt, dtype=_dtype_name(dtype),
+        kernel=KernelConfig(type=KernelType.WENDLAND, cut_over_h=3.0),
+        ns=NavierStokesConfig(
+            theta=0.5, singular_poisson=SingularPoisson.NULL_SPACE,
+            use_momentum_preserve_operator=True,
+        ),
+        st=st,
+        shift=ShiftConfig(enabled=shift > 0.0, shift=shift,
+                          shiftcut=3.0 * h, nonfluidweight=1.0),
+        neighbor=_neighbor_cfg(dx, cut, dim, max_neighbors),
+    )
+    domain = Domain(lo=(-r,) * dim, hi=(r,) * dim, periodic=(True,) * dim)
+    return Simulation(cfg=cfg, domain=domain), state
+
+
+def droplet_anisotropy(state: ParticleState) -> torch.Tensor:
+    """Diagnostic: RMS radius anisotropy of the phase-0 particles (1 = a
+    circle), the square-droplet deck's qualitative target."""
+    w = ((state.phase == 0) & state.valid).to(state.dtype)
+    c = (state.x * w[None, :]).sum(1) / w.sum()
+    d = state.x - c[:, None]
+    mom = torch.stack([(d[i] * d[j] * w).sum() for i in range(state.dim)
+                       for j in range(state.dim)]).reshape(state.dim, state.dim)
+    ev = torch.linalg.eigvalsh(mom / w.sum())
+    return torch.sqrt(ev[-1] / torch.clamp_min(ev[0], 1e-30))
+
+
+def make_liquid_drop_on_solid(
+    n: int = 36,
+    *,
+    w: float = 0.8,
+    rdrop: float = 0.2,
+    contact_angle: float = 1.0472,  # xml Solid contact angle (radians, 60 deg)
+    csf_alpha: float = 1.0,
+    nu: float = 0.1,
+    gx: float = 1.0,  # xml g.x (drives the drop along the wall)
+    shift: float = 0.03,  # fix isph/shift 0.03 0.0
+    dtype: torch.dtype = torch.float64,
+    device: torch.device | str = "cuda",
+    pad_multiple: int = 8,
+    max_neighbors: Optional[int] = None,
+) -> Tuple[Simulation, ParticleState]:
+    """Wetting drop on a solid wall (sph-script/liquid-drop-on-solid-2d.lmp
+    + liquid-drop-on-solid.xml): a square drop (phase 1) of half-width rdrop
+    in ambient fluid (phase 2) between two walls, CSF surface tension with a
+    prescribed contact angle (FunctorCorrectPhaseNormal,
+    functor_correct_phase_normal.h:57-79), Navier-slip beta = 0.01 walls,
+    theta = 1 incremental-pressure NS, body force g.x."""
+    require_device("make_liquid_drop_on_solid", device)
+    dx = w / n
+    h = 1.4 * dx
+    cut = 2.0 * h
+    slayer = 4.0 * dx
+    llo, lhi = -rdrop, 3.0 * rdrop
+    lo = [-w, llo - slayer]
+    hi = [w, lhi + slayer]
+    pts = _square_lattice(lo, hi, dx, 2)
+    n_real = pts.shape[0]
+    in_drop = (np.abs(pts[:, 0]) < rdrop) & (np.abs(pts[:, 1]) < rdrop)
+    is_solid = (pts[:, 1] < llo) | (pts[:, 1] > lhi)
+    kind = np.where(is_solid, Kind.SOLID | Kind.FIXED, Kind.FLUID_BIT).astype(np.int32)
+
+    state = make_state(
+        pts, kind=kind, rho=1.0, nu=nu,
+        pad_to=_round_up(n_real, pad_multiple), dtype=dtype, device=device,
+    )
+    phase = np.ones(state.n, np.int32) * 2
+    phase[:n_real] = np.where(in_drop, 1, 2)
+    state = state.replace(phase=torch.as_tensor(phase, device=device))
+
+    umax = 6.0  # deck Umax (dt scale)
+    dt = 0.1 * dx / umax
+    cfg = SimulationConfig(
+        dim=2, h=h, dt=dt, dtype=_dtype_name(dtype),
+        kernel=KernelConfig(type=KernelType.WENDLAND, cut_over_h=2.0),
+        ns=NavierStokesConfig(
+            theta=1.0,
+            boundary=BoundaryCond.NAVIER_SLIP,
+            beta=0.01,
+            singular_poisson=SingularPoisson.NOT_SINGULAR,
+            use_incremental_pressure=True,
+            g=(gx, 0.0, 0.0),
+        ),
+        st=SurfaceTensionConfig(
+            enabled=True, model="csf", alpha=csf_alpha, kappa_max=10.0,
+            theta=contact_angle,
+        ),
+        shift=ShiftConfig(enabled=shift > 0.0, shift=shift, nonfluidweight=0.0),
+        neighbor=_neighbor_cfg(dx, cut, 2, max_neighbors),
+    )
+    domain = Domain(lo=tuple(lo), hi=tuple(hi), periodic=(True, True))
+    return Simulation(cfg=cfg, domain=domain), state
+
+
+# ---------------------------------------------------------------------------
+# colloid / spinner / mixer (rigid solid inclusions, moving or rotating)
+# (sph-script/colloid-{center,corner,rotating}-2d.lmp, spinner-2d.lmp,
+#  mixer-channel-2d.lmp)
+# ---------------------------------------------------------------------------
+
+def make_colloid(
+    n: int = 32,
+    *,
+    motion: str = "rotating",  # "rotating" | "center" | "corner"
+    dim: int = 2,
+    rcolloid: float = 0.25,
+    umax: float = 5.0,  # deck Umax (colloid-rotating-2d.lmp:15)
+    g: float = 1.0,  # body force for motion="center"/"corner"
+    nu: float = 1.0,
+    dtype: torch.dtype = torch.float64,
+    device: torch.device | str = "cuda",
+    pad_multiple: int = 8,
+    max_neighbors: Optional[int] = None,
+) -> Tuple[Simulation, ParticleState]:
+    """Periodic box [-0.5, 0.5]^dim with a solid disk/sphere.
+
+    ``rotating``: solid particles get the rigid rotation v = (omega y,
+    -omega x), omega = umax / rcolloid (the deck's velx = Umax/Rmax*y,
+    vely = -Umax/Rmax*x, colloid-rotating-2d.lmp:98-106), held by a modifier
+    so that the rotation persists.  ``center``: a fixed colloid, body-driven
+    flow around it.  ``corner``: the colloid sits at the box corner
+    (colloid-corner-2d.lmp), so its periodic images tile all 2^dim corners.
+    The 3-D decks (colloid-*-3d.lmp) are dim = 3."""
+    require_device("make_colloid", device)
+    L = 1.0
+    dx = L / n
+    h = 1.5 * dx
+    cut = 2.0 * h
+    pts = _square_lattice([-0.5] * dim, [0.5] * dim, dx, dim)
+    n_real = pts.shape[0]
+    if motion == "corner":
+        # colloid centered at the corner (0.5, ..., 0.5): per-axis periodic
+        # distance from pts in (-0.5, 0.5) to the corner is 0.5 - |x|
+        rsq = ((0.5 - np.abs(pts)) ** 2).sum(1)
+    else:
+        rsq = (pts**2).sum(1)
+    in_disk = rsq < rcolloid**2
+    kind = np.where(in_disk, Kind.SOLID, Kind.FLUID_BIT).astype(np.int32)
+
+    omega = umax / rcolloid if motion == "rotating" else 0.0
+    v = np.zeros_like(pts)
+    if motion == "rotating":
+        v[:, 0] = np.where(in_disk, omega * pts[:, 1], 0.0)
+        v[:, 1] = np.where(in_disk, -omega * pts[:, 0], 0.0)
+
+    state = make_state(
+        pts, v=v, kind=kind, rho=1.0, nu=nu,
+        pad_to=_round_up(n_real, pad_multiple), dtype=dtype, device=device,
+    )
+    dt = 0.1 * h / max(umax, 1e-6) if motion == "rotating" else 0.1 * h / max(g, 1e-6)
+
+    modifier = None
+    if motion == "rotating":
+        def modifier(s: ParticleState, t) -> ParticleState:
+            solid = s.is_solid
+            vx = torch.where(solid, omega * s.x[1], s.v[0])
+            vy = torch.where(solid, -omega * s.x[0], s.v[1])
+            comps = [vx, vy] + [s.v[d] for d in range(2, s.dim)]
+            return s.replace(v=torch.stack(comps))
+
+    cfg = SimulationConfig(
+        dim=dim, h=h, dt=dt, dtype=_dtype_name(dtype),
+        kernel=KernelConfig(type=KernelType.WENDLAND, cut_over_h=2.0),
+        ns=NavierStokesConfig(
+            theta=0.5, boundary=BoundaryCond.MORRIS_HOLMES,
+            singular_poisson=SingularPoisson.NULL_SPACE,
+            g=(g, 0.0, 0.0) if motion in ("center", "corner") else (0.0, 0.0, 0.0),
+        ),
+        neighbor=_neighbor_cfg(dx, cut, dim, max_neighbors),
+    )
+    domain = Domain(lo=(-0.5,) * dim, hi=(0.5,) * dim, periodic=(True,) * dim)
+    return Simulation(cfg=cfg, domain=domain, modifier=modifier), state
+
+
+def make_spinner(
+    n: int = 32,
+    *,
+    umax: float = 0.2,  # deck Umax (spinner-2d.lmp:15)
+    arm: float = 0.3,
+    width: float = 0.08,
+    shift: float = 0.07,  # fix isph/shift 0.07 (deck :85)
+    nu: float = 0.1,
+    dtype: torch.dtype = torch.float64,
+    device: torch.device | str = "cuda",
+    pad_multiple: int = 8,
+) -> Tuple[Simulation, ParticleState]:
+    """A cross-shaped paddle spinning at the center of a periodic box: the
+    paddle's solid particles move with the rigid rotation of angle
+    theta(t) = omega t (the deck's paddle comes from a datafile; here it is
+    two orthogonal bars of half-length ``arm``).  The paddle is re-typed
+    every step rather than advected (the FixISPH_ModifyType pattern)."""
+    require_device("make_spinner", device)
+    L = 1.0
+    dx = L / n
+    h = 1.5 * dx
+    cut = 2.0 * h
+    pts = _square_lattice([-0.5, -0.5], [0.5, 0.5], dx, 2)
+    n_real = pts.shape[0]
+    omega = umax / arm
+
+    state = make_state(
+        pts, kind=np.full(n_real, Kind.FLUID_BIT, np.int32), rho=1.0, nu=nu,
+        pad_to=_round_up(n_real, pad_multiple), dtype=dtype, device=device,
+    )
+
+    def modifier(s: ParticleState, t) -> ParticleState:
+        th = omega * t
+        c, sn = torch.cos(th), torch.sin(th)
+        # body-frame coordinates of every particle
+        xb = c * s.x[0] + sn * s.x[1]
+        yb = -sn * s.x[0] + c * s.x[1]
+        in_bar1 = (xb.abs() < arm) & (yb.abs() < width)
+        in_bar2 = (yb.abs() < arm) & (xb.abs() < width)
+        in_paddle = (in_bar1 | in_bar2) & s.valid
+        kind = torch.where(in_paddle, Kind.SOLID, Kind.FLUID_BIT).to(torch.int32)
+        kind = torch.where(s.valid, kind, 0).to(torch.int32)
+        vx = torch.where(in_paddle, -omega * s.x[1], s.v[0])
+        vy = torch.where(in_paddle, omega * s.x[0], s.v[1])
+        return s.replace(kind=kind, v=torch.stack([vx, vy]))
+
+    cfg = SimulationConfig(
+        dim=2, h=h, dt=0.15 * dx / umax, dtype=_dtype_name(dtype),
+        kernel=KernelConfig(type=KernelType.WENDLAND, cut_over_h=2.0),
+        ns=NavierStokesConfig(
+            theta=0.5, boundary=BoundaryCond.MORRIS_HOLMES,
+            singular_poisson=SingularPoisson.NULL_SPACE,
+        ),
+        shift=ShiftConfig(enabled=shift > 0.0, shift=shift),
+        neighbor=_neighbor_cfg(dx, cut, 2),
+    )
+    domain = Domain(lo=(-0.5, -0.5), hi=(0.5, 0.5), periodic=(True, True))
+    return Simulation(cfg=cfg, domain=domain, modifier=modifier), state
+
+
+# ---------------------------------------------------------------------------
+# micelle (polymer bonds folded into the implicit solve)
+# (sph-script/isph.micelle.lmp + isph.micelle.xml + data.micelle)
+# ---------------------------------------------------------------------------
+
+def make_micelle(
+    n: int = 24,
+    *,
+    nchains: int = 8,
+    chain_len: int = 6,
+    kbond: float = 50.0,  # bond_coeff 1 50.0 R0 (isph.micelle.lmp:28)
+    r0_factor: float = 1.0,  # R0 in units of dx
+    shift: float = 0.1,  # fix isph/shift 0.1 (deck :31)
+    nu: float = 0.1,
+    dtype: torch.dtype = torch.float64,
+    device: torch.device | str = "cuda",
+    pad_multiple: int = 8,
+    seed: int = 0,
+) -> Tuple[Simulation, ParticleState]:
+    """Periodic fluid box with ``nchains`` harmonic-bonded polymer chains of
+    ``chain_len`` consecutive lattice particles; the bond forces enter the
+    Helmholtz right-hand side through the ``extra_force`` hook (the BondISPH
+    gating, pair_isph.cpp:1320-1331)."""
+    require_device("make_micelle", device)
+    L = 1.0
+    dx = L / n
+    h = 1.5 * dx
+    cut = 2.0 * h
+    pts = _square_lattice([-0.5, -0.5], [0.5, 0.5], dx, 2)
+    n_real = pts.shape[0]
+    state = make_state(
+        pts, kind=np.full(n_real, Kind.FLUID_BIT, np.int32), rho=1.0, nu=nu,
+        pad_to=_round_up(n_real, pad_multiple), dtype=dtype, device=device,
+    )
+
+    # chains = consecutive particles along lattice rows, randomly placed
+    rng = np.random.default_rng(seed)
+    pairs = []
+    rows = n  # the lattice is row-major: index = ix * n + iy
+    for _ in range(nchains):
+        ix = rng.integers(0, n - chain_len)
+        iy = rng.integers(0, rows)
+        base = [int((ix + k) * rows + iy) for k in range(chain_len)]
+        pairs += [(base[k], base[k + 1]) for k in range(chain_len - 1)]
+    pairs = np.asarray(pairs, np.int32)
+    bonds = BondList(pairs=torch.as_tensor(pairs, device=device),
+                     mask=torch.ones(len(pairs), dtype=torch.bool, device=device))
+
+    r0 = r0_factor * dx
+
+    def extra_force(s: ParticleState, domain: Domain) -> torch.Tensor:
+        return harmonic_bond_force(s, bonds, domain, k=kbond, r0=r0)
+
+    cfg = SimulationConfig(
+        dim=2, h=h, dt=0.1 * dx, dtype=_dtype_name(dtype),
+        kernel=KernelConfig(type=KernelType.WENDLAND, cut_over_h=2.0),
+        ns=NavierStokesConfig(theta=0.5, singular_poisson=SingularPoisson.NULL_SPACE),
+        shift=ShiftConfig(enabled=shift > 0.0, shift=shift),
+        neighbor=_neighbor_cfg(dx, cut, 2),
+    )
+    domain = Domain(lo=(-0.5, -0.5), hi=(0.5, 0.5), periodic=(True, True))
+    return Simulation(cfg=cfg, domain=domain, extra_force=extra_force), state
+
+
+# ---------------------------------------------------------------------------
+# pore-scale flow through packed beads
+# (sph-script/pore-scale-flow-3d.lmp + pore-scale-flow.xml + bead centroids)
+# ---------------------------------------------------------------------------
+
+def make_pore_scale_flow(
+    n: int = 32,
+    *,
+    dim: int = 2,
+    nbeads: int = 5,
+    bead_radius: float = 0.12,
+    g: float = 1.0,
+    nu: float = 0.5,
+    seed: int = 3,
+    dtype: torch.dtype = torch.float64,
+    device: torch.device | str = "cuda",
+    pad_multiple: int = 8,
+    max_neighbors: Optional[int] = None,
+) -> Tuple[Simulation, ParticleState]:
+    """Body-driven flow through a periodic random bead pack: particles inside
+    any bead are re-typed solid (ComputeISPH_{Cylinder,Sphere}Porous bead
+    carving; the 3-D deck reads its centroids from
+    pore-scale-flow-bead-centeroids-3d.dat, which is not in the repository:
+    they are drawn with ``np.random.default_rng(seed)``, as in the JAX
+    package, so both place the same beads)."""
+    require_device("make_pore_scale_flow", device)
+    L = 1.0
+    dx = L / n
+    h = 1.5 * dx
+    cut = 2.0 * h
+    pts = _square_lattice([-0.5] * dim, [0.5] * dim, dx, dim)
+    n_real = pts.shape[0]
+
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-0.5 + bead_radius, 0.5 - bead_radius, (nbeads, dim))
+    kind, _ = carve_porous_beads(pts, centers, bead_radius)
+
+    state = make_state(
+        pts, kind=kind, rho=1.0, nu=nu,
+        pad_to=_round_up(n_real, pad_multiple), dtype=dtype, device=device,
+    )
+    cfg = SimulationConfig(
+        dim=dim, h=h, dt=0.1 * h / max(g, 1e-6), dtype=_dtype_name(dtype),
+        kernel=KernelConfig(type=KernelType.WENDLAND, cut_over_h=2.0),
+        ns=NavierStokesConfig(
+            theta=0.5, boundary=BoundaryCond.MORRIS_HOLMES,
+            singular_poisson=SingularPoisson.NULL_SPACE,
+            g=(g,) + (0.0,) * 2,
+        ),
+        neighbor=_neighbor_cfg(dx, cut, dim, max_neighbors),
+    )
+    domain = Domain(lo=(-0.5,) * dim, hi=(0.5,) * dim, periodic=(True,) * dim)
+    return Simulation(cfg=cfg, domain=domain), state
+
+
+# ---------------------------------------------------------------------------
+# multiphase pore-scale flow: the reference's flagship application, CSF
+# multiphase inside a carved porous bead pack with phase injection
+# (sph-script/multiphase-pore-scale-flow-2d.lmp, -3d.lmp, -a-3d.lmp,
+#  -b-3d.lmp + multiphase-pore-scale-flow.xml)
+# ---------------------------------------------------------------------------
+
+# bead centroids of the 2-D deck's pack, transcribed from
+# multiphase-pore-scale-flow-bead-centeroids-2d.dat (5 beads; SI metres)
+_MPPS_BEADS_2D = (
+    (0.0, 0.0), (0.002, 0.003), (-0.002, 0.003),
+    (-0.002, -0.003), (0.002, -0.003),
+)
+
+# per-variant parameter sets of the three 3-D decks (deck headers:
+# multiphase-pore-scale-flow-{,a-,b-}3d.lmp:9-40; variant b is the short
+# coarse-smoothing run: len = 0.0015, h = 0.8 dx, tstep = 0.08 h/Umax)
+_MPPS_3D = {
+    "base": dict(N=128, r=0.0044, length=0.00234, bufoff=1.5e-4, umax=0.4,
+                 hfac=1.5, dtfac=0.04),
+    "a": dict(N=96, r=0.0022, length=0.0070, bufoff=2.0e-4, umax=0.08,
+              hfac=1.5, dtfac=0.04),
+    "b": dict(N=96, r=0.0022, length=0.0015, bufoff=2.0e-4, umax=0.08,
+              hfac=0.8, dtfac=0.08),
+}
+
+
+def make_multiphase_pore_scale_flow(
+    n: int = 24,  # particles across the channel diameter (deck N = 80/128/96)
+    *,
+    dim: int = 2,
+    variant: str = "base",  # 3-D parameter set: "base" | "a" | "b"
+    nbeads: int = 5,
+    g: float = 9.8,  # xml g.y
+    alpha: float = 0.026,  # xml Surface Tension alpha
+    contact_theta: float = 0.17453,  # xml theta (wetting contact angle)
+    kappa_max: float = 10000.0,  # xml kappa
+    shift: float = 0.04,  # fix isph/shift 0.04 (2-D; 3-D decks use 0.07)
+    rho: float = 997.561,  # set group fluid_1 isph_density (deck :158)
+    nu: float = 8.9087e-07,
+    seed: int = 7,
+    dtype: torch.dtype = torch.float64,
+    device: torch.device | str = "cuda",
+    pad_multiple: int = 8,
+    max_neighbors: Optional[int] = None,
+) -> Tuple[Simulation, ParticleState]:
+    """Two-phase percolation through a porous bead pack in a channel.
+
+    Geometry (multiphase-pore-scale-flow-2d.lmp:9-33,126): a channel along y
+    (periodic), confining walls carved at |x| > r (2-D) or outside the
+    radius-r cylinder (3-D), beads of radius rbead re-typed solid inside
+    [beadlo, beadhi].  The 2-D pack uses the deck's five transcribed
+    centroids; the 3-D decks read thousands from
+    pore-scale-flow-bead-centeroids-3d.dat, which is not in the repository:
+    they are drawn with ``np.random.default_rng(seed)``, as in the JAX
+    package, so both packages place the same beads.
+
+    Phase injection (deck :143-144): each step, fluid of phase 0 inside the
+    buffer band [bufmin, bufmax] flips to phase 1 (FixISPH_ModifyType, which
+    changes only the type: both phases carry fluid_1's properties), and the
+    CSF color gradient is zeroed within 3 cuts of the band
+    (FixISPH_IgnorePhaseGradient).  Gravity g.y drives phase 1 through the
+    pore space against CSF surface tension with a 10-degree contact angle.
+
+    Deviation (the JAX package's): Singular Poisson = NullSpace; the
+    upstream deck leaves the default NotSingular."""
+    require_device("make_multiphase_pore_scale_flow", device)
+    if dim == 2:
+        r, length, bufoff, umax = 0.0044, 0.01, 0.7e-3, 0.1
+        hfac, dtfac = 1.5, 0.04
+    else:
+        p = _MPPS_3D[variant]
+        r, length, bufoff, umax = p["r"], p["length"], p["bufoff"], p["umax"]
+        hfac, dtfac = p["hfac"], p["dtfac"]
+        shift = 0.07  # fix isph/shift 0.07 (3-D decks :141)
+    buflen = 2.0e-3 if dim == 2 else 4.0e-4
+    rbead = 1.2e-3 if dim == 2 else 0.35 * r
+    dx = 2.0 * r / n
+    wall = 4.0 * dx
+    h = hfac * dx
+    cut = 3.0 * h  # xml cut over h = 3.0, Quintic
+    r0 = r + wall
+
+    lo = [-r0, -length] + ([-r0] if dim == 3 else [])
+    hi = [r0, length] + ([r0] if dim == 3 else [])
+    pts = _square_lattice(lo, hi, dx, dim)
+    # confining wall: outside radius r from the y axis (2-D: |x| > r)
+    if dim == 2:
+        rad = np.abs(pts[:, 0])
+    else:
+        rad = np.sqrt(pts[:, 0] ** 2 + pts[:, 2] ** 2)
+    is_wall = rad > r
+    # bead pack inside [beadlo, beadhi]
+    beadlo, beadhi = -length + buflen + bufoff, length - (buflen + bufoff)
+    if dim == 2:
+        centers = np.asarray(_MPPS_BEADS_2D)[:nbeads]
+    else:
+        rng = np.random.default_rng(seed)
+        cxz = rng.uniform(-(r - rbead), r - rbead, (4 * nbeads, 2))
+        cxz = cxz[np.hypot(cxz[:, 0], cxz[:, 1]) < r - rbead][:nbeads]
+        cy = rng.uniform(beadlo + rbead, beadhi - rbead, (cxz.shape[0],))
+        centers = np.stack([cxz[:, 0], cy, cxz[:, 1]], axis=-1)
+    in_bead = np.zeros(pts.shape[0], bool)
+    for c in centers:
+        in_bead |= np.linalg.norm(pts - np.asarray(c)[None, :], axis=1) < rbead
+    kind = np.where(is_wall | in_bead, Kind.SOLID, Kind.FLUID_BIT).astype(np.int32)
+
+    n_real = pts.shape[0]
+    state = make_state(
+        pts, kind=kind, rho=rho, nu=nu,
+        pad_to=_round_up(n_real, pad_multiple), dtype=dtype, device=device,
+    )
+    state = state.replace(phase=torch.zeros(state.n, dtype=torch.int32, device=device))
+
+    bufmin = -length + bufoff
+    bufmax = bufmin + buflen
+    st = SurfaceTensionConfig(
+        enabled=True, model="csf", alpha=alpha, kappa_max=kappa_max,
+        theta=contact_theta,
+        ignore_axis=1, ignore_point=bufmin, ignore_thres_over_cut=3.0,
+    )
+    cfg = SimulationConfig(
+        dim=dim, h=h, dt=dtfac * h / umax, dtype=_dtype_name(dtype),
+        kernel=KernelConfig(type=KernelType.QUINTIC, cut_over_h=3.0),
+        ns=NavierStokesConfig(
+            theta=0.5, boundary=BoundaryCond.MORRIS_HOLMES, beta=100.0,
+            singular_poisson=SingularPoisson.NULL_SPACE,
+            g=(0.0, g) + ((0.0,) if dim == 3 else ()),
+        ),
+        st=st,
+        shift=ShiftConfig(enabled=shift > 0.0, shift=shift, nonfluidweight=0.1),
+        neighbor=_neighbor_cfg(dx, cut, dim, max_neighbors),
+    )
+
+    def inject_phase(s: ParticleState, t) -> ParticleState:
+        # FixISPH_ModifyType band flip 1 -> 2 every step (deck :143)
+        band = (s.x[1] > bufmin) & (s.x[1] < bufmax)
+        flip = band & s.is_fluid & s.valid & (s.phase == 0)
+        return s.replace(phase=torch.where(flip, 1, s.phase).to(torch.int32))
+
+    domain = Domain(
+        lo=tuple(lo), hi=tuple(hi),
+        periodic=(False, True) + ((False,) if dim == 3 else ()),
+    )
+    return Simulation(cfg=cfg, domain=domain, modifier=inject_phase), state
+
+
+# ---------------------------------------------------------------------------
+# colloid-in-channel: inflow/outflow channel with buffer bands
+# (sph-script/colloid-in-channel-2d.lmp + colloid-in-channel.xml)
+# ---------------------------------------------------------------------------
+
+def make_colloid_in_channel(
+    n: int = 24,  # particles across the channel height (deck N = 36)
+    *,
+    lx_over_ly: float = 3.0,  # deck lxtmp/ly
+    u_in: float = 1.0,  # fix isph/modify/velocity 1.0 0.0 0.0 (deck :15)
+    nu: float = 0.1,  # set group all isph_viscosity (deck :78)
+    rho: float = 1.0,
+    rcolloid: float = 0.0,  # optional fixed circular colloid at the origin
+    # (the shipped deck carves none: its solid group is only the |y| > ly
+    # walls, so the default is 0)
+    shift: float = 0.04,  # fix isph/shift 0.04 0.0 cut
+    ramp_steps: int = 20,  # inlet spin-up (the JAX package's deviation: a
+    # parabolic feed ramped over ramp_steps instead of the deck's impulsive
+    # uniform feed, whose corner divergence sheet overshoots; the same
+    # steady state)
+    dtype: torch.dtype = torch.float64,
+    device: torch.device | str = "cuda",
+    pad_multiple: int = 8,
+    max_neighbors: Optional[int] = None,
+) -> Tuple[Simulation, ParticleState]:
+    """Open channel with inflow/outflow buffer machinery
+    (colloid-in-channel-2d.lmp): an x-periodic strip of bands
+    [dummy | inlet | interior | outlet] between solid walls at |y| > ly.
+    Every step (fixes 11-19) particles are re-typed by band (inlet =
+    buffer-Dirichlet with the prescribed u = (u_in, 0), outlet =
+    buffer-Neumann, interior = fluid) and recycle through the periodic
+    seam; the upstream dummy feed zone is a held-velocity Dirichlet band."""
+    require_device("make_colloid_in_channel", device)
+    ly = 1.0
+    dx = ly / n
+    buf = 12.0 * dx  # buf_inlet = buf_outlet = buf_dummy = 12 dx
+    wall = 5.0 * dx
+    lx = round(lx_over_ly / dx) * dx
+    h = 1.5 * dx
+    cut = 2.0 * h  # colloid-in-channel.xml: Wendland, cut over h = 2.0
+    xmin, xmax = -lx - 2.0 * buf, lx + buf
+    pts = _square_lattice([xmin, -ly - wall], [xmax, ly + wall], dx, 2)
+    n_real = pts.shape[0]
+    is_wall = np.abs(pts[:, 1]) > ly
+    in_colloid = (np.hypot(pts[:, 0], pts[:, 1]) < rcolloid) & ~is_wall
+    kind0 = np.where(is_wall | in_colloid, Kind.SOLID, Kind.FLUID_BIT)
+    state = make_state(
+        pts, kind=kind0.astype(np.int32), rho=rho, nu=nu,
+        pad_to=_round_up(n_real, pad_multiple), dtype=dtype, device=device,
+    )
+
+    xsta = -lx - buf  # inlet band start
+    dt = 0.05 * dx / u_in
+    t_ramp = ramp_steps * dt
+
+    def retype_bands(s: ParticleState, t) -> ParticleState:
+        # fixes 11-19: re-type every non-solid particle by its x band, and
+        # hold the feed/inlet velocity (parabolic, ramped)
+        x0, x1 = s.x[0], s.x[1]
+        mobile = ~s.is_kind(Kind.SOLID) & s.valid
+        in_chan = x1.abs() <= ly
+        dummy = mobile & in_chan & (x0 < xsta)
+        inlet = mobile & in_chan & (x0 >= xsta) & (x0 < -lx)
+        outlet = mobile & in_chan & (x0 > lx)
+        interior = mobile & in_chan & (x0 >= -lx) & (x0 <= lx)
+        kind = s.kind
+        kind = torch.where(dummy | inlet, Kind.BUFFER_DIRICHLET, kind)
+        kind = torch.where(outlet, Kind.BUFFER_NEUMANN, kind)
+        kind = torch.where(interior, Kind.FLUID_BIT, kind)
+        feed = dummy | inlet
+        ramp = torch.clamp(torch.as_tensor(t, dtype=s.dtype, device=s.device) / t_ramp,
+                           0.0, 1.0)
+        prof = u_in * ramp * (1.0 - (x1 / ly) ** 2)
+        v = s.v.clone()
+        v[0] = torch.where(feed, prof, s.v[0])
+        v[1] = torch.where(feed, 0.0, s.v[1])
+        return s.replace(kind=kind.to(torch.int32), v=v)
+
+    cfg = SimulationConfig(
+        dim=2, h=h, dt=dt, dtype=_dtype_name(dtype),
+        kernel=KernelConfig(type=KernelType.WENDLAND, cut_over_h=2.0),
+        ns=NavierStokesConfig(
+            theta=1.0, boundary=BoundaryCond.MORRIS_HOLMES,
+            singular_poisson=SingularPoisson.NULL_SPACE,
+            # the JAX package's deviation from the reference default: the
+            # symmetric corrected gradient, consistent where the velocity is
+            # imposed mid-field (the feed band)
+            use_momentum_preserve_operator=False,
+        ),
+        shift=ShiftConfig(enabled=shift > 0.0, shift=shift,
+                          nonfluidweight=0.0, shiftcut=3.0 * h),
+        neighbor=_neighbor_cfg(dx, cut, 2, max_neighbors),
+    )
+    domain = Domain(lo=(xmin, -ly - wall), hi=(xmax, ly + wall),
+                    periodic=(True, False))
+    state = retype_bands(state, 0.0)
+    return Simulation(cfg=cfg, domain=domain, modifier=retype_bands), state
+
+
+# ---------------------------------------------------------------------------
+# shift test (sph-script/shift-test-2d.lmp)
+# ---------------------------------------------------------------------------
+
+def make_shift_test(
+    n: int = 32,
+    *,
+    shift: float = 0.05,
+    perturb: float = 0.3,  # initial lattice perturbation in units of dx
+    umax: float = 0.5,  # background velocity scale: the shift magnitude is
+    # proportional to the global max fluid speed (pair_isph_corrected.cpp:
+    # 1232-1233), so a quiescent box would not shift at all
+    seed: int = 0,
+    dtype: torch.dtype = torch.float64,
+    device: torch.device | str = "cuda",
+    pad_multiple: int = 8,
+) -> Tuple[Simulation, ParticleState]:
+    """Periodic box with a randomly perturbed lattice and a gentle vortical
+    background flow; Fickian particle shifting regularizes the distribution
+    (shift-test-2d.lmp): the least inter-particle distance grows toward dx."""
+    require_device("make_shift_test", device)
+    L = 1.0
+    dx = L / n
+    h = 1.5 * dx
+    cut = 2.0 * h
+    pts = _square_lattice([-0.5, -0.5], [0.5, 0.5], dx, 2)
+    rng = np.random.default_rng(seed)
+    pts = pts + rng.uniform(-perturb * dx, perturb * dx, pts.shape)
+    n_real = pts.shape[0]
+    k = 2.0 * math.pi / L
+    v = umax * np.stack(
+        [np.sin(k * pts[:, 0]) * np.cos(k * pts[:, 1]),
+         -np.cos(k * pts[:, 0]) * np.sin(k * pts[:, 1])], axis=-1
+    )
+    state = make_state(
+        pts, v=v, kind=np.full(n_real, Kind.FLUID_BIT, np.int32), rho=1.0,
+        nu=0.1, pad_to=_round_up(n_real, pad_multiple), dtype=dtype, device=device,
+    )
+    cfg = SimulationConfig(
+        dim=2, h=h, dt=0.1 * dx, dtype=_dtype_name(dtype),
+        kernel=KernelConfig(type=KernelType.WENDLAND, cut_over_h=2.0),
+        ns=NavierStokesConfig(theta=0.5, singular_poisson=SingularPoisson.NULL_SPACE),
+        shift=ShiftConfig(enabled=True, shift=shift),
+        neighbor=_neighbor_cfg(dx, cut, 2),
+    )
+    domain = Domain(lo=(-0.5, -0.5), hi=(0.5, 0.5), periodic=(True, True))
+    return Simulation(cfg=cfg, domain=domain), state
+
+
+# ---------------------------------------------------------------------------
 # registry (reference deck name -> builder)
 # ---------------------------------------------------------------------------
 
@@ -489,8 +1247,27 @@ DECKS: Dict[str, Callable] = {
         max(n, 24), **kw),
     "couette-flow-2d": lambda **kw: channel_mod.make_channel(flow="couette", **kw),
     "channel-moving-wall-2d": lambda **kw: channel_mod.make_channel(flow="couette", **kw),
+    "lid-driven-cavity-2d": make_lid_driven_cavity,
+    "lid-driven-cavity-3d": lambda **kw: make_lid_driven_cavity(dim=3, **kw),
+    "shift-test-2d": make_shift_test,
+    # rigid inclusions
+    "colloid-rotating-2d": lambda **kw: make_colloid(motion="rotating", **kw),
+    "colloid-center-2d": lambda **kw: make_colloid(motion="center", **kw),
+    "colloid-corner-2d": lambda **kw: make_colloid(motion="corner", **kw),
+    "colloid-center-3d": lambda **kw: make_colloid(motion="center", dim=3, **kw),
+    "colloid-corner-3d": lambda **kw: make_colloid(motion="corner", dim=3, **kw),
+    "colloid-rotating-3d": lambda **kw: make_colloid(motion="rotating", dim=3, **kw),
     "channel-moving-wall-3d": lambda n=16, **kw: channel_mod.make_channel(
         n, flow="couette", **kw),
+    "spinner-2d": make_spinner,
+    "mixer-channel-2d": make_spinner,
+    "pore-scale-flow-2d": make_pore_scale_flow,
+    "pore-scale-flow-3d": lambda **kw: make_pore_scale_flow(dim=3, **kw),
+    # multiphase
+    "square-droplet-2d": make_square_droplet,
+    "square-droplet-3d": lambda **kw: make_square_droplet(dim=3, **kw),
+    "droplet-in-cylinder-2d": make_square_droplet,  # same physics, round target
+    "liquid-drop-on-solid-2d": make_liquid_drop_on_solid,
     # electrokinetics
     "poisson-boltzmann-harmonic-2d": make_pb_harmonic,
     "poisson-boltzmann-harmonic-3d": lambda **kw: make_pb_harmonic(dim=3, **kw),
@@ -513,37 +1290,24 @@ DECKS: Dict[str, Callable] = {
     "square-concentration-fix-2d": make_square_concentration,
     "square-concentration-mov-2d": make_square_concentration_mov,
     "square-concentration-dump-2d": make_square_concentration_dump,
+    # multiphase pore-scale (the flagship application)
+    "multiphase-pore-scale-flow-2d": make_multiphase_pore_scale_flow,
+    "multiphase-pore-scale-flow-3d": lambda **kw: make_multiphase_pore_scale_flow(
+        dim=3, variant="base", **kw),
+    "multiphase-pore-scale-flow-a-3d": lambda **kw: make_multiphase_pore_scale_flow(
+        dim=3, variant="a", **kw),
+    "multiphase-pore-scale-flow-b-3d": lambda **kw: make_multiphase_pore_scale_flow(
+        dim=3, variant="b", **kw),
+    # open-channel inflow/outflow machinery
+    "colloid-in-channel-2d": make_colloid_in_channel,
+    # polymers
+    "isph-micelle": make_micelle,
 }
 
 # decks of the JAX registry that the port does not build yet, each with the
 # module it waits for (ROADMAP queue 1)
-_BUILDER = "its builder in models/decks.py"
-_MULTIPHASE = "physics/multiphase.py (surface tension)"
 _MLS = "ops/mls.py and physics/ale.py (the mls_ale backend)"
 WAITING: Dict[str, str] = {
-    "lid-driven-cavity-2d": _BUILDER,
-    "lid-driven-cavity-3d": _BUILDER,
-    "shift-test-2d": _BUILDER,
-    "colloid-rotating-2d": _BUILDER,
-    "colloid-center-2d": _BUILDER,
-    "colloid-corner-2d": _BUILDER,
-    "colloid-center-3d": _BUILDER,
-    "colloid-corner-3d": _BUILDER,
-    "colloid-rotating-3d": _BUILDER,
-    "spinner-2d": _BUILDER,
-    "mixer-channel-2d": _BUILDER,
-    "pore-scale-flow-2d": _BUILDER,
-    "pore-scale-flow-3d": _BUILDER,
-    "colloid-in-channel-2d": _BUILDER,
-    "square-droplet-2d": _MULTIPHASE,
-    "square-droplet-3d": _MULTIPHASE,
-    "droplet-in-cylinder-2d": _MULTIPHASE,
-    "liquid-drop-on-solid-2d": _MULTIPHASE,
-    "multiphase-pore-scale-flow-2d": _MULTIPHASE,
-    "multiphase-pore-scale-flow-3d": _MULTIPHASE,
-    "multiphase-pore-scale-flow-a-3d": _MULTIPHASE,
-    "multiphase-pore-scale-flow-b-3d": _MULTIPHASE,
-    "isph-micelle": "physics/bonds.py",
     "flow-past-cylinder-2d-mls": _MLS,
     "poisson-operator-2d": _MLS,
     "poisson-operator-3d": _MLS,

@@ -27,7 +27,8 @@ from isph_tpu_torch.ops.neighbors import (
     build_neighbor_list_bruteforce,
     compute_pair_geometry,
 )
-from isph_tpu_torch.physics import electrokinetics, ns_projection, shift as shift_mod, transport
+from isph_tpu_torch.physics import electrokinetics, fluctuation, multiphase, ns_projection
+from isph_tpu_torch.physics import shift as shift_mod, transport
 from isph_tpu_torch.physics.status import Status, compute_status
 from isph_tpu_torch.utils.profiling import named_scope
 
@@ -47,8 +48,6 @@ def unported_features(cfg: SimulationConfig) -> list[str]:
     """Enabled features of ``cfg`` that the port does not run yet."""
     checks = [
         (cfg.backend == "mls_ale", "mls_ale backend"),
-        (cfg.rs.enabled, "rs (random stress)"),
-        (cfg.st.enabled, "st (surface tension)"),
         (cfg.solver.recycle_k > 0, "recycle_k (recycling GMRES)"),
         (cfg.solver.precond == "ilu", "ILU preconditioner"),
     ]
@@ -109,9 +108,12 @@ class Simulation:
         """One timestep (PairISPH::compute, pair_isph.cpp:1241-1380):
         modifier -> neighbors -> pair geometry -> computePre -> extra force
         -> applied E-field -> Poisson-Boltzmann (+ electrostatic force) ->
-        solute transport -> NS projection (Helmholtz, Poisson, correct) ->
-        advance -> shifting -> status.  ``cfg.ns.enabled`` is carried but
-        not read, as in the JAX step."""
+        solute transport -> random stress -> surface tension -> NS projection
+        (Helmholtz, Poisson, correct) -> advance -> shifting -> status.
+        ``cfg.ns.enabled`` is carried but not read, as in the JAX step.  The
+        random stress draws its noise from a generator seeded by
+        (``cfg.rs.seed``, step): not JAX's threefry stream
+        (:mod:`~isph_tpu_torch.physics.fluctuation`)."""
         cfg = self.cfg
         self.prepare(state)
         dev = state.device
@@ -154,6 +156,25 @@ class Simulation:
             with named_scope("transport", dev):
                 conc, _ = transport.solute_transport_step(state, geom, pre, cfg)
             state = state.replace(conc=conc)
+
+        if cfg.rs.enabled:
+            with named_scope("random_stress", dev):
+                step = int(state.step) if state.step is not None else 0
+                noise = fluctuation.random_stress_noise(cfg.rs.seed, step, state)
+                f = fluctuation.random_stress_force(state, geom, pre, cfg, noise)
+            state = state.replace(f=f)
+
+        if cfg.st.enabled:
+            with named_scope("surface_tension", dev):
+                if cfg.st.model == "csf":
+                    f, _, _ = multiphase.csf_force(
+                        state, geom, pre, cfg,
+                        ignore_mask=multiphase.ignore_phase_gradient_mask(state, cfg))
+                else:
+                    s_table = multiphase.s_table_of(cfg, state.dtype, dev)
+                    f = multiphase.pairwise_force(state, geom, cfg, s_table,
+                                                  model=cfg.st.pairwise_model)
+            state = state.replace(f=f)
 
         # phases "helmholtz", "poisson" and "correct" are scoped inside
         state, info = ns_projection.navier_stokes_step(

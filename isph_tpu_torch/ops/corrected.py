@@ -1,6 +1,5 @@
 """Corrected-kernel SPH discretization (PyTorch port of
-``isph_tpu/ops/corrected.py``, restricted to what the Taylor–Green and
-channel paths call).
+``isph_tpu/ops/corrected.py``).
 
 Each function consumes the shared per-step :class:`PairGeom` and produces
 per-particle fields or ELL matrices via masked reductions over the padded
@@ -444,6 +443,54 @@ def morris_normal_mirror(
     d_i = torch.abs(xi_i - bd_coord) + cut * 1e-8
     d_j = torch.abs(xi_j - bd_coord[None, :])
     return 1.0 + d_j / torch.clamp_min(d_i[None, :], safe * h)
+
+
+# ---------------------------------------------------------------------------
+# Uncorrected operator variants (functor_uncorrected_{gradient,divergence,
+# laplacian}[_matrix].h): the same contractions with identity correction
+# tensors (fluctuating hydrodynamics, where the corrected tensors would break
+# the discrete fluctuation-dissipation symmetry).
+# ---------------------------------------------------------------------------
+
+def _identity_G(geom: PairGeom, dtype) -> torch.Tensor:
+    d = geom.dim
+    return torch.eye(d, dtype=dtype, device=geom.r.device)[:, :, None].expand(d, d, geom.n)
+
+
+def _identity_L(geom: PairGeom, dtype) -> torch.Tensor:
+    ident = torch.as_tensor(packed_identity(geom.dim), dtype=dtype, device=geom.r.device)
+    return ident[:, None].expand(packed_len(geom.dim), geom.n)
+
+
+def uncorrected_gradient(geom, vfrac, f, **kw):
+    return gradient(geom, vfrac, _identity_G(geom, geom.r.dtype), f, **kw)
+
+
+def uncorrected_divergence(geom, vfrac, f, **kw):
+    return divergence(geom, vfrac, _identity_G(geom, geom.r.dtype), f, **kw)
+
+
+def uncorrected_laplacian(geom, vfrac, kind, f, **kw):
+    return laplacian(geom, vfrac, _identity_G(geom, geom.r.dtype),
+                     _identity_L(geom, geom.r.dtype), kind, f, **kw)
+
+
+def laplacian(geom, vfrac, Gc, Lc, kind, f, *, alpha: float = 1.0,
+              filt: Optional[PairFilter] = None, family: Optional[Family] = None, **kw):
+    """Point-wise corrected Laplacian (functor_laplacian.h): the same
+    two-pass contraction as the row assembly, so it is the matvec of
+    :func:`laplacian_matrix` (through the SpMV kernel on the card).
+    f: (N,) or (d, N)."""
+    filt = filt if filt is not None else PairFilter(Kind.ALL, Kind.ALL)
+    family = family if family is not None else SYMMETRIC
+    A = laplacian_matrix(geom, vfrac, Gc, Lc, kind, alpha=alpha, filt=filt,
+                         family=family, **kw)
+    return A.matvec(f)
+
+
+def uncorrected_laplacian_matrix(geom, vfrac, kind, **kw):
+    return laplacian_matrix(geom, vfrac, _identity_G(geom, geom.r.dtype),
+                            _identity_L(geom, geom.r.dtype), kind, **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -72,8 +72,8 @@ class ParticleState:
 
     Shapes: N = padded particle count, D = spatial dim (2 or 3).  Vectors
     are (D, N), scalars (N,).  Only the fields of the ported physics exist
-    here; ``interop.state_from_numpy`` refuses any other (``phase``:
-    multiphase is not ported).
+    here; ``interop.state_from_numpy`` refuses any other (the MLS/ALE
+    backend's ``ale_hist`` and the recycling GMRES's ``solver_cache``).
     """
 
     x: torch.Tensor  # (D, N) positions
@@ -95,6 +95,7 @@ class ParticleState:
     phi: Optional[torch.Tensor] = None  # (N,) applied potential
     phigrad: Optional[torch.Tensor] = None  # (D, N)
     conc: Optional[torch.Tensor] = None  # (S, N) concentrations (S <= 4)
+    phase: Optional[torch.Tensor] = None  # (N,) int32 phase id (multiphase)
     step: Optional[torch.Tensor] = None  # () int32 timestep counter
     # AMG hierarchy carried between steps under the max-age policy
     # (solvers/amg.py AMGCache); None until the first AMG solve builds one

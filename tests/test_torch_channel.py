@@ -231,12 +231,13 @@ def test_exact_profiles_match_jax():
 
 
 def test_state_with_concentrations_is_refused():
-    """Multiphase is not ported, so a JAX state that carries phase ids is
-    refused by name.  (Concentrations were refused until solute transport
-    and their shift were ported; the test keeps its name.)"""
+    """The MLS/ALE backend is not ported, so a JAX state that carries its
+    BDF history is refused by name.  (Concentrations were refused until
+    solute transport and their shift were ported, phase ids until
+    multiphase was; the test keeps its name.)"""
     jsim, js = jch.make_channel(16)
     fields = {f.name: np.asarray(getattr(js, f.name))
               for f in dataclasses.fields(js) if getattr(js, f.name) is not None}
-    fields["phase"] = np.zeros(js.n, np.int32)
-    with pytest.raises(NotImplementedError, match="phase"):
+    fields["ale_hist"] = np.zeros((2, 2, js.n))
+    with pytest.raises(NotImplementedError, match="ale_hist"):
         interop.state_from_numpy(fields, "cpu", F64)

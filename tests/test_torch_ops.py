@@ -132,8 +132,8 @@ def test_interop_config_roundtrip_and_state_fields():
     st = port_state(jstate)
     assert st.kind.dtype == torch.int32 and st.valid.dtype == torch.bool
     assert st.x.dtype == F64 and st.step.dtype == torch.int32
-    with pytest.raises(NotImplementedError, match="phase"):
-        interop.state_from_numpy({"x": np.zeros((2, 4)), "phase": np.zeros(4, np.int32)},
+    with pytest.raises(NotImplementedError, match="solver_cache"):
+        interop.state_from_numpy({"x": np.zeros((2, 4)), "solver_cache": np.zeros(4)},
                                  "cpu", F64)
 
 

@@ -157,16 +157,11 @@ def test_cell_list_equals_bruteforce():
     np.testing.assert_allclose(s1.v.numpy(), s2.v.numpy(), atol=1e-10)
 
 
-_ON = dict(enabled=True)
-
-
 @pytest.mark.parametrize("feature, cfg_kw", [
     ("pipelined_cg", dict(solver=dict(method="pipelined_cg"))),
     ("ILU", dict(solver=dict(precond="ilu"))),
     ("recycle_k", dict(solver=dict(precond="jacobi", recycle_k=4))),
     ("mls_ale", dict(backend="mls_ale")),
-    ("rs", dict(rs=_ON)),
-    ("st", dict(st=_ON)),
 ])
 def test_unported_features_raise(feature, cfg_kw):
     """Every enabled feature that is not ported fails loudly by name."""

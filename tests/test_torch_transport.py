@@ -243,7 +243,7 @@ def test_registry_deck_matches_jax(name):
     psim, pst = _port(jsim, js)
     assert sim.cfg == psim.cfg and sim.domain == psim.domain
     assert (sim.modifier is None) == (jsim.modifier is None)
-    assert sim.extra_force is None and jsim.extra_force is None
+    assert (sim.extra_force is None) == (jsim.extra_force is None)
     jfields = _fields(js)
     assert {f.name for f in dataclasses.fields(st) if getattr(st, f.name) is not None} \
         == set(jfields)
