@@ -151,14 +151,38 @@ Phases (each raises on failure; the script then exits non-zero):
    0.8 dx the fluid does, and two runs agree bit for bit); the random
    stress for one step on phase 4's state (the tensor symmetric and
    traceless, the force linear in sqrt(kBT), the noise a function of
-   (seed, step) alone).
+   (seed, step) alone);
+20. the MLS/ALE golden: flow-past-cylinder-2d-mls at n = 32, f64, 20
+   steps through Simulation.run, held to tests/test_decks.py's bars
+   (finite fields, Poisson relres < 1e-6, no overflow, Cd within 2% of
+   1.8561873826547262, |Cl| < 5% of Cd); both kernels ran;
+21. the cylinder at size: n = 256 (65,536 particles, the cylinder 51 dx
+   across, K = 48, f64), three steps through Simulation.run, each Poisson
+   relres < 1e-6 and vmax within 1e-5 relative of the JAX package's (its
+   Jacobi GMRES(50) stops at the 750-iteration cap in both packages); the
+   median step, iterations, peak memory, a breakdown by the step's named
+   phases (utils/profiling.named_scope bracketed by synchronizes) and the
+   idle share of a profiled step; then one step at n = 512 (262,144
+   particles), its iterations and relres logged;
+22. MLS kernels (run after phase 23): ell_spmv in f64 C = 1 on phase 21's
+   ALE Poisson matrix (N = 65,536, K = 48) and on the 3-D MLS Laplacian of
+   poisson-operator-3d at n = 64 (N = 262,144, K = 360, 94.4M slots), take
+   on the cylinder's f64 pressure and int32 kinds, against their plain
+   versions as in phase 3, timed beside their bounds, plain versions and
+   library calls;
+23. the MLS operator decks: tests/test_decks.py's residual-order bars
+   (the residual of the MLS Laplacian rows on p = sum cos(2 x_d) shrinks
+   by a factor below 0.6 and ends under 0.08 * 8; 0.1 * 8 on the boundary
+   deck) for poisson-operator-2d at n = 256 and 512, poisson-operator-3d at
+   32 and 64 (with each assembly's peak memory) and poisson-boundary-2d at
+   56 and 112.
 
 The last lines are the card's name and power limit from nvidia-smi, one
 JSON line describing the kernels (time, launches on the main path, plain
 and library times and bound of each, at the f32 (N,) shape of its phase;
-ell_spmv and take also at 64^3, on the channel, on the PB Jacobian and on
-the pore-scale deck, with their launches on phases 9, 11, 14-16, 18 and
-19),
+ell_spmv and take also at 64^3, on the channel, on the PB Jacobian, on
+the pore-scale deck and on the MLS matrices and fields of phase 22, with
+their launches on phases 9, 11, 14-16, 18, 19 and 21),
 and the result line
 {"ok": true, "device": {...}}.  Without a CUDA device it prints no result
 and exits non-zero.
@@ -1880,6 +1904,248 @@ def phase_random_stress(dev, tgv_sim, tgv_state):
     if not (bool(torch.isfinite(out.v).all()) and dv > 0.0):
         raise RuntimeError("the random-stress step is not finite or changed nothing")
 
+CYL = "flow-past-cylinder-2d-mls"
+CYL_N = 256
+# the JAX package's f64 vmax after steps 1-3 at n = 256 (on the CPU; both
+# Poisson solves stop at their 750-iteration cap, so the fields agree to
+# about the relres, ~1e-7)
+CYL_JAX_VMAX = (1.1780202282725939e-3, 2.4129037642273026e-3, 3.6963705518801527e-3)
+CYL_CD = 1.8561873826547262  # tests/test_decks.py's n = 32, 20-step drag golden
+
+
+def _ale_poisson_matrix(sim, state):
+    """The ALE Poisson matrix of a state as ale_navier_stokes_step
+    assembles it: -dt times the MLS Laplacian rows of the fluid (filter
+    F,F; mass matrix F,ALL), solid rows diag -1 and zeroed.  Returns (the
+    matrix, the pair geometry)."""
+    from isph_tpu_torch.ops import mls
+    from isph_tpu_torch.ops.corrected import PairFilter
+    from isph_tpu_torch.state import Kind
+
+    _, geom, _ = _geometry(sim, state)
+    cfg = sim.cfg
+    basis = mls.MLSBasis(dim=state.dim, order=cfg.mls.basis_order)
+    Minv = mls.mass_matrix_inverse(basis, geom, cfg.cut, state.kind,
+                                   PairFilter(Kind.FLUID, Kind.ALL))
+    A = mls.operator_matrix(basis, geom, cfg.cut, state.kind, PairFilter(Kind.FLUID, Kind.FLUID),
+                            Minv, betas=[(2, 0, 0), (0, 2, 0), (0, 0, 2)][:state.dim],
+                            alpha=-cfg.dt)
+    fluid = state.is_fluid & state.valid
+    return A.with_diag(torch.where(fluid, A.diag, -1.0)).zero_rows(~fluid), geom
+
+
+def _scoped_breakdown(tag, fn):
+    """Run ``fn()`` with every named phase of the driver and the ALE step
+    (utils/profiling.named_scope) bracketed by synchronizes, and log the
+    host time of each (a breakdown, not a step time: the syncs add cost)."""
+    import contextlib
+    from collections import defaultdict
+
+    from isph_tpu_torch.models import driver
+    from isph_tpu_torch.physics import ale
+
+    acc = defaultdict(float)
+    scope = driver.named_scope
+
+    @contextlib.contextmanager
+    def timed(name, device=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with scope(name, device):
+            yield
+        torch.cuda.synchronize()
+        acc[name] += time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    driver.named_scope = ale.named_scope = timed
+    try:
+        out = fn()
+    finally:
+        driver.named_scope = ale.named_scope = scope
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    parts = ", ".join(f"{k}={1e3 * v:.2f} ms ({v / total:.1%})"
+                      for k, v in sorted(acc.items(), key=lambda kv: -kv[1]))
+    _log(f"{tag}: breakdown {1e3 * total:.2f} ms: {parts}")
+    return out
+
+
+def phase_cylinder_golden(dev):
+    """Phase 20: flow-past-cylinder-2d-mls at n = 32, f64, 20 steps through
+    Simulation.run, held to tests/test_decks.py's drag bars; both kernels
+    ran."""
+    from isph_tpu_torch.models import decks
+    from isph_tpu_torch.ops import spmv_cuda as sc
+    from isph_tpu_torch.physics.diagnostics import drag_lift
+
+    sim, state = decks.build_deck(CYL, n=32, device=dev)
+    for w in (sc.ell_spmv, sc.take):
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, aux = sim.run(state, 20)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in (sc.ell_spmv, sc.take)}
+    _, geom, pre = _geometry(sim, state)
+    cd, cl = (float(t) for t in drag_lift(state, geom, pre, sim.cfg, state.is_solid))
+    finite = bool(torch.isfinite(state.v).all() & torch.isfinite(state.p).all())
+    relres = float(aux.poisson_relres)
+    _log(f"cylinder golden: n=32 N={state.n}, 20 steps in {elapsed:.3f} s, launches {launches}; "
+         f"last step poisson_iters {int(aux.poisson_iters)} relres {relres:.3e} helmholtz_iters "
+         f"{int(aux.helmholtz_iters)}, overflow {int(aux.neighbor_overflow)}; Cd {cd:.10f} "
+         f"(golden {CYL_CD:.10f}, {cd / CYL_CD - 1.0:+.3e}), Cl {cl:.3e}")
+    if not (finite and relres < 1e-6 and int(aux.neighbor_overflow) == 0):
+        raise RuntimeError("the n = 32 cylinder is not finite, converged and overflow-free")
+    if not (abs(cd / CYL_CD - 1.0) < 2e-2 and abs(cl) < 0.05 * abs(cd)):
+        raise RuntimeError("the n = 32 cylinder's drag or lift is off tests/test_decks.py's bars")
+    if min(launches.values()) <= 0:
+        raise RuntimeError(f"a kernel of the cylinder path never launched: {launches}")
+
+
+def phase_cylinder(dev):
+    """Phase 21: three f64 steps of flow-past-cylinder-2d-mls at n = 256
+    (65,536 particles, the cylinder 51 dx across) through Simulation.run,
+    each Poisson relres < 1e-6 and vmax within 1e-5 of JAX's; the step
+    time, iterations, peak memory, a breakdown by named phase and the idle
+    share of a profiled step; then one step at n = 512, logged.  Returns
+    the launches and the step-3 (simulation, state) for phase 22."""
+    from isph_tpu_torch.models import decks
+    from isph_tpu_torch.ops import spmv_cuda as sc
+
+    sim, state = decks.build_deck(CYL, n=CYL_N, device=dev)
+    solid = state.is_solid & state.valid
+    sc_ = sim.cfg.solver
+    _log(f"cylinder: {CYL} n={CYL_N} N={state.n} ({int(solid.sum())} solid), "
+         f"K={sim.cfg.neighbor.max_neighbors}, dt {sim.cfg.dt:.6g}, f64; Jacobi GMRES"
+         f"({sc_.restart}) x {sc_.max_restarts} restarts, tol {sc_.tol:g} (config precond "
+         f"{sc_.precond!r} is not read by the ALE solves)")
+    bad = []
+
+    def each(k, st, aux):
+        vmax = float(aux.status.vmax)
+        rel = vmax / CYL_JAX_VMAX[k] - 1.0
+        _log(f"cylinder: step {k + 1}: vmax {vmax:.17g} (JAX {CYL_JAX_VMAX[k]:.17g}, {rel:+.2e}), "
+             f"helmholtz relres {float(aux.helmholtz_relres):.3e}")
+        if not (float(aux.poisson_relres) < 1e-6 and abs(rel) < 1e-5):
+            bad.append(k + 1)
+
+    state, aux, launches = _run_steps("cylinder", sim, state, (sc.ell_spmv, sc.take),
+                                      cap_check=False, each=each)
+    if bad:
+        raise RuntimeError(f"cylinder steps {bad}: Poisson relres >= 1e-6 or vmax off JAX's")
+    if min(launches.values()) <= 0:
+        raise RuntimeError(f"a kernel of the cylinder path never launched: {launches}")
+    _scoped_breakdown("cylinder step 4", lambda: sim.run(state, 1))
+    wall, busy, nk = _idle_share(lambda: sim.run(state, 1))
+    _log(f"cylinder: step 4 profiled {wall:.4f} s, device busy {busy:.4f} s over {nk} "
+         f"kernels, idle share {1.0 - busy / wall:.3f}")
+    if not 0.0 < busy <= wall:
+        raise RuntimeError("the profiled device time is not within the step's wall time")
+
+    sim5, st5 = decks.build_deck(CYL, n=2 * CYL_N, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st5, aux5 = sim5.run(st5, 1)
+    torch.cuda.synchronize()
+    _log(f"cylinder n={2 * CYL_N}: N={st5.n}, one step {time.perf_counter() - t0:.4f} s: "
+         f"poisson_iters {int(aux5.poisson_iters)} relres {float(aux5.poisson_relres):.3e}, "
+         f"helmholtz_iters {int(aux5.helmholtz_iters)}, vmax {float(aux5.status.vmax):.6e}, "
+         f"overflow {int(aux5.neighbor_overflow)}, finite "
+         f"{bool(torch.isfinite(st5.v).all())}; peak "
+         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB (a record, no bar: JAX on the "
+         f"CPU stops at its 750-iteration cap, relres 3.16e-5)")
+    return launches, sim, state
+
+
+MLS_OPERATOR_DECKS = (("poisson-operator-2d", (256, 512), 0.6, 0.08),
+                      ("poisson-operator-3d", (32, 64), 0.6, 0.08),
+                      ("poisson-boundary-2d", (56, 112), 0.6, 0.1))
+
+
+def phase_mls_operators(dev):
+    """Phase 23: tests/test_decks.py's residual-order checks of the MLS
+    operator decks on the card at larger sizes: the max residual of the
+    MLS Laplacian rows applied to p = sum cos(2 x_d) against -4 p shrinks
+    by a factor below 0.6 under refinement and ends under 0.08 * 8 (the
+    boundary deck: 0.1 * 8, fluid rows).  Returns the 3-D n = 64 rows for
+    phase 22."""
+    from isph_tpu_torch.models import decks
+    from isph_tpu_torch.ops import mls
+    from isph_tpu_torch.ops.corrected import PairFilter
+    from isph_tpu_torch.state import Kind
+
+    keep = None
+    for name, sizes, ratio, frac in MLS_OPERATOR_DECKS:
+        errs = []
+        for n in sizes:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            sim, state = decks.build_deck(name, n=n, device=dev)
+            _, geom, _ = _geometry(sim, state)
+            rth = sim.cfg.h  # MLS support = h (cut_over_h = 1)
+            basis = mls.MLSBasis(dim=sim.cfg.dim, order=sim.cfg.mls.basis_order)
+            filt = PairFilter(Kind.FLUID, Kind.ALL)
+            Minv = mls.mass_matrix_inverse(basis, geom, rth, state.kind, filt)
+            p, lap_exact = decks.mls_poisson_operator_exact(state.x)
+            A = mls.operator_matrix(basis, geom, rth, state.kind, filt, Minv,
+                                    betas=[(2, 0, 0), (0, 2, 0), (0, 0, 2)][:sim.cfg.dim])
+            rows = state.valid if name.startswith("poisson-operator") else (
+                state.is_fluid & state.valid)
+            err = float((A.matvec(p) - lap_exact).abs()[rows].max())
+            torch.cuda.synchronize()
+            errs.append(err)
+            _log(f"mls operators: {name} n={n} N={state.n} K={A.vals.shape[0]}: max residual "
+                 f"{err:.6e} ({time.perf_counter() - t0:.3f} s with the build, peak "
+                 f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB above the "
+                 f"start)")
+            if name == "poisson-operator-3d" and n == sizes[-1]:
+                keep = A
+            del geom, Minv, A, p, lap_exact
+            torch.cuda.empty_cache()
+        _log(f"mls operators: {name}: ratio {errs[1] / errs[0]:.4f} (bar {ratio}), final "
+             f"{errs[1]:.4e} (bar {frac * 8.0:g})")
+        if not (errs[1] < ratio * errs[0] and errs[1] < frac * 8.0):
+            raise RuntimeError(f"{name}: the MLS residual is off tests/test_decks.py's bars")
+    return keep
+
+
+MLS_TAKE_SHAPES = ("f64 (N,) p", "int32 (N,) kind")
+
+
+def phase_mls_kernels(dev, flush, sim, state, A3):
+    """Phase 22: ell_spmv (f64 C = 1) on the n = 256 cylinder's ALE
+    Poisson matrix (phase 21's step-3 state) and on the 3-D MLS Laplacian
+    of poisson-operator-3d at n = 64 (phase 23), take on the cylinder's
+    pressure (f64 (N,)) and kind bitmasks (int32 (N,)), against their plain
+    versions as phase 3 holds them."""
+    from isph_tpu_torch.ops import spmv_cuda as sc
+
+    rng = np.random.default_rng(9)
+    A, geom = _ale_poisson_matrix(sim, state)
+    fields = dict(zip(MLS_TAKE_SHAPES, (state.p, state.kind)))
+    take = _take_sweep("mls kernels: take cylinder", sc.take, geom.idx, fields, flush,
+                       main_shapes=MLS_TAKE_SHAPES)
+    out = dict(take=take["f64 (N,) p"], take_rows=take)
+    err = 0.0
+    for tag, M in (("cylinder Poisson", A), ("3-D operator n=64", A3)):
+        K, n = M.vals.shape
+        nnz = int(M.mask.sum().item()) + n
+        live = int(M.slots.slot_end.to(torch.int64).sum())
+        _log(f"mls kernels: {tag} N={n} K={K} nnz={nnz} ({live} live slots, "
+             f"{K * n / 1e6:.1f}M slots, SpMV V={_spmv_rows_per_thread(n, 8)} in f64)")
+        rows, e = _sweep_ell(f"mls kernels: spmv {tag}", M, nnz, flush, rng,
+                             ((torch.float64, (1,)),))
+        err = max(err, e)
+        out["spmv_cylinder" if tag.startswith("cylinder") else "spmv_3d"] = rows[
+            (torch.float64, 1)]
+    out["spmv_err"] = err
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1972,6 +2238,18 @@ def main() -> int:
     phase_micelle(dev)
     phase_random_stress(dev, tgv_sim, tgv_state)
 
+    # phase 20: the n = 32 cylinder golden; phase 21: the cylinder at size;
+    # phase 23: the MLS operator decks; phase 22: the kernels on the
+    # cylinder's and the 3-D operator deck's matrices
+    torch.cuda.empty_cache()
+    phase_cylinder_golden(dev)
+    launches_cyl, cyl_sim, cyl_state = phase_cylinder(dev)
+    torch.cuda.empty_cache()
+    A3 = phase_mls_operators(dev)
+    flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
+    km = phase_mls_kernels(dev, flush, cyl_sim, cyl_state, A3)
+    del flush, A3, cyl_sim, cyl_state
+
     def row(name, source, replaces, launched, err, t):
         return dict(name=name, route="cuda", source=f"isph_tpu_torch/csrc/{source}",
                     replaces=f"isph_tpu/ops/spmv_pallas.py:{replaces}", launches=launched,
@@ -1983,24 +2261,29 @@ def main() -> int:
         return {key: t[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
 
     def beyond(name):
-        """The launches on phases 9, 11, 14-16, 18 and 19a, the f32 (N,) rows
-        of phases 8 (64^3) and 10 (the channel's Poisson matrix) and the f64
-        rows of phases 12 (the PB Jacobian) and 17 (the pore-scale deck's
-        Poisson fluid block, its Shepard volumes)."""
+        """The launches on phases 9, 11, 14-16, 18, 19a and 21, the f32 (N,)
+        rows of phases 8 (64^3) and 10 (the channel's Poisson matrix) and the
+        f64 rows of phases 12 (the PB Jacobian), 17 (the pore-scale deck's
+        Poisson fluid block, its Shepard volumes) and 22 (the cylinder's ALE
+        Poisson matrix and pressure; the 3-D MLS Laplacian)."""
         kname = "spmv" if name == "ell_spmv" else name
+        mls_rows = (dict(at_cylinder=times(km["spmv_cylinder"]),
+                         at_mls_3d=times(km["spmv_3d"])) if name == "ell_spmv"
+                    else dict(at_cylinder=times(km["take"])))
         return dict(launches_3d=launches_3d[name], launches_channel=launches_channel[name],
                     launches_edl=launches_edl[name],
                     launches_transport=launches_transport[name],
                     launches_walls=launches_walls[name],
                     launches_pore3d=launches_pore3d[name],
                     launches_droplet=launches_droplet[name],
+                    launches_cylinder=launches_cyl[name],
                     at_64cubed=times(k3["rows"][64][kname]), at_channel=times(kc[kname]),
-                    at_edl=times(ke[kname]), at_pore3d=times(kp[kname]))
+                    at_edl=times(ke[kname]), at_pore3d=times(kp[kname]), **mls_rows)
 
     kernels = [
         {**row("ell_spmv", "spmv.cu", 298, launches["ell_spmv"],
                max(k["spmv_err"], kb["spmv32_err"], k3["spmv_err"], kc["spmv_err"],
-                   ke["spmv_err"], kp["spmv_err"]), k["spmv"]),
+                   ke["spmv_err"], kp["spmv_err"], km["spmv_err"]), k["spmv"]),
          **beyond("ell_spmv")},
         {**row("take", "take.cu", 332, launches["take"], 0.0, k["take"]), **beyond("take")},
         row("ell_spmv_band", "spmv_band.cu", 458, launches_large["ell_spmv_band"],

@@ -1,6 +1,7 @@
-"""Carry configurations and particle states across from the JAX package.
+"""Carry configurations and particle states across from and to the JAX
+package.
 
-Neither function imports jax: the caller converts JAX arrays to numpy
+No function imports jax: the caller converts JAX arrays to numpy
 (``np.asarray``) and configs to dicts (``dataclasses.asdict``) first.
 """
 
@@ -13,20 +14,37 @@ import numpy as np
 import torch
 
 from isph_tpu_torch import config as C
+from isph_tpu_torch.physics.ale import ALEHistory
 from isph_tpu_torch.state import ParticleState
 
 
-_INT_FIELDS = {"kind": torch.int32, "step": torch.int32, "phase": torch.int32}
+_INT_FIELDS = {"kind": torch.int32, "step": torch.int32, "phase": torch.int32,
+               "nprev": torch.int32}
 _BOOL_FIELDS = {"valid"}
+
+
+_HIST_FIELDS = tuple(f.name for f in dataclasses.fields(ALEHistory))
+
+
+def _tensor(name: str, arr, device, dtype: torch.dtype) -> torch.Tensor:
+    arr = np.array(arr)  # a copy: never alias the caller's buffers
+    if name in _INT_FIELDS:
+        return torch.as_tensor(arr, dtype=_INT_FIELDS[name], device=device)
+    if name in _BOOL_FIELDS:
+        return torch.as_tensor(arr.astype(bool), device=device)
+    return torch.as_tensor(arr, dtype=dtype, device=device)
 
 
 def state_from_numpy(fields: Mapping[str, np.ndarray], device, dtype: torch.dtype) -> ParticleState:
     """Port state from a JAX state's non-None fields as numpy arrays
     (same names, same layouts).  Floating fields are cast to ``dtype``;
-    ``kind``/``step``/``phase`` stay int32 and ``valid`` bool.  ``amg_cache`` is
-    left behind: the port builds its AMG hierarchy at the state's first
-    solve.  A field the port does not carry raises: it belongs to a feature
-    that is not ported yet."""
+    ``kind``/``step``/``phase`` and the ALE history's ``nprev`` stay int32
+    and ``valid`` bool.  ``ale_hist`` is a mapping of the ``ALEHistory``
+    fields (``vprev``, ``dxprev``, ``dts``, ``nprev``) as numpy arrays.
+    ``amg_cache`` is left behind: the port builds its AMG hierarchy at the
+    state's first solve.  A field the port does not carry (the recycling
+    GMRES's ``solver_cache``) raises: it belongs to a feature that is not
+    ported yet."""
     names = {f.name for f in dataclasses.fields(ParticleState)} - {"amg_cache"}
     fields = {k: v for k, v in fields.items() if k != "amg_cache"}
     extra = sorted(set(fields) - names)
@@ -36,15 +54,29 @@ def state_from_numpy(fields: Mapping[str, np.ndarray], device, dtype: torch.dtyp
     for name, arr in fields.items():
         if arr is None:
             continue
-        arr = np.array(arr)  # a copy: never alias the caller's buffers
-        if name in _INT_FIELDS:
-            t = torch.as_tensor(arr, dtype=_INT_FIELDS[name], device=device)
-        elif name in _BOOL_FIELDS:
-            t = torch.as_tensor(arr.astype(bool), device=device)
+        if name == "ale_hist":
+            kw[name] = ALEHistory(**{k: _tensor(k, arr[k], device, dtype)
+                                     for k in _HIST_FIELDS})
         else:
-            t = torch.as_tensor(arr, dtype=dtype, device=device)
-        kw[name] = t
+            kw[name] = _tensor(name, arr, device, dtype)
     return ParticleState(**kw)
+
+
+def state_to_numpy(state: ParticleState) -> dict:
+    """The state's non-None fields as numpy arrays, ``ale_hist`` as a dict
+    of its fields: what :func:`state_from_numpy` takes, and what the JAX
+    package's ``ParticleState``/``ALEHistory`` are built from.  The AMG
+    hierarchy cache is left behind."""
+    out = {}
+    for f in dataclasses.fields(state):
+        val = getattr(state, f.name)
+        if val is None or f.name == "amg_cache":
+            continue
+        if f.name == "ale_hist":
+            out[f.name] = {k: getattr(val, k).detach().cpu().numpy() for k in _HIST_FIELDS}
+        else:
+            out[f.name] = val.detach().cpu().numpy()
+    return out
 
 
 def config_from_dict(d: Mapping) -> C.SimulationConfig:

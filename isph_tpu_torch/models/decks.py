@@ -5,9 +5,8 @@ Each ``make_*`` builder reproduces one of the reference's ready-to-run
 problem decks (reference IMPLICIT-SPH/sph-script/*.lmp + *.xml).  The
 :data:`DECKS` registry maps reference deck names to builders, so
 ``build_deck("square-concentration-fix-2d")`` is the equivalent of
-``lmp -in square-concentration-fix-2d.lmp``.  A deck of the JAX registry
-that waits for a module the port lacks raises ``NotImplementedError``
-naming that module (:data:`WAITING`).
+``lmp -in square-concentration-fix-2d.lmp``.  Every name of the JAX
+registry builds, the MLS/ALE decks included.
 
 TGV, Poiseuille/Couette and channel-EDL live in their own modules
 (:mod:`~.tgv`, :mod:`~.channel`, :mod:`~.edl`) and are re-listed here.
@@ -28,6 +27,7 @@ from isph_tpu_torch.config import (
     BoundaryCond,
     KernelConfig,
     KernelType,
+    MLSConfig,
     NavierStokesConfig,
     NeighborConfig,
     PoissonBoltzmannConfig,
@@ -1232,6 +1232,159 @@ def make_shift_test(
 
 
 # ---------------------------------------------------------------------------
+# MLS operator-verification decks
+# (mls-script/poisson-operator-{2d,3d}.lmp + poisson-operator.xml,
+#  mls-script/poisson-boundary-2d.lmp)
+# ---------------------------------------------------------------------------
+
+def make_mls_poisson_operator(
+    n: int = 32,  # deck N = 64
+    *,
+    dim: int = 2,
+    xi: float = 0.05,  # displace_atoms random 0.05*h (deck :33)
+    basis_order: int = 2,
+    seed: int = 42,
+    dtype: torch.dtype = torch.float64,
+    device: torch.device | str = "cuda",
+    pad_multiple: int = 8,
+) -> Tuple[Simulation, ParticleState]:
+    """MLS Poisson operator verification cloud: periodic [0, 2pi]^dim
+    lattice randomly displaced by xi*h, v = (cos x cos y, -sin x sin y),
+    MLS backend (pair_style isph/mls).  The manufactured pressure is
+    p = sum_d cos(2 x_d) (poisson-operator.xml Analytic Solution); tests
+    apply the MLS Laplacian matrix to it and check the discrete residual
+    order (the reference's Poisson Operator Test)."""
+    require_device("make_mls_poisson_operator", device)
+    L = 2.0 * math.pi
+    dx = L / n
+    pts = _square_lattice([0.0] * dim, [L] * dim, dx, dim)
+    rng = np.random.default_rng(seed)
+    # displace_atoms random xi*h with the deck's h = 6 dx; the MLS support
+    # here is 4 dx, ample for the order-2 basis
+    pts = pts + rng.uniform(-1.0, 1.0, pts.shape) * (xi * 6.0 * dx)
+    n_real = pts.shape[0]
+    v = np.stack(
+        [np.cos(pts[:, 0]) * np.cos(pts[:, 1]),
+         -np.sin(pts[:, 0]) * np.sin(pts[:, 1])]
+        + ([np.zeros(n_real)] if dim == 3 else []), axis=-1)
+    state = make_state(
+        pts, v=v, kind=np.full(n_real, Kind.FLUID_BIT, np.int32), rho=1.0,
+        nu=0.1, pad_to=_round_up(n_real, pad_multiple), dtype=dtype, device=device,
+    )
+    cfg = SimulationConfig(
+        dim=dim, h=4.0 * dx, dt=1.0, dtype=_dtype_name(dtype),
+        backend="mls_ale",
+        kernel=KernelConfig(type=KernelType.WENDLAND, cut_over_h=1.0),
+        mls=MLSConfig(basis_order=basis_order, bdf_order=1),
+        ns=NavierStokesConfig(theta=0.5, singular_poisson=SingularPoisson.NULL_SPACE),
+        neighbor=_neighbor_cfg(dx, 4.0 * dx, dim),
+    )
+    domain = Domain(lo=(0.0,) * dim, hi=(L,) * dim, periodic=(True,) * dim)
+    return Simulation(cfg=cfg, domain=domain), state
+
+
+def mls_poisson_operator_exact(x: torch.Tensor):
+    """p = sum_d cos(2 x_d) with Laplacian -4 p (poisson-operator.xml)."""
+    p = sum(torch.cos(2.0 * x[d]) for d in range(x.shape[0]))
+    return p, -4.0 * p
+
+
+def make_mls_poisson_boundary(
+    n: int = 32,
+    *,
+    basis_order: int = 2,
+    xi: float = 0.15,
+    seed: int = 11,
+    dtype: torch.dtype = torch.float64,
+    device: torch.device | str = "cuda",
+    pad_multiple: int = 8,
+) -> Tuple[Simulation, ParticleState]:
+    """MLS compact-Poisson BOUNDARY verification (poisson-boundary-2d.lmp:
+    non-periodic box read from poisson-boundary-2d.data — a disordered
+    interior cloud with wall layers; generated here: jittered lattice with
+    3-row solid walls).  Tests pair it with the compact-Poisson boundary
+    rows (functor_mls_helper_compact_poisson.h)."""
+    require_device("make_mls_poisson_boundary", device)
+    L = 2.0 * math.pi
+    dx = L / n
+    nwall = 3
+    lo_w = -nwall * dx
+    hi_w = L + nwall * dx
+    pts = _square_lattice([lo_w, lo_w], [hi_w, hi_w], dx, 2)
+    interior = np.all((pts > 0.0) & (pts < L), axis=1)
+    rng = np.random.default_rng(seed)
+    pts = pts + np.where(interior[:, None], rng.uniform(-xi * dx, xi * dx, pts.shape), 0.0)
+    n_real = pts.shape[0]
+    kind = np.where(interior, Kind.FLUID_BIT, Kind.SOLID).astype(np.int32)
+    state = make_state(
+        pts, kind=kind, rho=1.0, nu=0.1,
+        pad_to=_round_up(n_real, pad_multiple), dtype=dtype, device=device,
+    )
+    cfg = SimulationConfig(
+        dim=2, h=4.0 * dx, dt=1.0, dtype=_dtype_name(dtype),
+        backend="mls_ale",
+        kernel=KernelConfig(type=KernelType.WENDLAND, cut_over_h=1.0),
+        mls=MLSConfig(basis_order=basis_order, bdf_order=1),
+        ns=NavierStokesConfig(theta=0.5, singular_poisson=SingularPoisson.NOT_SINGULAR),
+        neighbor=_neighbor_cfg(dx, 4.0 * dx, 2),
+    )
+    domain = Domain(lo=(lo_w, lo_w), hi=(hi_w, hi_w), periodic=(False, False))
+    return Simulation(cfg=cfg, domain=domain), state
+
+
+def make_flow_past_cylinder(
+    n: int = 48,
+    *,
+    rcyl: float = 0.1,
+    g: float = 0.5,  # body-force drive (re-entrant periodic array of cylinders)
+    nu: float = 0.05,
+    basis_order: int = 2,
+    bdf_order: int = 2,
+    dtype: torch.dtype = torch.float64,
+    device: torch.device | str = "cuda",
+    pad_multiple: int = 8,
+    max_neighbors: Optional[int] = None,
+) -> Tuple[Simulation, ParticleState]:
+    """Flow past a (periodic array of) cylinder(s) on the MLS/ALE backend —
+    the reference's flagship MLS problem (mls-script deck with the drag/lift
+    status compute, mls-src/compute_isph_status_flow_past_cylinder.cpp:1-231,
+    scheme mls-src/pair_isph_mls.cpp:553-700).
+
+    Periodic box [0,1]^2, solid disk of radius ``rcyl`` at the center, flow
+    driven by a body force along +x.  Drag/lift via
+    :func:`isph_tpu_torch.physics.diagnostics.drag_lift` over the solid mask.
+    """
+    require_device("make_flow_past_cylinder", device)
+    L = 1.0
+    dx = L / n
+    h = 1.5 * dx
+    cut = 2.0 * h
+    pts = _square_lattice([0.0, 0.0], [L, L], dx, 2)
+    n_real = pts.shape[0]
+    rsq = ((pts - 0.5) ** 2).sum(1)
+    kind = np.where(rsq < rcyl**2, Kind.SOLID, Kind.FLUID_BIT).astype(np.int32)
+    state = make_state(
+        pts, kind=kind, rho=1.0, nu=nu,
+        pad_to=_round_up(n_real, pad_multiple), dtype=dtype, device=device,
+    )
+    umax_est = max(g * (L / 4) ** 2 / max(nu, 1e-9), 1e-3)
+    dt = 0.25 * h / umax_est
+    cfg = SimulationConfig(
+        backend="mls_ale",
+        dim=2, h=h, dt=dt, dtype=_dtype_name(dtype),
+        kernel=KernelConfig(type=KernelType.WENDLAND, cut_over_h=2.0),
+        ns=NavierStokesConfig(
+            theta=0.5, singular_poisson=SingularPoisson.NULL_SPACE,
+            g=(g, 0.0, 0.0),
+        ),
+        mls=MLSConfig(basis_order=basis_order, bdf_order=bdf_order),
+        neighbor=_neighbor_cfg(dx, cut, 2, max_neighbors),
+    )
+    domain = Domain(lo=(0.0, 0.0), hi=(L, L), periodic=(True, True))
+    return Simulation(cfg=cfg, domain=domain), state
+
+
+# ---------------------------------------------------------------------------
 # registry (reference deck name -> builder)
 # ---------------------------------------------------------------------------
 
@@ -1302,25 +1455,21 @@ DECKS: Dict[str, Callable] = {
     "colloid-in-channel-2d": make_colloid_in_channel,
     # polymers
     "isph-micelle": make_micelle,
+    # MLS / ALE backend
+    "flow-past-cylinder-2d-mls": make_flow_past_cylinder,
+    "poisson-operator-2d": make_mls_poisson_operator,
+    "poisson-operator-3d": lambda **kw: make_mls_poisson_operator(dim=3, **kw),
+    "poisson-boundary-2d": make_mls_poisson_boundary,
 }
 
 # decks of the JAX registry that the port does not build yet, each with the
-# module it waits for (ROADMAP queue 1)
-_MLS = "ops/mls.py and physics/ale.py (the mls_ale backend)"
-WAITING: Dict[str, str] = {
-    "flow-past-cylinder-2d-mls": _MLS,
-    "poisson-operator-2d": _MLS,
-    "poisson-operator-3d": _MLS,
-    "poisson-boundary-2d": _MLS,
-}
+# module it waits for: none since the MLS/ALE backend was ported
+WAITING: Dict[str, str] = {}
 
 
 def build_deck(name: str, **kw):
     """Instantiate a named reference deck; returns whatever the builder
     returns (always starting with (Simulation, ParticleState))."""
-    if name in WAITING:
-        raise NotImplementedError(
-            f"deck {name!r} is not ported yet: it waits for {WAITING[name]}")
     try:
         builder = DECKS[name]
     except KeyError:

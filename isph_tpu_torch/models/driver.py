@@ -1,5 +1,5 @@
-"""Timestep driver (PyTorch port of ``isph_tpu/models/driver.py`` for the
-corrected backend).
+"""Timestep driver (PyTorch port of ``isph_tpu/models/driver.py``: the
+corrected backend and the MLS/ALE one).
 
 A step is a function ``state -> (state, aux)`` run eagerly; the neighbor
 rebuild happens inside every step.  The host loops :meth:`Simulation.run`,
@@ -27,7 +27,7 @@ from isph_tpu_torch.ops.neighbors import (
     build_neighbor_list_bruteforce,
     compute_pair_geometry,
 )
-from isph_tpu_torch.physics import electrokinetics, fluctuation, multiphase, ns_projection
+from isph_tpu_torch.physics import ale, electrokinetics, fluctuation, multiphase, ns_projection
 from isph_tpu_torch.physics import shift as shift_mod, transport
 from isph_tpu_torch.physics.status import Status, compute_status
 from isph_tpu_torch.utils.profiling import named_scope
@@ -47,7 +47,6 @@ class StepAux(NamedTuple):
 def unported_features(cfg: SimulationConfig) -> list[str]:
     """Enabled features of ``cfg`` that the port does not run yet."""
     checks = [
-        (cfg.backend == "mls_ale", "mls_ale backend"),
         (cfg.solver.recycle_k > 0, "recycle_k (recycling GMRES)"),
         (cfg.solver.precond == "ilu", "ILU preconditioner"),
     ]
@@ -93,14 +92,21 @@ class Simulation:
         return ns_projection.compute_pre(state, geom, self.cfg)
 
     # -- backend prep --------------------------------------------------------
-    def prepare(self, state: ParticleState) -> ParticleState:
-        """Check that every enabled feature is ported.  The state comes back
-        unchanged: no AMG hierarchy cache is seeded, because a state without
-        one builds its hierarchy at its first solve
-        (``ns_projection.amg_rebuild_due``)."""
+    def _require_ported(self) -> None:
         missing = unported_features(self.cfg)
         if missing:
             raise NotImplementedError(f"not yet ported: {', '.join(missing)}")
+
+    def prepare(self, state: ParticleState) -> ParticleState:
+        """Check that every enabled feature is ported, and on the MLS/ALE
+        backend give a state without one its BDF histories
+        (``ale.ALEHistory.init``).  No AMG hierarchy cache is seeded, because
+        a state without one builds its hierarchy at its first solve
+        (``ns_projection.amg_rebuild_due``); the ALE solves use none."""
+        self._require_ported()
+        if self.cfg.backend == "mls_ale" and state.ale_hist is None:
+            state = state.replace(ale_hist=ale.ALEHistory.init(
+                state, self.cfg.mls.bdf_order, self.cfg.dt))
         return state
 
     # -- one full timestep -------------------------------------------------
@@ -113,9 +119,12 @@ class Simulation:
         ``cfg.ns.enabled`` is carried but not read, as in the JAX step.  The
         random stress draws its noise from a generator seeded by
         (``cfg.rs.seed``, step): not JAX's threefry stream
-        (:mod:`~isph_tpu_torch.physics.fluctuation`)."""
+        (:mod:`~isph_tpu_torch.physics.fluctuation`).  The "mls_ale" backend
+        follows the ALE dispatch instead (:meth:`_step_mls_ale`)."""
         cfg = self.cfg
-        self.prepare(state)
+        if cfg.backend == "mls_ale":
+            return self._step_mls_ale(state)
+        self._require_ported()
         dev = state.device
 
         if self.modifier is not None:
@@ -210,6 +219,73 @@ class Simulation:
             poisson_iters=info.poisson.iters,
             poisson_relres=info.poisson.relres,
             neighbor_overflow=overflow,
+        )
+        return state, aux
+
+    def _step_mls_ale(self, state: ParticleState) -> Tuple[ParticleState, StepAux]:
+        """MLS backend with the ALE velocity-correction scheme (reference
+        PairISPH_MLS::advanceTime + computeAleIncompressibleNavierStokes,
+        mls-src/pair_isph_mls.cpp:553-827): the particle move happens at
+        initial-integrate (BDF-extrapolated velocity), THEN the neighbor
+        rebuild and the predict/Poisson/correct/Helmholtz solves.  The state
+        must come from :meth:`prepare` (which :meth:`run` and
+        :meth:`run_until` call; :meth:`run_adaptive` does not, as in JAX)."""
+        cfg = self.cfg
+        self._require_ported()
+        hist = state.ale_hist
+        if hist is None:
+            raise RuntimeError("call Simulation.prepare(state) for the ALE backend")
+        dev = state.device
+
+        if self.modifier is not None:
+            with named_scope("modifier", dev):
+                t_now = (state.step.to(state.dtype) if state.step is not None
+                         else torch.zeros((), dtype=state.dtype, device=dev)) * cfg.dt
+                state = self.modifier(state, t_now)
+
+        with named_scope("advance", dev):
+            state, hist = ale.ale_advance(state, hist, cfg, self.domain, cfg.mls.bdf_order)
+        if cfg.shift.enabled:
+            # FixISPH_Shift::initial_integrate on the ALE scheme:
+            # refreshParticles -> ALE apply-shift (xdot absorbs gamma/dt dr),
+            # then the solves re-neighbor below
+            with named_scope("shift", dev):
+                nbrs0 = self.neighbors(state)
+                geom0 = self.geometry(state, nbrs0)
+                state = ale.ale_apply_shift(state, hist, geom0, cfg, self.domain,
+                                            cfg.mls.bdf_order)
+        with named_scope("neighbors", dev):
+            nbrs = self.neighbors(state)
+        with named_scope("geometry", dev):
+            geom = self.geometry(state, nbrs)
+        with named_scope("compute_pre", dev):
+            pre = self.precompute(state, geom)
+
+        state = state.replace(f=torch.zeros_like(state.v))
+        if self.extra_force is not None:
+            with named_scope("extra_force", dev):
+                state = state.replace(f=self.extra_force(state, self.domain))
+
+        # phases "mls_assembly", "poisson", "correct" and "helmholtz" are
+        # scoped inside
+        state, info = ale.ale_navier_stokes_step(
+            state, geom, pre, hist, cfg, self.domain,
+            order=cfg.mls.bdf_order, basis_order=cfg.mls.basis_order)
+        state = state.replace(ale_hist=hist)
+
+        if state.step is not None:
+            state = state.replace(step=state.step + 1)
+            time = state.step.to(state.dtype) * cfg.dt
+        else:
+            time = 0.0
+        status = compute_status(state, pre.vfrac, time)
+        aux = StepAux(
+            status=status,
+            helmholtz_iters=info.helmholtz.iters.sum(),
+            helmholtz_relres=info.helmholtz.relres.max(),
+            poisson_iters=info.poisson.iters,
+            poisson_relres=info.poisson.relres,
+            neighbor_overflow=nbrs.overflow,
         )
         return state, aux
 

@@ -94,6 +94,34 @@ def quintic_dw(r, h, dim: int):
     return _quintic_C(h, dim) / h * (-5.0 * t3 + 30.0 * t2 - 75.0 * t1)
 
 
+# --- MLS weight kernel (reference kernel_mls.h:15-24) -----------------------
+
+def integer_pow(x: torch.Tensor, e: int) -> torch.Tensor:
+    """x**e for a positive int e by binary exponentiation, in the order
+    ``jnp``'s ``**`` (``lax.integer_pow``) multiplies: x**6 = x^2 * (x^2)^2.
+    ``torch.pow`` rounds differently, and the MLS Gram matrices carry such
+    last-bit differences into their inverses."""
+    acc = None
+    while e > 0:
+        if e & 1:
+            acc = x if acc is None else acc * x
+        e >>= 1
+        if e > 0:
+            x = x * x
+    return acc
+
+
+def mls_w(r, rth, dim: int):
+    """(1 - r/rth)^6 weight used by the MLS backend; un-normalized."""
+    s = torch.abs(r / rth)
+    return integer_pow(torch.clamp_min(1.0 - s, 0.0), 6)
+
+
+def mls_dw(r, rth, dim: int):
+    s = torch.abs(r / rth)
+    return -6.0 / rth * integer_pow(torch.clamp_min(1.0 - s, 0.0), 5)
+
+
 _REGISTRY = {
     KernelType.WENDLAND: Kernel(wendland_w, wendland_dw, 2.0),
     KernelType.CUBIC: Kernel(cubic_w, cubic_dw, 2.0),

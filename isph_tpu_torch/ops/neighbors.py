@@ -423,12 +423,18 @@ def reorder_by(perm: torch.Tensor, state):
     """Permute a particle-minor tensor, or every particle-minor tensor of a
     :class:`ParticleState`, along its last axis (0-d tensors untouched).
     A state's ``amg_cache`` is left behind: its hierarchy belongs to the old
-    order, and the state builds a new one at its first solve."""
+    order, and the state builds a new one at its first solve.  Its
+    ``ale_hist`` keeps its timesteps and count and permutes its velocity and
+    position histories (JAX's tree map would index the (order,) timesteps
+    with the particle permutation too)."""
     def leaf(a):
         return a if a is None or a.ndim == 0 else a[..., perm]
 
     if isinstance(state, torch.Tensor):
         return leaf(state)
     kw = {f.name: leaf(getattr(state, f.name)) for f in dataclasses.fields(state)
-          if f.name != "amg_cache"}
-    return dataclasses.replace(state, amg_cache=None, **kw)
+          if f.name not in ("amg_cache", "ale_hist")}
+    hist = state.ale_hist
+    if hist is not None:
+        hist = dataclasses.replace(hist, vprev=leaf(hist.vprev), dxprev=leaf(hist.dxprev))
+    return dataclasses.replace(state, amg_cache=None, ale_hist=hist, **kw)

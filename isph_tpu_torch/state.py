@@ -72,8 +72,8 @@ class ParticleState:
 
     Shapes: N = padded particle count, D = spatial dim (2 or 3).  Vectors
     are (D, N), scalars (N,).  Only the fields of the ported physics exist
-    here; ``interop.state_from_numpy`` refuses any other (the MLS/ALE
-    backend's ``ale_hist`` and the recycling GMRES's ``solver_cache``).
+    here; ``interop.state_from_numpy`` refuses any other (the recycling
+    GMRES's ``solver_cache``).
     """
 
     x: torch.Tensor  # (D, N) positions
@@ -100,6 +100,9 @@ class ParticleState:
     # AMG hierarchy carried between steps under the max-age policy
     # (solvers/amg.py AMGCache); None until the first AMG solve builds one
     amg_cache: Optional[object] = None
+    # BDF histories of the MLS/ALE backend (physics/ale.py ALEHistory), set
+    # by Simulation.prepare
+    ale_hist: Optional[object] = None
 
     @property
     def n(self) -> int:

@@ -91,3 +91,30 @@ def solve_leading(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             s = s - A[i][j] * x[j]
         x[i] = s * _safe_recip(A[i][i])
     return torch.stack(x)
+
+
+def inv_leading(A: torch.Tensor) -> torch.Tensor:
+    """Inverse of (M, M, N) batched small matrices (M up to 11: the 3-D
+    order-2 MLS basis plus the compact-Poisson multiplier) by pivot-free
+    Gauss-Jordan, valid for the SPD Gram systems it is used on.  The JAX
+    package's elimination order and ``_safe_recip``, so f64 agrees to
+    round-off; ``torch.linalg.inv`` would pivot, which changes the bits and
+    the behaviour on near-singular pinned rows.  Each pivot step updates all
+    rows at once: row k loses 0 x its own values, every other row i does
+    a[i] - a[i, k] a[k], as JAX's loop over i does."""
+    m = A.shape[0]
+    if m == 2:
+        return inv2(A)
+    if m == 3:
+        return inv3(A)
+    a = A.clone()
+    inv = torch.eye(m, dtype=A.dtype, device=A.device)[:, :, None].expand(A.shape).clone()
+    others = (torch.arange(m, device=A.device) != 0)
+    for k in range(m):
+        piv = _safe_recip(a[k, k])
+        a[k] = a[k] * piv
+        inv[k] = inv[k] * piv
+        f = torch.where(others.roll(k)[:, None], a[:, k], 0.0)  # (M, N); row k: 0
+        a = a - f[:, None] * a[k][None]
+        inv = inv - f[:, None] * inv[k][None]
+    return inv

@@ -231,13 +231,14 @@ def test_exact_profiles_match_jax():
 
 
 def test_state_with_concentrations_is_refused():
-    """The MLS/ALE backend is not ported, so a JAX state that carries its
-    BDF history is refused by name.  (Concentrations were refused until
+    """The recycling GMRES is not ported, so a JAX state that carries its
+    recycle space is refused by name.  (Concentrations were refused until
     solute transport and their shift were ported, phase ids until
-    multiphase was; the test keeps its name.)"""
+    multiphase was, the ALE history until the MLS/ALE backend was; the
+    test keeps its name.)"""
     jsim, js = jch.make_channel(16)
     fields = {f.name: np.asarray(getattr(js, f.name))
               for f in dataclasses.fields(js) if getattr(js, f.name) is not None}
-    fields["ale_hist"] = np.zeros((2, 2, js.n))
-    with pytest.raises(NotImplementedError, match="ale_hist"):
+    fields["solver_cache"] = np.zeros((2, js.n))
+    with pytest.raises(NotImplementedError, match="solver_cache"):
         interop.state_from_numpy(fields, "cpu", F64)
