@@ -175,14 +175,42 @@ Phases (each raises on failure; the script then exits non-zero):
    by a factor below 0.6 and ends under 0.08 * 8; 0.1 * 8 on the boundary
    deck) for poisson-operator-2d at n = 256 and 512, poisson-operator-3d at
    32 and 64 (with each assembly's peak memory) and poisson-boundary-2d at
-   56 and 112.
+   56 and 112;
+24. the solver extras on the main path (TGV-256^2, f32, K = 32): (a)
+   three steps with precond "ilu" (ILU(0) GMRES on the Helmholtz solves,
+   the singular Poisson on its Jacobi fallback), their iterations beside
+   phase 4's (at 256^2, where dt nu/dx^2 ~ 6, ILU(0) GMRES stalls short of
+   the tolerance); the ILU build time on the step-1 Helmholtz matrix; the
+   step-1 ILU solve on the card against the port on the CPU on the same
+   f32 matrix (factors within 1e-6, iterations equal, relres within 5e-3
+   relative, x within 3e-5 of max |x|); the factorization's take through
+   the flat (K, N) index of every slot exact against take_plain, and its
+   L and U sweep SpMVs (zero diagonal, f32 C = 1 and 2) against their
+   plain versions as in phase 3, with bounds, plain and library times; (b)
+   three steps with recycle_k = 8, p within 1e-4 of max |p| of phase 4's;
+   (c) three steps of pipelined CG beside three of CG, both Jacobi, p
+   within 3e-4; (d) GMRES with chebyshev(degree=3) on the step-1 Helmholtz
+   matrix beside Jacobi, which must converge;
+25. ReaxFF QEq at the size users run: 262,144 atoms on a jittered 64^3
+   lattice at 2.17 A (0.098 atoms/A^3, the reference's PETN crystal), f64,
+   two types, K = 448, cutoff 10 A and tol 1e-6 (LAMMPS's documented
+   fix qeq/reax 1 0.0 10.0 1.0e-6); six solve_qeq calls on fixed
+   positions, each converged and neutral, the sixth in no more iterations
+   than the first, with the neighbor build's and the solves' peaks, the
+   launches and the idle share of a profiled call; the SpMV on H (f64
+   C = 2) and take on the type ids (int32) and positions (f64 (3, N))
+   against their plain versions as in phase 3; the 4,096-atom lattice solved to 1e-10 on the card, its
+   charges within 1e-10 of the port's on the CPU and of the JAX package's
+   (QEQ_JAX, scripts/qeq_jax_reference.py).
 
 The last lines are the card's name and power limit from nvidia-smi, one
 JSON line describing the kernels (time, launches on the main path, plain
 and library times and bound of each, at the f32 (N,) shape of its phase;
 ell_spmv and take also at 64^3, on the channel, on the PB Jacobian, on
-the pore-scale deck and on the MLS matrices and fields of phase 22, with
-their launches on phases 9, 11, 14-16, 18, 19 and 21),
+the pore-scale deck, on the MLS matrices and fields of phase 22, on the
+ILU factors and gathers of phase 24 and the QEq matrix, types and
+positions of phase 25, with
+their launches on phases 9, 11, 14-16, 18, 19, 21, 24 and 25),
 and the result line
 {"ok": true, "device": {...}}.  Without a CUDA device it prints no result
 and exits non-zero.
@@ -659,8 +687,9 @@ def phase_main_path(dev):
     from isph_tpu_torch.ops import spmv_cuda as sc
 
     sim, state = _tgv256(dev)
+    iters = []
     state, aux, launches = _run_steps("main", sim, state, (sc.ell_spmv, sc.take),
-                                      cap_check=False)
+                                      cap_check=False, each=_record_iters(iters))
     if min(launches.values()) <= 0:
         raise RuntimeError(f"a kernel of the main path never launched: {launches}")
     _check_vortex("main", aux, (2 * math.pi) ** 2)
@@ -668,7 +697,16 @@ def phase_main_path(dev):
     _log(f"main: L2 error vs exact: pressure={float(err.pressure_l2):.4e} "
          f"velocity={float(err.velocity_l2):.4e}")
     _breakdown(sim, state)
-    return launches, sim, state, float(aux.status.time)
+    return launches, sim, state, float(aux.status.time), iters
+
+
+def _record_iters(out):
+    """An ``each`` for _run_steps that appends (Helmholtz, Poisson)
+    iterations of every step to ``out``."""
+    def each(k, state, aux):
+        out.append((int(aux.helmholtz_iters), int(aux.poisson_iters)))
+
+    return each
 
 
 def _breakdown(sim, state):
@@ -692,7 +730,7 @@ def _breakdown(sim, state):
     state = state.replace(f=torch.zeros_like(state.v))
     vstar, hinfo = ns.solve_helmholtz(state, geom, pre, sim.cfg)
     mark("helmholtz")
-    dp, pinfo, _ = ns.solve_poisson(state, geom, pre, sim.cfg, vstar)
+    dp, pinfo, _, _ = ns.solve_poisson(state, geom, pre, sim.cfg, vstar)
     mark("poisson")
     dp = ns.zero_mean_pressure(dp, state)
     vstar = ns.correct_velocity(state, geom, pre, sim.cfg, vstar, dp)
@@ -835,7 +873,7 @@ def _breakdown_amg(tag, sim, state, forcing=None):
         vcycles.append(time.perf_counter() - t0)
         return out
 
-    res = ns._solve(cfg, A_f, b_f, torch.zeros_like(b_f), null_vec=null, M_override=timed_M)
+    res, _ = ns._solve(cfg, A_f, b_f, torch.zeros_like(b_f), null_vec=null, M_override=timed_M)
     mark("poisson_gmres")
     dp = ns.zero_mean_pressure(ns.relax_wall_pressure(A, b, res.x, state, pre), state)
     vstar = ns.correct_velocity(state, geom, pre, cfg, vstar, dp)
@@ -2147,6 +2185,320 @@ def phase_mls_kernels(dev, flush, sim, state, A3):
     return out
 
 
+QEQ_SPACING = 2.17  # A: 0.098 atoms/A^3, the density of the reference's PETN crystal
+# tests/test_qeq.py's two types; swa, swb and tol of LAMMPS's documented
+# "fix qeq/reax 1 0.0 10.0 1.0e-6 reax/c" (QEqParams' defaults)
+QEQ_PARAMS = dict(chi=(1.0, 5.0), eta=(12.0, 11.0), gamma=(0.8, 1.0), swa=0.0, swb=10.0,
+                  tol=1e-6, maxiter=200)
+QEQ_K = 448  # slots for the ~432 neighbors within 10 A at this density
+QEQ_SIDE = 64  # 262,144 atoms
+# the card's charges are held to the CPU's and to the JAX package's on the
+# n_side = 16 lattice (4,096 atoms) solved to 1e-10: at tol 1e-6 the
+# iterate still carries the round-off of its sum order (1.5e-9 in q between
+# the port and JAX on the CPU), at 1e-10 they agree within ~1e-11
+QEQ_CHECK_TOL = 1e-10
+# the JAX package's two solve_qeq calls there, on the CPU in f64
+# (scripts/qeq_jax_reference.py): s/t iterations, sum q^2, q[0], max, min
+QEQ_JAX = ((198, 145, 2114.1025234447857, -0.6102050071681332, 1.8868242205412407,
+            -2.0550288118179427),
+           (207, 152, 2114.102523438305, -0.6102050072235732, 1.8868242206823025,
+            -2.055028811750422))
+
+
+def qeq_lattice(n_side: int, seed: int = 0):
+    """(positions (N, 3), type ids (N,) int32, box length) of a simple-cubic
+    lattice at QEQ_SPACING jittered by up to 0.15 A (tests/test_qeq.py's
+    jitter), two types drawn at random; numpy only, so the JAX package's
+    reference script builds the same atoms."""
+    rng = np.random.default_rng(seed)
+    grid = np.stack(np.meshgrid(*[np.arange(n_side)] * 3, indexing="ij"),
+                    -1).reshape(-1, 3) * QEQ_SPACING
+    grid += rng.uniform(-0.15, 0.15, grid.shape)
+    return grid, rng.integers(0, 2, grid.shape[0]).astype(np.int32), n_side * QEQ_SPACING
+
+
+def _with_solver(sim, **kw):
+    return dataclasses.replace(sim, cfg=sim.cfg.replace(
+        solver=dataclasses.replace(sim.cfg.solver, **kw)))
+
+
+def _timed(fn):
+    """(result, seconds) of fn() between two synchronizes."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _ilu_against_cpu(cfg, A, b, x0, fac):
+    """The step-1 Helmholtz solve with ILU(0) (a GMRES per component, as
+    solve_helmholtz runs it) on the card and, on the same f32 matrix copied
+    to the CPU, in the port there: factors within 1e-6 of their largest
+    magnitude, iterations equal, relres within 5e-3 relative and x within
+    3e-5 of max |x| (the two sum in different orders)."""
+    from isph_tpu_torch.ops.ell import ELL
+    from isph_tpu_torch.physics import ns_projection as ns
+    from isph_tpu_torch.solvers.ilu import build_ilu0
+
+    if A.band is not None:
+        raise RuntimeError("the ILU check copies an ELL without a band window")
+    Ac = ELL(A.diag.cpu(), A.vals.cpu(), A.idx.cpu(), A.mask.cpu())
+
+    def solve(AA, F, bb, xx):
+        return [ns._solve(cfg, AA, bb[c], xx[c], M_override=F.apply)[0]
+                for c in range(bb.shape[0])]
+
+    rk, tk = _timed(lambda: solve(A, fac, b, x0))
+    t0 = time.perf_counter()
+    fc = build_ilu0(Ac)
+    rc = solve(Ac, fc, b.cpu(), x0.cpu())
+    tc = time.perf_counter() - t0
+    for where, res, t in (("card", rk, tk), ("CPU, with the build", rc, tc)):
+        _log(f"extras ilu: step-1 Helmholtz ILU(0) GMRES on the {where}: (iterations, relres) "
+             f"{[(int(r.iters), float(r.relres)) for r in res]}, {t:.2f} s")
+    dfac = max(float((a.cpu() - c).abs().max() / c.abs().max())
+               for a, c in ((fac.fvals, fc.fvals), (fac.udiag, fc.udiag)))
+    drel = max(abs(float(k.relres) - float(c.relres)) / float(c.relres) for k, c in zip(rk, rc))
+    dx = max(float((k.x.cpu() - c.x).abs().max() / c.x.abs().max()) for k, c in zip(rk, rc))
+    same = all(int(k.iters) == int(c.iters) for k, c in zip(rk, rc))
+    _log(f"extras ilu: card against the CPU: factors within {dfac:.3e} (bar 1e-6), iterations "
+         f"equal {same}, relres within {drel:.3e} relative (bar 5e-3), x within {dx:.3e} of "
+         f"max |x| (bar 3e-5)")
+    if not (same and dfac <= 1e-6 and drel <= 5e-3 and dx <= 3e-5):
+        raise RuntimeError("the ILU(0) Helmholtz solve on the card is off the CPU's")
+
+
+def phase_solver_extras(dev, flush, main_iters, main_state):
+    """Phase 24: the solver extras on the TGV-256^2 f32 main path (K = 32):
+    (a) ILU(0) steps, the ILU build time and its two sweep SpMVs against
+    their plain versions; (b) recycling GMRES steps beside phase 4's plain
+    run; (c) pipelined CG beside CG; (d) GMRES with Chebyshev on the step-1
+    Helmholtz matrix beside Jacobi."""
+    from isph_tpu_torch.ops import spmv_cuda as sc
+    from isph_tpu_torch.physics import ns_projection as ns
+    from isph_tpu_torch.solvers.ilu import build_ilu0, row_slots
+    from isph_tpu_torch.solvers.krylov import gmres
+    from isph_tpu_torch.solvers.precond import chebyshev, jacobi
+
+    wrappers = (sc.ell_spmv, sc.take)
+    sim, state0 = _tgv256(dev)
+    out = {}
+
+    # (a) ILU(0) on the Helmholtz solves; the singular Poisson falls back to
+    # Jacobi, as in the JAX package
+    iters = []
+    state, aux, out["launches_ilu"] = _run_steps(
+        "extras ilu", _with_solver(sim, precond="ilu"), state0, wrappers, cap_check=False,
+        each=_record_iters(iters))
+    _log(f"extras ilu: (Helmholtz, Poisson) iterations a step {iters}; phase 4's Jacobi "
+         f"{main_iters}; the Poisson runs on its Jacobi fallback")
+    _log(f"extras ilu: step-3 Helmholtz relres {float(aux.helmholtz_relres):.3e}, Poisson "
+         f"{float(aux.poisson_relres):.3e}")
+    if min(out["launches_ilu"].values()) <= 0:
+        raise RuntimeError(f"a kernel of the ILU path never launched: {out['launches_ilu']}")
+    _check_vortex("extras ilu", aux, (2 * math.pi) ** 2)
+    _, geom, pre = _geometry(sim, state0)
+    A, b = ns.helmholtz_system(state0.replace(f=torch.zeros_like(state0.v)), geom, pre, sim.cfg)
+    build_ilu0(A)  # warm
+    fac, t_build = _timed(lambda: build_ilu0(A))
+    _log(f"extras ilu: ILU(0) build (3 Chow-Patel sweeps, K = {A.vals.shape[0]}) "
+         f"{t_build * 1e3:.1f} ms on the step-1 Helmholtz matrix")
+    _ilu_against_cpu(_with_solver(sim, precond="ilu").cfg, A, b, state0.v, fac)
+    # the factorization's gathers of row k's columns (int32) and strict-upper
+    # factors (f32) through each slot a's flat (K, N) index: exact on every
+    # a, timed at a = K // 2
+    K = A.vals.shape[0]
+    ilu_fields = {"int32 (K*N,) columns": A.idx.reshape(-1),
+                  "f32 (K*N,) upper factors": (fac.fvals * fac.upper).reshape(-1)}
+    for a in range(K):
+        flat = row_slots(A, a)
+        for name, f in ilu_fields.items():
+            if not torch.equal(sc.take(f, flat), sc.take_plain(f, flat)):
+                raise RuntimeError(f"extras ilu: take of the {name} through slot {a} "
+                                   f"disagrees with plain")
+    _log(f"extras ilu: take through the (K, N) = ({K}, {A.n}) flat index of every slot a: "
+         f"columns and upper factors exact")
+    take = _take_sweep("extras ilu: take", sc.take, row_slots(A, K // 2), ilu_fields, flush,
+                       main_shapes=tuple(ilu_fields))
+    out["take_columns"] = take["int32 (K*N,) columns"]
+    out["take_upper"] = take["f32 (K*N,) upper factors"]
+    rng = np.random.default_rng(24)
+    n = A.n
+    for tag, F, part in (("L", fac.L, fac.lower), ("U", fac.U, fac.upper)):
+        nnz = int(part.sum().item()) + n
+        rows, err = _sweep_ell(f"extras ilu: {tag} sweep spmv", F, nnz, flush, rng,
+                               ((torch.float32, (1, 2)),))
+        out[f"spmv_{tag}"], out[f"err_{tag}"] = rows[(torch.float32, 1)], err
+
+    # (b) recycling GMRES, recycle_k = 8, beside phase 4's plain Jacobi run
+    iters = []
+    state, aux, out["launches_recycle"] = _run_steps(
+        "extras recycle", _with_solver(sim, recycle_k=8), state0, wrappers, cap_check=False,
+        each=_record_iters(iters))
+    dp = float((state.p - main_state.p).abs().max() / main_state.p.abs().max())
+    _log(f"extras recycle: Poisson iterations a step {[p for _, p in iters]} against phase "
+         f"4's {[p for _, p in main_iters]}; p after 3 steps within {dp:.3e} of phase 4's "
+         f"(relative to max |p|; bar 1e-4); U {tuple(state.solver_cache.U.shape)}")
+    if not dp <= 1e-4:
+        raise RuntimeError(f"recycled p off the plain run by {dp:.3e}")
+
+    # (c) pipelined CG beside CG, both with Jacobi
+    runs = {}
+    for method in ("cg", "pipelined_cg"):
+        iters = []
+        st, aux, launched = _run_steps(f"extras {method}", _with_solver(sim, method=method),
+                                       state0, wrappers, cap_check=False,
+                                       each=_record_iters(iters))
+        runs[method] = (st, iters, launched)
+    out["launches_pipelined"] = runs["pipelined_cg"][2]
+    dp = float((runs["pipelined_cg"][0].p - runs["cg"][0].p).abs().max()
+               / runs["cg"][0].p.abs().max())
+    _log(f"extras pipelined: (Helmholtz, Poisson) iterations {runs['pipelined_cg'][1]} "
+         f"against CG's {runs['cg'][1]}; p within {dp:.3e} of CG's (relative to max |p|; "
+         f"bar 3e-4)")
+    if not (math.isfinite(dp) and dp <= 3e-4):
+        raise RuntimeError(f"pipelined CG's p off CG's by {dp:.3e}")
+
+    # (d) GMRES with Chebyshev(3) on the step-1 Helmholtz matrix, x component
+    tol = max(sim.cfg.solver.tol, 30.0 * float(torch.finfo(b.dtype).eps))
+    for name, M in (("jacobi", jacobi(A)), ("chebyshev(3)", chebyshev(A, degree=3))):
+        res, t = _timed(lambda: gmres(A.matvec, b[0], state0.v[0], M=M, tol=tol))
+        _log(f"extras chebyshev: GMRES with {name}: {int(res.iters)} iterations, relres "
+             f"{float(res.relres):.3e}, converged {bool(res.converged)}, {t * 1e3:.1f} ms")
+        if name != "jacobi" and not bool(res.converged):
+            raise RuntimeError("GMRES with Chebyshev did not converge")
+    return out
+
+
+def _qeq_setup(n_side, device):
+    """(x (3, N) f64, valid, type ids, domain, cell capacity) of
+    qeq_lattice on ``device``."""
+    from isph_tpu_torch.ops.neighbors import lattice_cell_capacity
+    from isph_tpu_torch.state import Domain
+
+    grid, tid, box = qeq_lattice(n_side)
+    dom = Domain(lo=(0.0,) * 3, hi=(box,) * 3, periodic=(True,) * 3)
+    x = torch.as_tensor(grid.T.copy(), dtype=torch.float64, device=device)
+    valid = torch.ones(grid.shape[0], dtype=torch.bool, device=device)
+    cap = lattice_cell_capacity(dom, QEQ_PARAMS["swb"], QEQ_SPACING)
+    return x, valid, torch.as_tensor(tid, device=device), dom, cap
+
+
+def _qeq_geometry(x, valid, dom, cap):
+    from isph_tpu_torch.ops.kernels import get_kernel
+    from isph_tpu_torch.ops.neighbors import build_neighbor_list, compute_pair_geometry
+
+    cut = QEQ_PARAMS["swb"]
+    nbrs = build_neighbor_list(x, valid, dom, cut, QEQ_K, cap)
+    if int(nbrs.overflow) != 0:
+        raise RuntimeError(f"QEq neighbor overflow {int(nbrs.overflow)}")
+    return nbrs, compute_pair_geometry(x, nbrs, dom, get_kernel("Wendland"), cut / 2.0)
+
+
+def _q_summary(res):
+    q = res.state.q
+    return (int(res.s_info.iters), int(res.t_info.iters), float((q * q).sum()), float(q[0]),
+            float(q.max()), float(q.min()))
+
+
+def _qeq_check_calls(where, ncalls):
+    """``ncalls`` successive solve_qeq calls on the 4,096-atom lattice on
+    ``where``, solved to QEQ_CHECK_TOL."""
+    from isph_tpu_torch.physics import qeq
+
+    params = qeq.QEqParams(**{**QEQ_PARAMS, "tol": QEQ_CHECK_TOL, "maxiter": 1000})
+    x, valid, tid, dom, cap = _qeq_setup(16, where)
+    _, geom = _qeq_geometry(x, valid, dom, cap)
+    st = qeq.QEqState.zeros(x.shape[1], device=where)
+    out = []
+    for _ in range(ncalls):
+        out.append(qeq.solve_qeq(geom, tid, params, st, valid))
+        st = out[-1].state
+    return out
+
+
+def phase_qeq(dev, flush):
+    """Phase 25: ReaxFF QEq on 262,144 atoms (a jittered 64^3 lattice at
+    2.17 A, f64, K = 448, cutoff 10 A, tol 1e-6): six solve_qeq calls on
+    fixed positions with the launch counters set to 0 before the neighbor
+    build and read after the sixth; the 4,096-atom lattice on the card
+    against the port on the CPU and the JAX package's constants; the kernels
+    on its H (f64 C = 2) and type ids (int32)."""
+    from isph_tpu_torch.ops import spmv_cuda as sc
+    from isph_tpu_torch.physics import qeq
+
+    params = qeq.QEqParams(**QEQ_PARAMS)
+    x, valid, tid, dom, cap = _qeq_setup(QEQ_SIDE, dev)
+    n = x.shape[1]
+    for w in (sc.ell_spmv, sc.take):
+        w.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    (nbrs, geom), t_nb = _timed(lambda: _qeq_geometry(x, valid, dom, cap))
+    cmax = int(nbrs.count.max())
+    del nbrs
+    geo_peak = torch.cuda.max_memory_allocated() - base
+    _log(f"qeq: N={n} K={QEQ_K} cell capacity {cap}; neighbor build and geometry "
+         f"{t_nb:.3f} s, peak {geo_peak / 2**30:.2f} GiB above the positions; count.max {cmax}")
+    torch.cuda.reset_peak_memory_stats()
+    st = qeq.QEqState.zeros(n, device=dev)
+    calls = []
+    for call in range(6):
+        res, t = _timed(lambda: qeq.solve_qeq(geom, tid, params, st, valid))
+        st = res.state
+        qsum, qabs = float(st.q.sum()), float(st.q.abs().sum())
+        calls.append((int(res.s_info.iters), int(res.t_info.iters)))
+        _log(f"qeq: call {call + 1}: s {calls[-1][0]} iterations relres "
+             f"{float(res.s_info.relres):.3e}, t {calls[-1][1]} relres "
+             f"{float(res.t_info.relres):.3e}; {t:.4f} s; sum q {qsum:.3e} (sum |q| {qabs:.6e})")
+        if not (bool(res.s_info.converged) and bool(res.t_info.converged)):
+            raise RuntimeError(f"QEq call {call + 1} did not converge")
+        if not (abs(qsum) <= 1e-9 * qabs and bool(torch.isfinite(st.q).all())):
+            raise RuntimeError(f"QEq charges not neutral: sum q {qsum:.3e}")
+    launches = {"ell_spmv": sc.ell_spmv.launches, "take": sc.take.launches}
+    _log(f"qeq: launches {launches}; solve peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+         f"GiB")
+    if min(launches.values()) <= 0:
+        raise RuntimeError(f"a kernel of the QEq path never launched: {launches}")
+    if calls[5][0] > calls[0][0] or calls[5][1] > calls[0][1]:
+        raise RuntimeError(f"the sixth QEq call took more iterations than the first: {calls}")
+    wall, busy, nk = _idle_share(lambda: qeq.solve_qeq(geom, tid, params, st, valid))
+    _log(f"qeq: a seventh call profiled {wall:.4f} s, device busy {busy:.4f} s over {nk} "
+         f"kernels, idle share {1.0 - busy / wall:.3f}")
+
+    H = qeq.assemble_h(geom, tid, params, valid)
+    nnz = int(H.mask.sum().item()) + n
+    rng = np.random.default_rng(25)
+    spmv, err = _sweep_ell("qeq: spmv", H, nnz, flush, rng, ((torch.float64, (2,)),))
+    # the type ids (assemble_h) and the positions (compute_pair_geometry)
+    take = _take_sweep("qeq: take", sc.take, H.idx, {"int32 (N,)": tid, "f64 (3,N)": x},
+                       flush, main_shapes=("int32 (N,)", "f64 (3,N)"))
+    del H, geom, st
+    torch.cuda.empty_cache()
+
+    # the 4,096-atom lattice solved to QEQ_CHECK_TOL on the card and on the
+    # CPU, and against the JAX package's constants
+    card, cpu = _qeq_check_calls(dev, 2), _qeq_check_calls(torch.device("cpu"), 1)
+    dq = float((card[0].state.q.cpu() - cpu[0].state.q).abs().max())
+    summary = [_q_summary(r) for r in card]
+    _log(f"qeq check: 4,096 atoms, tol {QEQ_CHECK_TOL:.0e}: card q within {dq:.3e} of the "
+         f"CPU's (bar 1e-10); card (s, t, sum q^2, q0, max, min) {summary}, JAX "
+         f"{list(QEQ_JAX)}")
+    if not dq <= 1e-10:
+        raise RuntimeError(f"QEq on the card off the CPU by {dq:.3e}")
+    # the first call, from a zero history, against JAX's: q0, max and min
+    # within 1e-10, sum q^2 within 1e-10 relative
+    ref = QEQ_JAX[0]
+    off = max(abs(summary[0][2] - ref[2]) / ref[2],
+              *(abs(a - b) for a, b in zip(summary[0][3:], ref[3:])))
+    if not off <= 1e-10:
+        raise RuntimeError(f"QEq on the card off the JAX package's by {off:.3e}")
+    return dict(spmv=spmv[(torch.float64, 2)], take=take["int32 (N,)"],
+                take_positions=take["f64 (3,N)"], spmv_err=err, launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a "
@@ -2183,7 +2535,7 @@ def main() -> int:
     del flush
 
     # phase 4: main path; phase 5: golden
-    launches, tgv_sim, tgv_state, tgv_t = phase_main_path(dev)
+    launches, tgv_sim, tgv_state, tgv_t, main_iters = phase_main_path(dev)
     phase_golden(dev)
 
     # phase 6: band kernels at 1M; phase 7: the large-N path
@@ -2250,6 +2602,13 @@ def main() -> int:
     km = phase_mls_kernels(dev, flush, cyl_sim, cyl_state, A3)
     del flush, A3, cyl_sim, cyl_state
 
+    # phase 24: the solver extras on the main path; phase 25: QEq at size
+    torch.cuda.empty_cache()
+    flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
+    kx = phase_solver_extras(dev, flush, main_iters, tgv_state)
+    kq = phase_qeq(dev, flush)
+    del flush
+
     def row(name, source, replaces, launched, err, t):
         return dict(name=name, route="cuda", source=f"isph_tpu_torch/csrc/{source}",
                     replaces=f"isph_tpu/ops/spmv_pallas.py:{replaces}", launches=launched,
@@ -2265,12 +2624,28 @@ def main() -> int:
         rows of phases 8 (64^3) and 10 (the channel's Poisson matrix) and the
         f64 rows of phases 12 (the PB Jacobian), 17 (the pore-scale deck's
         Poisson fluid block, its Shepard volumes) and 22 (the cylinder's ALE
-        Poisson matrix and pressure; the 3-D MLS Laplacian)."""
+        Poisson matrix and pressure; the 3-D MLS Laplacian); phase 24's ILU
+        sweeps (f32, the L and U factors on the TGV-256^2 Helmholtz matrix)
+        and the factorization's gathers (f32 upper factors, int32 columns,
+        through a (K, N) flat index into K*N values), with the launches of
+        its ILU, recycled and pipelined runs; phase 25's QEq matrix (f64
+        C = 2, K = 448), type ids (int32) and positions (f64 (3, N)) with
+        the launches of its six solves."""
         kname = "spmv" if name == "ell_spmv" else name
         mls_rows = (dict(at_cylinder=times(km["spmv_cylinder"]),
                          at_mls_3d=times(km["spmv_3d"])) if name == "ell_spmv"
                     else dict(at_cylinder=times(km["take"])))
+        extras = (dict(at_ilu=times(kx["spmv_L"]), at_ilu_upper=times(kx["spmv_U"]),
+                       at_qeq=times(kq["spmv"])) if name == "ell_spmv"
+                  else dict(at_ilu=times(kx["take_upper"]),
+                            at_ilu_columns=times(kx["take_columns"]),
+                            at_qeq=times(kq["take"]),
+                            at_qeq_positions=times(kq["take_positions"])))
         return dict(launches_3d=launches_3d[name], launches_channel=launches_channel[name],
+                    launches_ilu=kx["launches_ilu"][name],
+                    launches_recycle=kx["launches_recycle"][name],
+                    launches_pipelined=kx["launches_pipelined"][name],
+                    launches_qeq=kq["launches"][name], **extras,
                     launches_edl=launches_edl[name],
                     launches_transport=launches_transport[name],
                     launches_walls=launches_walls[name],
@@ -2283,7 +2658,8 @@ def main() -> int:
     kernels = [
         {**row("ell_spmv", "spmv.cu", 298, launches["ell_spmv"],
                max(k["spmv_err"], kb["spmv32_err"], k3["spmv_err"], kc["spmv_err"],
-                   ke["spmv_err"], kp["spmv_err"], km["spmv_err"]), k["spmv"]),
+                   ke["spmv_err"], kp["spmv_err"], km["spmv_err"], kx["err_L"], kx["err_U"],
+                   kq["spmv_err"]), k["spmv"]),
          **beyond("ell_spmv")},
         {**row("take", "take.cu", 332, launches["take"], 0.0, k["take"]), **beyond("take")},
         row("ell_spmv_band", "spmv_band.cu", 458, launches_large["ell_spmv_band"],

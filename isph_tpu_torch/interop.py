@@ -15,6 +15,7 @@ import torch
 
 from isph_tpu_torch import config as C
 from isph_tpu_torch.physics.ale import ALEHistory
+from isph_tpu_torch.solvers.krylov import RecycleSpace
 from isph_tpu_torch.state import ParticleState
 
 
@@ -35,21 +36,35 @@ def _tensor(name: str, arr, device, dtype: torch.dtype) -> torch.Tensor:
     return torch.as_tensor(arr, dtype=dtype, device=device)
 
 
+def _recycle_space(arr, device, dtype: torch.dtype) -> RecycleSpace:
+    """A ``solver_cache`` as a mapping with ``U`` and ``C``, or as the pair
+    (``np.asarray`` of the JAX ``RecycleSpace`` stacks it to (2, k, N))."""
+    if isinstance(arr, Mapping):
+        U, C = arr["U"], arr["C"]
+    else:
+        U, C = arr
+    U, C = (_tensor("U", a, device, dtype) for a in (U, C))
+    if U.ndim != 2 or U.shape != C.shape:
+        raise ValueError(f"solver_cache needs U and C of one (k, N) shape, got "
+                         f"{tuple(U.shape)} and {tuple(C.shape)}")
+    return RecycleSpace(U=U, C=C)
+
+
 def state_from_numpy(fields: Mapping[str, np.ndarray], device, dtype: torch.dtype) -> ParticleState:
     """Port state from a JAX state's non-None fields as numpy arrays
     (same names, same layouts).  Floating fields are cast to ``dtype``;
     ``kind``/``step``/``phase`` and the ALE history's ``nprev`` stay int32
     and ``valid`` bool.  ``ale_hist`` is a mapping of the ``ALEHistory``
-    fields (``vprev``, ``dxprev``, ``dts``, ``nprev``) as numpy arrays.
-    ``amg_cache`` is left behind: the port builds its AMG hierarchy at the
-    state's first solve.  A field the port does not carry (the recycling
-    GMRES's ``solver_cache``) raises: it belongs to a feature that is not
-    ported yet."""
+    fields (``vprev``, ``dxprev``, ``dts``, ``nprev``) as numpy arrays;
+    ``solver_cache`` a mapping with the recycle space's ``U`` and ``C``, or
+    the two stacked.  ``amg_cache`` is left behind: the port builds its AMG
+    hierarchy at the state's first solve.  A field that a JAX
+    ``ParticleState`` does not have raises."""
     names = {f.name for f in dataclasses.fields(ParticleState)} - {"amg_cache"}
     fields = {k: v for k, v in fields.items() if k != "amg_cache"}
     extra = sorted(set(fields) - names)
     if extra:
-        raise NotImplementedError(f"state fields not ported: {extra}")
+        raise ValueError(f"not ParticleState fields: {extra}")
     kw = {}
     for name, arr in fields.items():
         if arr is None:
@@ -57,16 +72,19 @@ def state_from_numpy(fields: Mapping[str, np.ndarray], device, dtype: torch.dtyp
         if name == "ale_hist":
             kw[name] = ALEHistory(**{k: _tensor(k, arr[k], device, dtype)
                                      for k in _HIST_FIELDS})
+        elif name == "solver_cache":
+            kw[name] = _recycle_space(arr, device, dtype)
         else:
             kw[name] = _tensor(name, arr, device, dtype)
     return ParticleState(**kw)
 
 
 def state_to_numpy(state: ParticleState) -> dict:
-    """The state's non-None fields as numpy arrays, ``ale_hist`` as a dict
-    of its fields: what :func:`state_from_numpy` takes, and what the JAX
-    package's ``ParticleState``/``ALEHistory`` are built from.  The AMG
-    hierarchy cache is left behind."""
+    """The state's non-None fields as numpy arrays, ``ale_hist`` and
+    ``solver_cache`` as dicts of their fields: what :func:`state_from_numpy`
+    takes, and what the JAX package's ``ParticleState``/``ALEHistory``/
+    ``RecycleSpace`` are built from.  The AMG hierarchy cache is left
+    behind."""
     out = {}
     for f in dataclasses.fields(state):
         val = getattr(state, f.name)
@@ -74,6 +92,8 @@ def state_to_numpy(state: ParticleState) -> dict:
             continue
         if f.name == "ale_hist":
             out[f.name] = {k: getattr(val, k).detach().cpu().numpy() for k in _HIST_FIELDS}
+        elif f.name == "solver_cache":
+            out[f.name] = {k: getattr(val, k).detach().cpu().numpy() for k in val._fields}
         else:
             out[f.name] = val.detach().cpu().numpy()
     return out

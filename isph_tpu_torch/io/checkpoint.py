@@ -13,7 +13,10 @@ that has the same fields.  The state's AMG hierarchy cache is saved and
 restored with it (``state/amg_cache/...``: the coarse ELLs with their slot
 formats, the transfers, the inverse diagonals and ``coarse_inv``): the port
 builds a hierarchy at the first solve of a state that has none, so a resume
-without it would leave the uninterrupted run's schedule.
+without it would leave the uninterrupted run's schedule.  The recycling
+GMRES's space is saved under ``state/solver_cache/U`` and ``.../C``, the
+keys the JAX package's ``tree_flatten_with_path`` gives its
+``RecycleSpace``.
 
 A tree is walked through dataclasses and named tuples by field name,
 tuples, lists and dicts by position or key; ``None`` holds nothing.

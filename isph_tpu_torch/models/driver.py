@@ -5,8 +5,9 @@ A step is a function ``state -> (state, aux)`` run eagerly; the neighbor
 rebuild happens inside every step.  The host loops :meth:`Simulation.run`,
 :meth:`Simulation.run_until` (a quit condition) and
 :meth:`Simulation.run_adaptive` (a CFL timestep) share one overflow policy.
-Features of the JAX driver that are not ported raise ``NotImplementedError``
-naming the feature rather than being skipped.
+Every single-device feature of the JAX driver runs here, the solver
+extras (``precond="ilu"``, ``method="pipelined_cg"``, ``recycle_k``)
+included: ``unported_features`` names none.
 """
 
 from __future__ import annotations
@@ -45,12 +46,10 @@ class StepAux(NamedTuple):
 
 
 def unported_features(cfg: SimulationConfig) -> list[str]:
-    """Enabled features of ``cfg`` that the port does not run yet."""
-    checks = [
-        (cfg.solver.recycle_k > 0, "recycle_k (recycling GMRES)"),
-        (cfg.solver.precond == "ilu", "ILU preconditioner"),
-    ]
-    return [name for on, name in checks if on]
+    """Enabled features of ``cfg`` that the port does not run: none.  On
+    the MLS/ALE backend ``recycle_k`` and ``precond`` are ignored, as the JAX
+    package's ALE step ignores them (its solves are Jacobi GMRES)."""
+    return []
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,18 +91,12 @@ class Simulation:
         return ns_projection.compute_pre(state, geom, self.cfg)
 
     # -- backend prep --------------------------------------------------------
-    def _require_ported(self) -> None:
-        missing = unported_features(self.cfg)
-        if missing:
-            raise NotImplementedError(f"not yet ported: {', '.join(missing)}")
-
     def prepare(self, state: ParticleState) -> ParticleState:
-        """Check that every enabled feature is ported, and on the MLS/ALE
-        backend give a state without one its BDF histories
+        """On the MLS/ALE backend give a state without one its BDF histories
         (``ale.ALEHistory.init``).  No AMG hierarchy cache is seeded, because
         a state without one builds its hierarchy at its first solve
-        (``ns_projection.amg_rebuild_due``); the ALE solves use none."""
-        self._require_ported()
+        (``ns_projection.amg_rebuild_due``); the ALE solves use none.  The
+        recycle space starts at the first recycled solve."""
         if self.cfg.backend == "mls_ale" and state.ale_hist is None:
             state = state.replace(ale_hist=ale.ALEHistory.init(
                 state, self.cfg.mls.bdf_order, self.cfg.dt))
@@ -124,7 +117,6 @@ class Simulation:
         cfg = self.cfg
         if cfg.backend == "mls_ale":
             return self._step_mls_ale(state)
-        self._require_ported()
         dev = state.device
 
         if self.modifier is not None:
@@ -231,7 +223,6 @@ class Simulation:
         must come from :meth:`prepare` (which :meth:`run` and
         :meth:`run_until` call; :meth:`run_adaptive` does not, as in JAX)."""
         cfg = self.cfg
-        self._require_ported()
         hist = state.ale_hist
         if hist is None:
             raise RuntimeError("call Simulation.prepare(state) for the ALE backend")

@@ -46,11 +46,14 @@ class ELL:
         return self.diag.shape[0]
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (N,) -> (N,); or (d, N) multivector -> (d, N) in one kernel
-        launch (the vals/column stream is shared by the components).
+        """x: (N,) -> (N,); or (d, N) multivector -> (d, N), one kernel
+        launch for each piece of at most 3 rows (the vals/column stream is
+        shared by the components of a piece).
 
         INVARIANT: ``vals`` holds exact zeros on masked slots — every
         constructor multiplies by the pair mask at assembly."""
+        if x.ndim == 2 and x.shape[0] > 3:  # the SpMV kernels take C <= 3
+            return torch.cat([self.matvec(p) for p in x.split(3)])
         if self.band is not None:
             return ell_spmv_band(self.diag, self.vals, self.idx, x, self.band, self.slots)
         return ell_spmv(self.diag, self.vals, self.idx, x, self.slots)

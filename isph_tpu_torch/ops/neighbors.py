@@ -426,15 +426,20 @@ def reorder_by(perm: torch.Tensor, state):
     order, and the state builds a new one at its first solve.  Its
     ``ale_hist`` keeps its timesteps and count and permutes its velocity and
     position histories (JAX's tree map would index the (order,) timesteps
-    with the particle permutation too)."""
+    with the particle permutation too); its ``solver_cache`` permutes U and
+    C on their particle axis, as JAX's does (C = A U holds for the permuted
+    operator)."""
     def leaf(a):
         return a if a is None or a.ndim == 0 else a[..., perm]
 
     if isinstance(state, torch.Tensor):
         return leaf(state)
     kw = {f.name: leaf(getattr(state, f.name)) for f in dataclasses.fields(state)
-          if f.name not in ("amg_cache", "ale_hist")}
+          if f.name not in ("amg_cache", "ale_hist", "solver_cache")}
     hist = state.ale_hist
     if hist is not None:
         hist = dataclasses.replace(hist, vprev=leaf(hist.vprev), dxprev=leaf(hist.dxprev))
-    return dataclasses.replace(state, amg_cache=None, ale_hist=hist, **kw)
+    rec = state.solver_cache
+    if rec is not None:
+        rec = type(rec)(*(leaf(t) for t in rec))
+    return dataclasses.replace(state, amg_cache=None, ale_hist=hist, solver_cache=rec, **kw)

@@ -1,6 +1,6 @@
 """Incompressible Navier-Stokes, projection (pressure-correction) scheme
 (PyTorch port of ``isph_tpu/physics/ns_projection.py`` for the corrected
-backend, without recycling).
+backend).
 
 One timestep (reference PairISPH::computeIncompressibleNavierStokes,
 pair_isph.cpp:910-1034):
@@ -28,7 +28,10 @@ from isph_tpu_torch.ops.corrected import ANTISYMMETRIC, SYMMETRIC, Family, PairF
 from isph_tpu_torch.ops.ell import ELL
 from isph_tpu_torch.ops.neighbors import PairGeom
 from isph_tpu_torch.solvers.amg import AMGCache, amg_from_cache, build_amg, cache_of
-from isph_tpu_torch.solvers.krylov import KrylovResult, cg, gmres
+from isph_tpu_torch.solvers.ilu import ilu0
+from isph_tpu_torch.solvers.krylov import (KrylovResult, RecycleSpace, cg, gmres,
+                                           gmres_recycled, init_recycle, make_null_projector,
+                                           pipelined_cg)
 from isph_tpu_torch.solvers.precond import jacobi
 from isph_tpu_torch.utils.profiling import named_scope
 
@@ -51,36 +54,56 @@ class SolveInfo(NamedTuple):
     poisson: KrylovResult
 
 
+def _precond(cfg: SimulationConfig, A: ELL, *, null_vec=None, amg: Optional[Tuple] = None):
+    """The configured preconditioner's apply (None for "none").  ``amg`` =
+    (x, domain, cutoff) when the solve has domain info in scope; without it
+    "amg" means Jacobi, as in the reference's Belos/ML pairing.  ILU(0) of a
+    singular pure-Neumann operator stalls restarted GMRES, and the reference
+    never pairs Ifpack with the singular Poisson, so with ``null_vec`` set
+    "ilu" means Jacobi (``isph_tpu/physics/ns_projection.py:89-101``)."""
+    sc = cfg.solver
+    if amg is not None and sc.precond == "amg":
+        # AMG hierarchy (replaces ML, precond_ml.h); the null vector rides
+        # into the hierarchy (ML setNullVector parity)
+        x_pos, domain, cutoff = amg
+        return build_amg(A, x_pos, domain, cutoff, null_vec=null_vec).apply
+    if sc.precond == "ilu" and null_vec is None:
+        return ilu0(A)
+    if sc.precond in ("jacobi", "amg", "ilu"):
+        return jacobi(A)
+    return None
+
+
 def _solve(cfg: SimulationConfig, A: ELL, b, x0, *, null_vec=None,
-           amg: Optional[Tuple] = None, M_override=None) -> KrylovResult:
-    """One Krylov solve with the configured method and preconditioner.
-    ``amg`` = (x, domain, cutoff) when the solve has domain info in scope;
-    without it "amg" means Jacobi, as in the reference's Belos/ML pairing.
-    ``M_override`` is a ready preconditioner apply (a cached AMG cycle, see
-    :func:`_amg_cached`) that takes the place of the ladder below."""
+           amg: Optional[Tuple] = None, recycle: Optional[RecycleSpace] = None,
+           M_override=None) -> Tuple[KrylovResult, Optional[RecycleSpace]]:
+    """One Krylov solve with the configured method and preconditioner;
+    returns (result, recycle space), the space None unless one was passed
+    in.  ``M_override`` is a ready preconditioner apply (a cached AMG
+    cycle, see :func:`_amg_cached`, or one built once for several
+    right-hand sides) that takes the place of :func:`_precond`.  With a
+    ``recycle`` space the solve is GCRO-DR recycling GMRES on the projected
+    operator, whatever ``method`` says, as in the JAX package."""
     sc = cfg.solver
     # dtype-aware tolerance floor: the Belos default 1e-8 presumes f64; in
     # f32 the attainable relative residual bottoms out near ~30 eps
     tol = max(sc.tol, 30.0 * float(torch.finfo(b.dtype).eps))
     if M_override is not None:
         M = M_override
-    elif amg is not None and sc.precond == "amg":
-        # AMG hierarchy (replaces ML, precond_ml.h); the null vector rides
-        # into the hierarchy (ML setNullVector parity)
-        x_pos, domain, cutoff = amg
-        M = build_amg(A, x_pos, domain, cutoff, null_vec=null_vec).apply
-    elif sc.precond == "ilu":
-        raise NotImplementedError("ILU preconditioner not yet ported")
-    elif sc.precond in ("jacobi", "amg"):
-        M = jacobi(A)
     else:
-        M = None
+        M = _precond(cfg, A, null_vec=null_vec, amg=amg)
+    if recycle is not None:
+        proj = make_null_projector(null_vec) if null_vec is not None else (lambda v: v)
+        return gmres_recycled(lambda v: proj(A.matvec(v)), proj(b), x0, recycle=recycle,
+                              M=M, tol=tol, restart=sc.restart,
+                              max_restarts=sc.max_restarts)
     if sc.method == "pipelined_cg":
-        raise NotImplementedError("pipelined_cg not yet ported")
+        return pipelined_cg(A.matvec, b, x0, M=M, tol=tol, maxiter=sc.max_iters,
+                            null_vec=null_vec), None
     if sc.method == "cg":
-        return cg(A.matvec, b, x0, M=M, tol=tol, maxiter=sc.max_iters, null_vec=null_vec)
+        return cg(A.matvec, b, x0, M=M, tol=tol, maxiter=sc.max_iters, null_vec=null_vec), None
     return gmres(A.matvec, b, x0, M=M, tol=tol, restart=sc.restart,
-                 max_restarts=sc.max_restarts, null_vec=null_vec)
+                 max_restarts=sc.max_restarts, null_vec=null_vec), None
 
 
 def _fluid_pair_coeff(state: ParticleState, geom: PairGeom, jset: int) -> torch.Tensor:
@@ -175,8 +198,10 @@ def solve_helmholtz(
     if abs(cfg.ns.theta) < 1e-14:
         return b, None
     # one Krylov run per velocity component, each equal to its own
-    # unbatched solve (the JAX package vmaps the same solve)
-    res = [_solve(cfg, A, b[c], state.v[c]) for c in range(state.dim)]
+    # unbatched solve (the JAX package vmaps the same solve); the
+    # preconditioner is built once for all of them
+    M = _precond(cfg, A)
+    res = [_solve(cfg, A, b[c], state.v[c], M_override=M)[0] for c in range(state.dim)]
     out = KrylovResult(*(torch.stack(f) for f in zip(*res)))
     return out.x, out
 
@@ -258,16 +283,20 @@ def poisson_system(
 def solve_poisson(
     state: ParticleState, geom: PairGeom, pre: Precomputed, cfg: SimulationConfig,
     vstar: torch.Tensor, *, domain: Optional[Domain] = None,
+    recycle: Optional[RecycleSpace] = None,
     amg_cache: Optional[AMGCache] = None, amg_rebuild: Optional[bool] = None,
-) -> Tuple[torch.Tensor, KrylovResult, Optional[AMGCache]]:
-    """Solve the pressure Poisson system; returns (dp, result, cache).
+) -> Tuple[torch.Tensor, KrylovResult, Optional[RecycleSpace], Optional[AMGCache]]:
+    """Solve the pressure Poisson system; returns (dp, result, recycle,
+    cache), as the JAX package's does.
 
-    ``amg_rebuild`` None solves without a hierarchy cache (AMG, when
-    configured and ``domain`` is given, is built for this solve alone).
-    Otherwise the max-age policy applies: the hierarchy is built from the
-    current matrix when ``amg_rebuild`` is true, else ``amg_cache`` is
-    reused with a fresh fine-level smoother, and the cache in use comes
-    back as ``cache`` (None when no cache applies).
+    ``recycle`` given, the solve is recycling GMRES and its refreshed space
+    comes back as ``recycle`` (None otherwise).  ``amg_rebuild`` None solves
+    without a hierarchy cache (AMG, when configured and ``domain`` is
+    given, is built for this solve alone).  Otherwise the max-age policy
+    applies: the hierarchy is built from the current matrix when
+    ``amg_rebuild`` is true, else ``amg_cache`` is reused with a fresh
+    fine-level smoother, and the cache in use comes back as ``cache`` (None
+    when no cache applies).
 
     With homogeneous-Neumann walls the system is block triangular: fluid
     rows touch only fluid columns, so the fluid block is solved alone (the
@@ -288,13 +317,15 @@ def solve_poisson(
             torch.where(fluid_rows, A.diag, torch.ones_like(A.diag)))
         b_f = torch.where(fluid_rows, b, 0.0)
         M, cache = _amg_cached(cfg, A_f, amg, null_vec, amg_cache, amg_rebuild)
-        res = _solve(cfg, A_f, b_f, x0, null_vec=null_vec, amg=amg, M_override=M)
+        res, recycle = _solve(cfg, A_f, b_f, x0, null_vec=null_vec, amg=amg,
+                              recycle=recycle, M_override=M)
         dp = relax_wall_pressure(A, b, res.x, state, pre)
-        return dp, res, cache
+        return dp, res, recycle, cache
 
     M, cache = _amg_cached(cfg, A, amg, null_vec, amg_cache, amg_rebuild)
-    res = _solve(cfg, A, b, x0, null_vec=null_vec, amg=amg, M_override=M)
-    return res.x, res, cache
+    res, recycle = _solve(cfg, A, b, x0, null_vec=null_vec, amg=amg, recycle=recycle,
+                          M_override=M)
+    return res.x, res, recycle, cache
 
 
 def _amg_cached(cfg: SimulationConfig, A: ELL, amg, null_vec, amg_cache, amg_rebuild):
@@ -423,8 +454,6 @@ def navier_stokes_step(
     """computeIncompressibleNavierStokes (pair_isph.cpp:910-1034): returns the
     state with updated (vstar, dp, p); positions unchanged (advance_time is a
     separate call)."""
-    if cfg.solver.recycle_k > 0:
-        raise NotImplementedError("recycle_k (GCRO-DR recycling GMRES) not yet ported")
     dev = state.device
     with named_scope("helmholtz", dev):
         if cfg.ns.is_block_helmholtz_enabled:
@@ -434,9 +463,18 @@ def navier_stokes_step(
         else:
             vstar, hinfo = solve_helmholtz(state, geom, pre, cfg)
     with named_scope("poisson", dev):
-        dp, pinfo, cache = solve_poisson(
-            state, geom, pre, cfg, vstar, domain=domain,
+        # the GCRO-DR recycle space rides in state.solver_cache, zero until
+        # the first solve populates it
+        rec = None
+        if cfg.solver.recycle_k > 0:
+            rec = state.solver_cache
+            if rec is None:
+                rec = init_recycle(state.n, cfg.solver.recycle_k, state.dtype, dev)
+        dp, pinfo, rec, cache = solve_poisson(
+            state, geom, pre, cfg, vstar, domain=domain, recycle=rec,
             amg_cache=state.amg_cache, amg_rebuild=amg_rebuild_due(state, cfg))
+    if rec is not None:
+        state = state.replace(solver_cache=rec)
     if cache is not None:
         state = state.replace(amg_cache=cache)
     with named_scope("correct", dev):

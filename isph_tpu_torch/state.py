@@ -71,9 +71,8 @@ class ParticleState:
     """SoA particle fields (reference atom.h:53-91 per-atom arrays).
 
     Shapes: N = padded particle count, D = spatial dim (2 or 3).  Vectors
-    are (D, N), scalars (N,).  Only the fields of the ported physics exist
-    here; ``interop.state_from_numpy`` refuses any other (the recycling
-    GMRES's ``solver_cache``).
+    are (D, N), scalars (N,).  The fields are the JAX package's
+    ``ParticleState``'s, one for one.
     """
 
     x: torch.Tensor  # (D, N) positions
@@ -97,6 +96,11 @@ class ParticleState:
     conc: Optional[torch.Tensor] = None  # (S, N) concentrations (S <= 4)
     phase: Optional[torch.Tensor] = None  # (N,) int32 phase id (multiphase)
     step: Optional[torch.Tensor] = None  # () int32 timestep counter
+    # GCRO-DR recycle space (solvers/krylov.py RecycleSpace, U and C (k, N))
+    # carried across steps when SolverConfig.recycle_k > 0 (reference Belos
+    # "Recycling Gmres", solver_lin_belos.h:233); None until the first
+    # recycled solve
+    solver_cache: Optional[object] = None
     # AMG hierarchy carried between steps under the max-age policy
     # (solvers/amg.py AMGCache); None until the first AMG solve builds one
     amg_cache: Optional[object] = None

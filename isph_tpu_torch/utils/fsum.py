@@ -24,10 +24,11 @@ def _two_sum(a: torch.Tensor, b: torch.Tensor):
 
 
 def _pad_pow2(y: torch.Tensor) -> torch.Tensor:
-    n = y.shape[0]
+    """Zero-pad the last axis to a power of two."""
+    n = y.shape[-1]
     p = 1 << max(n - 1, 1).bit_length()
     if p != n:
-        y = torch.cat([y, y.new_zeros(p - n)])
+        y = torch.cat([y, y.new_zeros(*y.shape[:-1], p - n)], dim=-1)
     return y
 
 
@@ -40,19 +41,28 @@ def comp_sum(y: torch.Tensor) -> torch.Tensor:
 
 
 def comp_sum2(s: torch.Tensor, aux: torch.Tensor):
-    """Cascade-sum ``s`` keeping the (sum, error) pair unmerged, folding a
-    pre-existing error array ``aux`` along."""
+    """Cascade-sum ``s`` along its last axis keeping the (sum, error) pair
+    unmerged, folding a pre-existing error array ``aux`` along.  Each row of
+    a 2-D ``s`` folds exactly as a 1-D ``s`` would, so it gets the same bits."""
     s = _pad_pow2(s)
     e = _pad_pow2(aux)
-    while s.shape[0] > 1:
-        h = s.shape[0] // 2
-        ss, err = _two_sum(s[:h], s[h:])
-        e = e[:h] + e[h:] + err
+    while s.shape[-1] > 1:
+        h = s.shape[-1] // 2
+        ss, err = _two_sum(s[..., :h], s[..., h:])
+        e = e[..., :h] + e[..., h:] + err
         s = ss
-    return s[0], e[0]
+    return s[..., 0], e[..., 0]
 
 
 def comp_dot(a: torch.Tensor, b: torch.Tensor):
     """(hi, lo) compensated dot of flattened a, b: a.b ~= hi + lo."""
     y = (a * b).reshape(-1)
+    return comp_sum2(y, torch.zeros_like(y))
+
+
+def comp_dot_rows(a: torch.Tensor, b: torch.Tensor):
+    """(hi, lo), each (C,), of the row dots of (C, N) a and b: row c's pair
+    has the bits of ``comp_dot(a[c], b[c])`` (the JAX package's
+    ``jax.vmap(comp_dot)``)."""
+    y = a * b
     return comp_sum2(y, torch.zeros_like(y))

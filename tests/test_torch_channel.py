@@ -27,6 +27,7 @@ import torch
 from isph_tpu.config import BoundaryCond as JBoundaryCond
 from isph_tpu.models import channel as jch
 from isph_tpu.ops import corrected as jops
+from isph_tpu.solvers import krylov as jkry
 
 from isph_tpu_torch import interop
 from isph_tpu_torch.config import BoundaryCond
@@ -231,14 +232,27 @@ def test_exact_profiles_match_jax():
 
 
 def test_state_with_concentrations_is_refused():
-    """The recycling GMRES is not ported, so a JAX state that carries its
-    recycle space is refused by name.  (Concentrations were refused until
-    solute transport and their shift were ported, phase ids until
-    multiphase was, the ALE history until the MLS/ALE backend was; the
-    test keeps its name.)"""
+    """A JAX state carries every field across, the recycling GMRES's
+    ``solver_cache`` included: as JAX's ``RecycleSpace`` stacked by
+    ``np.asarray`` or as a mapping, and back as a mapping, bit for bit.  A
+    name that is no ``ParticleState`` field is refused.  (Concentrations
+    were refused until solute transport was ported, phase ids until
+    multiphase was, the ALE history until the MLS/ALE backend was, the
+    recycle space until the recycling GMRES was; the test keeps its name.)"""
     jsim, js = jch.make_channel(16)
+    rng = np.random.default_rng(3)
+    rec = jkry.RecycleSpace(U=jnp.asarray(rng.standard_normal((4, js.n))),
+                            C=jnp.asarray(rng.standard_normal((4, js.n))))
+    js = js.replace(solver_cache=rec)
     fields = {f.name: np.asarray(getattr(js, f.name))
               for f in dataclasses.fields(js) if getattr(js, f.name) is not None}
-    fields["solver_cache"] = np.zeros((2, js.n))
-    with pytest.raises(NotImplementedError, match="solver_cache"):
-        interop.state_from_numpy(fields, "cpu", F64)
+    assert fields["solver_cache"].shape == (2, 4, js.n)
+    st = interop.state_from_numpy(fields, "cpu", F64)
+    back = interop.state_to_numpy(st)
+    for k in ("U", "C"):
+        np.testing.assert_array_equal(back["solver_cache"][k], np.asarray(getattr(rec, k)))
+    st2 = interop.state_from_numpy(back, "cpu", F64)
+    assert torch.equal(st2.solver_cache.U, st.solver_cache.U)
+    assert torch.equal(st2.conc, st.conc) if st.conc is not None else st2.conc is None
+    with pytest.raises(ValueError, match="no_such_field"):
+        interop.state_from_numpy({**fields, "no_such_field": np.zeros(3)}, "cpu", F64)

@@ -11,6 +11,7 @@ import dataclasses
 import io
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -20,12 +21,15 @@ from isph_tpu.io import checkpoint as jckpt
 from isph_tpu.io import dump as jdump
 from isph_tpu.models import decks as jdecks
 from isph_tpu.models import tgv as jtgv
+from isph_tpu.ops import neighbors as jnb
+from isph_tpu.solvers import krylov as jkry
 
 from isph_tpu_torch import interop, native
 from isph_tpu_torch.io import checkpoint, dump
 from isph_tpu_torch.models import decks, tgv
-from isph_tpu_torch.ops.neighbors import build_neighbor_list
+from isph_tpu_torch.ops.neighbors import build_neighbor_list, reorder_by
 from isph_tpu_torch.solvers.amg import AMGCache
+from isph_tpu_torch.solvers.krylov import init_recycle
 from isph_tpu_torch.state import Domain
 
 torch.set_num_threads(1)  # tier-1 runs pytest with several workers
@@ -243,3 +247,71 @@ def test_square_concentration_dump_restart_matches_jax(tmp_path):
     c1 = st.conc[0]
     assert abs(float(c1[v].sum() - c0[v].sum())) < 1e-8 * max(float(c0[v].sum()), 1.0)
     assert float(c1[v].max()) < float(c0[v].max())
+
+
+# ---------------------------------------------------------------------------
+# the recycling GMRES's space (state.solver_cache)
+# ---------------------------------------------------------------------------
+
+def _recycled(sim):
+    return dataclasses.replace(sim, cfg=sim.cfg.replace(solver=dataclasses.replace(
+        sim.cfg.solver, precond="jacobi", recycle_k=8)))
+
+
+def test_resume_with_the_recycle_space_is_bitwise(tmp_path):
+    """A checkpoint after step 1 of a recycle_k = 8 run, restored into a
+    template whose space is zero, resumes to the uninterrupted three-step
+    run bit for bit."""
+    sim, st = tgv.make_tgv(16, device="cpu")
+    sim = _recycled(sim)
+    one, _ = sim.run(st, 1)
+    assert one.solver_cache.U.shape == (8, st.n) and bool(one.solver_cache.C.any())
+    three, _ = sim.run(one, 2)
+    p = str(tmp_path / "rec.npz")
+    checkpoint.save_checkpoint(p, one)
+    with np.load(p) as data:
+        assert {"state/solver_cache/U", "state/solver_cache/C"} <= set(data.files)
+    template = one.replace(solver_cache=init_recycle(st.n, 8, F64, "cpu"))
+    back = checkpoint.load_checkpoint(p, template)
+    _assert_same_tensors(back, one)
+    resumed, _ = sim.run(back, 2)
+    _assert_same_tensors(resumed, three)
+
+
+def test_jax_checkpoint_with_the_recycle_space_loads_into_the_port(tmp_path):
+    """JAX's ``tree_flatten_with_path`` names the space's leaves
+    ``state/solver_cache/U`` and ``.../C``: a JAX checkpoint after a recycled
+    step restores into a port template bit for bit."""
+    jsim, js = jtgv.make_tgv(8)
+    jsim = _recycled(jsim)
+    js, _ = jsim.run(js, 1)
+    p = str(tmp_path / "jax_rec.npz")
+    jckpt.save_checkpoint(p, js)
+    with np.load(p) as data:
+        assert {"state/solver_cache/U", "state/solver_cache/C"} <= set(data.files)
+    template = _state(jtgv.make_tgv(8)[1]).replace(
+        solver_cache=init_recycle(js.n, 8, F64, "cpu"))
+    st = checkpoint.load_checkpoint(p, template)
+    for k in ("U", "C"):
+        np.testing.assert_array_equal(getattr(st.solver_cache, k).numpy(),
+                                      np.asarray(getattr(js.solver_cache, k)))
+
+
+def test_reorder_by_permutes_the_recycle_space():
+    """reorder_by permutes U and C on their particle axis, as JAX's tree map
+    does, and A U = C holds for the permuted operator."""
+    jsim, js = jtgv.make_tgv(8)
+    rng = np.random.default_rng(5)
+    rec = jkry.RecycleSpace(U=jnp.asarray(rng.standard_normal((3, js.n))),
+                            C=jnp.asarray(rng.standard_normal((3, js.n))))
+    js = js.replace(solver_cache=rec)
+    st = interop.state_from_numpy(
+        {**_fields(js), "solver_cache": {k: np.asarray(getattr(rec, k)) for k in "UC"}},
+        "cpu", F64)
+    perm = rng.permutation(js.n)
+    jr = jnb.reorder_by(jnp.asarray(perm), js)
+    r = reorder_by(torch.as_tensor(perm), st)
+    for k in ("U", "C"):
+        np.testing.assert_array_equal(getattr(r.solver_cache, k).numpy(),
+                                      np.asarray(getattr(jr.solver_cache, k)))
+    np.testing.assert_array_equal(r.x.numpy(), np.asarray(jr.x))

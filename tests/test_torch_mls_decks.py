@@ -170,9 +170,14 @@ def test_ale_history_through_interop(jax_cylinder):
     for f in ("x", "v", "p"):
         np.testing.assert_allclose(getattr(st3, f).numpy(), np.asarray(getattr(js3, f)),
                                    rtol=0, atol=1e-9, err_msg=f)
-    with pytest.raises(NotImplementedError, match="solver_cache"):
-        interop.state_from_numpy({**_jfields(js), "solver_cache": np.zeros(3)}, "cpu",
-                                 torch.float64)
+    # the recycle space, the last field the port once refused, rides along
+    rec = {"U": np.ones((2, js.n)), "C": np.zeros((2, js.n))}
+    st4 = interop.state_from_numpy({**_jfields(js), "solver_cache": rec}, "cpu",
+                                   torch.float64)
+    back4 = interop.state_to_numpy(st4)
+    for k in ("U", "C"):
+        np.testing.assert_array_equal(back4["solver_cache"][k], rec[k])
+    assert int(back4["ale_hist"]["nprev"]) == 2
 
 
 def test_ale_checkpoint_resume_is_bitwise(tmp_path, jax_cylinder):

@@ -132,9 +132,15 @@ def test_interop_config_roundtrip_and_state_fields():
     st = port_state(jstate)
     assert st.kind.dtype == torch.int32 and st.valid.dtype == torch.bool
     assert st.x.dtype == F64 and st.step.dtype == torch.int32
-    with pytest.raises(NotImplementedError, match="solver_cache"):
-        interop.state_from_numpy({"x": np.zeros((2, 4)), "solver_cache": np.zeros(4)},
-                                 "cpu", F64)
+    # every field of a JAX state is carried; a recycle space must be a
+    # (U, C) pair of one (k, N) shape
+    fields = {f.name: np.asarray(getattr(jstate, f.name))
+              for f in dataclasses.fields(jstate) if getattr(jstate, f.name) is not None}
+    n = jstate.n
+    st = interop.state_from_numpy({**fields, "solver_cache": np.zeros((2, 3, n))}, "cpu", F64)
+    assert st.solver_cache.U.shape == (3, n) and st.solver_cache.C.dtype == F64
+    with pytest.raises(ValueError, match="solver_cache"):
+        interop.state_from_numpy({**fields, "solver_cache": np.zeros((2, n))}, "cpu", F64)
 
 
 @pytest.mark.parametrize("name", ["Wendland", "Cubic", "Quintic"])
