@@ -201,16 +201,34 @@ Phases (each raises on failure; the script then exits non-zero):
    C = 2) and take on the type ids (int32) and positions (f64 (3, N))
    against their plain versions as in phase 3; the 4,096-atom lattice solved to 1e-10 on the card, its
    charges within 1e-10 of the port's on the CPU and of the JAX package's
-   (QEQ_JAX, scripts/qeq_jax_reference.py).
+   (QEQ_JAX, scripts/qeq_jax_reference.py);
+26. the sharded step (parallel/sharded.py) at world size 1 on NCCL, in this
+   process (a file:// store in a temporary directory; no fallback): (a)
+   three TGV-1024^2 f32 AMG steps, phase 7's lattice, n_loc from
+   choose_n_loc and the halo sized to the cut layer of the slab faces (+25%,
+   logged), the AMG cache on as phase 7's driver caches: KE and vmax within
+   1e-4 relative of phase 7's, nfluid exact, no overflow, both kernels
+   ran; the median step, sharded_overhead_ratio_1m (over phase 7's median),
+   the iterations beside phase 7's, the V-cycles of one more step, the idle
+   share of a profiled step, the peak memory; (d) the kernels of the
+   overlapped matvec at (a)'s shapes: the SpMV of A_own (the slab's Poisson
+   matrix, halo-column values zeroed; f32 and f64 C = 1) and the (K, 2H)
+   boundary-strip take (f32, f64 at (N,) and (2, N)) against their plain
+   versions as in phase 3; (b) TGV-256^2 f64 h_factor 1.6 Jacobi from a
+   common first step (its Poisson right-hand side is round-off), three
+   sharded steps against the one-device steps: iterations equal, fields
+   within 1e-9 after matching by position; (c) bench.py's
+   bench_sharded_overhead cell (TGV-128^2 f32 Jacobi, K = 32, halo 640):
+   sharded_overhead_ratio, both steps timed with CUDA events.
 
 The last lines are the card's name and power limit from nvidia-smi, one
 JSON line describing the kernels (time, launches on the main path, plain
 and library times and bound of each, at the f32 (N,) shape of its phase;
 ell_spmv and take also at 64^3, on the channel, on the PB Jacobian, on
 the pore-scale deck, on the MLS matrices and fields of phase 22, on the
-ILU factors and gathers of phase 24 and the QEq matrix, types and
-positions of phase 25, with
-their launches on phases 9, 11, 14-16, 18, 19, 21, 24 and 25),
+ILU factors and gathers of phase 24, the QEq matrix, types and
+positions of phase 25 and the sharded A_own and strip of phase 26, with
+their launches on phases 9, 11, 14-16, 18, 19, 21, 24, 25 and 26),
 and the result line
 {"ok": true, "device": {...}}.  Without a CUDA device it prints no result
 and exits non-zero.
@@ -441,17 +459,23 @@ def _take_fields(rng, n, dev):
     return fields
 
 
-def _take_bytes(x, idx):
-    """idx and x read once, the (C, K, m) output written once."""
+def _take_bytes(x, idx, x_read=None):
+    """idx and x read once, the (C, K, m) output written once; with
+    ``x_read`` only that many of x's columns are read (a gather that touches
+    a part of x: the distinct columns of idx)."""
     ncomp = 1 if x.ndim == 1 else x.shape[0]
-    return idx.numel() * 4 + (x.numel() + ncomp * idx.numel()) * x.element_size()
+    cols = x.shape[-1] if x_read is None else x_read
+    return idx.numel() * 4 + ncomp * (cols + idx.numel()) * x.element_size()
 
 
-def _take_sweep(tag, kernel, idx, fields, flush, beside=None, main_shapes=TAKE_MAIN_SHAPES):
+def _take_sweep(tag, kernel, idx, fields, flush, beside=None, main_shapes=TAKE_MAIN_SHAPES,
+                x_read=None):
     """Hold ``kernel(x, idx)`` against take_plain, atol 0, on every field,
     and the library call too; time the kernel and the library call at each
     field, and for ``main_shapes`` also the plain version, the kernel with
-    L2 flushed and ``beside`` (the non-band kernel)."""
+    L2 flushed and ``beside`` (the non-band kernel).  ``x_read`` is
+    _take_bytes's; where it is given the bound counts only those columns,
+    and a share above 1 (a bound the kernel beat) fails."""
     from isph_tpu_torch.ops import spmv_cuda as sc
 
     rows = {}
@@ -466,7 +490,7 @@ def _take_sweep(tag, kernel, idx, fields, flush, beside=None, main_shapes=TAKE_M
             raise RuntimeError(f"{tag} library call disagrees with plain ({name})")
         tk, hk = _median_ms(lambda: kernel(f, idx))
         tl, _ = _median_ms(lambda: _library_take(f, idx), reps=10)
-        nbytes = _take_bytes(f, idx)
+        nbytes = _take_bytes(f, idx, x_read)
         bound, by = _bound(nbytes)
         row = dict(ms=tk, library_ms=tl, bound_ms=bound, bound_by=by, plain_ms=None)
         more = ""
@@ -480,8 +504,10 @@ def _take_sweep(tag, kernel, idx, fields, flush, beside=None, main_shapes=TAKE_M
                          f"the same inputs: its plain and library times are this row's)")
         rows[name] = row
         _log(f"{tag}: {name}: exact; kernel={tk:.4f} ms, bound={bound:.4f} ms "
-             f"({nbytes / 1e6:.1f} MB), share={bound / tk:.3f}, library={tl:.4f} ms"
+             f"({nbytes / 1e6:.3f} MB), share={bound / tk:.3f}, library={tl:.4f} ms"
              f"{more}; host enqueue {hk:.1f} us")
+        if x_read is not None and bound > tk:
+            raise RuntimeError(f"{tag} ({name}): {tk:.4f} ms beats its bound {bound:.4f} ms")
     return rows
 
 
@@ -628,12 +654,17 @@ def phase_kernels(dev, flush):
     return dict(spmv_err=spmv_err, spmv=spmv[(torch.float32, 1)], take=take["f32 (N,)"])
 
 
-def _run_steps(tag, sim, state, wrappers, cap_check=True, nsteps=3, each=None):
+def _run_steps(tag, sim, state, wrappers, cap_check=True, nsteps=3, each=None,
+               step_times=None, step=None):
     """``nsteps`` steps through Simulation.run, one call per step
-    (run(state, nsteps) in timed pieces), the wrappers' launch counters set
-    to 0 just before and read just after.  Fails on a neighbor overflow, a
-    non-finite status and, with ``cap_check``, a Poisson solve at the
-    iteration cap.  ``each(k, state, aux)`` sees every step's result."""
+    (run(state, nsteps) in timed pieces), or through ``step(state)`` where
+    given, the wrappers' launch counters set to 0 just before and read just
+    after.  Fails on a neighbor overflow, a non-finite status and, with
+    ``cap_check``, a Poisson solve at the iteration cap.  ``each(k, state,
+    aux)`` sees every step's result; ``step_times``, a list, receives each
+    step's seconds."""
+    if step is None:
+        step = lambda s: sim.run(s, 1)  # noqa: E731
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers:
@@ -642,7 +673,7 @@ def _run_steps(tag, sim, state, wrappers, cap_check=True, nsteps=3, each=None):
     for k in range(nsteps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, aux = sim.run(state, 1)
+        state, aux = step(state)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         _log(f"{tag}: step {k + 1}: {step_s[-1]:.4f} s helmholtz_iters="
@@ -657,6 +688,8 @@ def _run_steps(tag, sim, state, wrappers, cap_check=True, nsteps=3, each=None):
             each(k, state, aux)
     launches = {w.__name__: w.launches for w in wrappers}
     _log(f"{tag}: launches {launches}")
+    if step_times is not None:
+        step_times.extend(step_s)
     step_med = statistics.median(step_s[1:])
     _log(f"{tag}: step time (median of steps 2-{nsteps}) {step_med:.4f} s, "
          f"{state.n / step_med:.0f} particle-steps/s; peak memory "
@@ -807,13 +840,17 @@ def phase_large_n(dev):
     from isph_tpu_torch.ops import spmv_cuda as sc
 
     sim, state = _tgv1024(dev)
+    iters, step_s = [], []
     state, aux, launches = _run_steps(
-        "large", sim, state, (sc.ell_spmv, sc.take, sc.ell_spmv_band, sc.take_band))
+        "large", sim, state, (sc.ell_spmv, sc.take, sc.ell_spmv_band, sc.take_band),
+        each=_record_iters(iters), step_times=step_s)
     if min(launches["ell_spmv_band"], launches["take_band"]) <= 0:
         raise RuntimeError(f"a band kernel never launched on the large-N path: {launches}")
     _check_vortex("large", aux, (2 * math.pi) ** 2)
     _breakdown_amg("large", sim, state)
-    return launches
+    return launches, dict(ke=float(aux.status.kinetic_energy), vmax=float(aux.status.vmax),
+                          nfluid=float(aux.status.nfluid), iters=iters,
+                          median_s=statistics.median(step_s[1:]))
 
 
 def _breakdown_amg(tag, sim, state, forcing=None):
@@ -2498,6 +2535,249 @@ def phase_qeq(dev, flush):
     return dict(spmv=spmv[(torch.float64, 2)], take=take["int32 (N,)"],
                 take_positions=take["f64 (3,N)"], spmv_err=err, launches=launches)
 
+# ---------------------------------------------------------------------------
+# phase 26: the sharded step (parallel/sharded.py) at world size 1 on NCCL
+# ---------------------------------------------------------------------------
+
+def _sharded(sim, state, group, halo=None, **kw):
+    """The ShardedSimulation of ``state`` on ``group`` and this rank's slab:
+    n_loc from choose_n_loc; without ``halo`` the halo holds the fuller
+    face's cut layer (the particles within the cutoff of a slab face) with
+    25% slack, rounded up to 128."""
+    from isph_tpu_torch.parallel.sharded import (ShardedSimulation, choose_n_loc,
+                                                 partition_state, slab)
+
+    dom = sim.domain
+    n_loc = choose_n_loc(state, dom, group.size)
+    layer = None
+    if halo is None:
+        slab_w = dom.length[0] / group.size
+        u = torch.remainder(dom.wrap(state.x)[0] - dom.lo[0], slab_w)[state.valid]
+        layer = (int((u < sim.cfg.cut).sum()), int((u >= slab_w - sim.cfg.cut).sum()))
+        halo = -(-int(math.ceil(1.25 * max(layer))) // 128) * 128
+    ss = ShardedSimulation(sim=sim, group=group, n_loc=n_loc, halo=halo, **kw)
+    st = slab(partition_state(state, dom, group.size, n_loc), group.rank, n_loc)
+    return ss, ss.prepare(st), layer
+
+
+def _vcycles(ss, st):
+    """(V-cycles, their ms) of one more sharded step, each V-cycle bracketed
+    by synchronizes."""
+    from isph_tpu_torch.solvers import amg
+
+    apply = amg.AMG.apply
+    spent = []
+
+    def timed(self, r):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = apply(self, r)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    amg.AMG.apply = timed
+    try:
+        ss.step(st)
+    finally:
+        amg.AMG.apply = apply
+    return len(spent), 1e3 * sum(spent)
+
+
+def _sharded_kernels(flush, ss, st):
+    """The kernels of the sharded step at the slab's shapes, against their
+    plain versions as in phase 3.  On the world-size-1 path: ell_spmv on the
+    Poisson matrix of the extended slab (n_loc + 2H rows, halo columns live)
+    and take on the slab's neighbor list (f32 (N,), (2,N)).  Off that path
+    (matvec_overlapped runs at world size > 1 only), at the same shapes:
+    the SpMV of A_own (halo-column values zeroed) and the (K, 2H)
+    boundary-strip take, whose bound reads only the distinct columns it
+    gathers."""
+    from isph_tpu_torch.ops import corrected as ops
+    from isph_tpu_torch.ops import spmv_cuda as sc
+    from isph_tpu_torch.ops.ell import ELL
+    from isph_tpu_torch.state import Kind
+
+    ext, comm, geom, pre, _ = ss._borders(st, *ss._slab_bounds(st.dtype, st.device))
+    A = ops.laplacian_matrix(
+        geom, pre.vfrac, pre.Gc, pre.Lc, ext.kind, alpha=-ss.cfg.dt,
+        material=1.0 / ext.rho, filt=ops.PairFilter(Kind.FLUID, Kind.FLUID),
+        family=ops.SYMMETRIC)
+    own = (A.idx < ss.n_loc).to(A.vals.dtype)
+    A_own = ELL(A.diag, A.vals * own, A.idx, A.mask, A.band, A.slots)
+    K, n = A.vals.shape
+    nnz = int(A.mask.sum().item()) + n
+    _log(f"sharded kernels: A N={n} (n_loc {ss.n_loc} + 2 x halo {ss.halo}) K={K} "
+         f"nnz={nnz}, {int((own * A.mask).sum().item())} on owned columns")
+    rng = np.random.default_rng(26)
+    both = ((torch.float32, (1,)), (torch.float64, (1,)))
+    spmv, err = _sweep_ell("sharded kernels: A spmv (the path's)", A, nnz, flush, rng, both)
+    spmv_own, err_own = _sweep_ell("sharded kernels: A_own spmv (world size > 1)", A_own, nnz,
+                                   flush, rng, both)
+    fields = {f"{t} ({'N,' if c == 1 else f'{c},N'})": _field(
+        rng, (n,) if c == 1 else (c, n), dt, st.device)
+        for t, dt in (("f32", torch.float32), ("f64", torch.float64)) for c in (1, 2)}
+    take = _take_sweep(f"sharded kernels: take (the path's, K={K}, N={n})", sc.take, geom.idx,
+                       {k: fields[k] for k in ("f32 (N,)", "f32 (2,N)")}, flush,
+                       main_shapes=("f32 (N,)", "f32 (2,N)"))
+    rows = torch.cat([comm.spec.send_left, comm.spec.send_right])
+    idx_s = geom.idx[:, rows].contiguous()
+    cols = int(torch.unique(idx_s).numel())
+    strip = _take_sweep(f"sharded kernels: strip take (world size > 1, K={K}, "
+                        f"2H={idx_s.shape[1]}, {cols} distinct columns)", sc.take, idx_s,
+                        fields, flush, main_shapes=("f32 (N,)",), x_read=cols)
+    return dict(spmv=spmv[(torch.float32, 1)], spmv_own=spmv_own[(torch.float32, 1)],
+                spmv_err=max(err, err_own), take=take["f32 (N,)"], take_strip=strip["f32 (N,)"])
+
+
+def _matched(fields_a, fields_b, names):
+    """max |a - b| of each field after matching the valid particles by
+    position."""
+    out = {}
+    sorted_ = []
+    for f in (fields_a, fields_b):
+        v = f["valid"].astype(bool)
+        x = f["x"][:, v]
+        o = np.lexsort([np.round(x[d] * 1e6).astype(np.int64) for d in reversed(range(len(x)))])
+        sorted_.append({k: f[k][..., v][..., o] for k in names})
+    for k in names:
+        out[k] = float(np.abs(sorted_[0][k] - sorted_[1][k]).max())
+    return out
+
+
+def _sharded_exact(dev, group):
+    """(b) TGV-256^2 f64, h_factor 1.6, Jacobi: the sharded step at world
+    size 1 against the one-device step on the card.  Step 1 from the same
+    initial state: fields within 1e-9 after matching by position, both
+    runs' iterations and relres logged (the step's Poisson right-hand side
+    is round-off, since the initial field is divergence-free, and Jacobi
+    GMRES may take another count on it).  Steps 2-4 from a common state,
+    the one-device state after step 1: iterations equal, fields within 1e-9
+    after step 4."""
+    from isph_tpu_torch import interop
+    from isph_tpu_torch.models import tgv
+
+    sim, state = tgv.make_tgv(256, h_factor=1.6, device=dev)
+    sim = dataclasses.replace(sim, cfg=sim.cfg.replace(
+        solver=dataclasses.replace(sim.cfg.solver, precond="jacobi")))
+    state = sim.prepare(state)
+    names = ("x", "v", "p")
+
+    def counts(aux):
+        return (int(aux.helmholtz_iters), int(aux.poisson_iters),
+                f"{float(aux.poisson_relres):.3e}")
+
+    ss, st, layer = _sharded(sim, state, group)
+    st, saux = ss.step(st)
+    state, raux = sim.step(state)
+    diff = _matched(interop.state_to_numpy(st), interop.state_to_numpy(state), names)
+    _log(f"sharded exact: step 1 from the same initial state: (helmholtz, poisson, poisson "
+         f"relres) one device {counts(raux)}, sharded {counts(saux)}; max |sharded - one "
+         f"device| {diff}")
+    if max(diff.values()) > 1e-9 or int(saux.neighbor_overflow) != 0:
+        raise RuntimeError(f"sharded step 1 differs from the one-device step: {diff}")
+    ss, st, _ = _sharded(sim, state, group)
+    ref = state
+    for k in range(3):
+        ref, raux = sim.step(ref)
+        st, saux = ss.step(st)
+        a, b = counts(raux), counts(saux)
+        _log(f"sharded exact: step {k + 2}: (helmholtz, poisson, poisson relres) one device "
+             f"{a}, sharded {b}")
+        if a[:2] != b[:2] or int(saux.neighbor_overflow) != 0:
+            raise RuntimeError(f"sharded step {k + 2} iterations {b} != one device's {a}")
+    diff = _matched(interop.state_to_numpy(st), interop.state_to_numpy(ref), names)
+    _log(f"sharded exact: TGV-256^2 f64 halo {ss.halo} (cut layer {layer}): max |sharded - "
+         f"one device| after step 4 {diff}")
+    if max(diff.values()) > 1e-9:
+        raise RuntimeError(f"sharded step differs from the one-device step: {diff}")
+
+
+def _event_ms(fn, reps=5):
+    """Median ms of ``fn()`` between two CUDA events, after one warm call."""
+    fn()
+    ms = []
+    for _ in range(reps):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        ms.append(s.elapsed_time(e))
+    return statistics.median(ms)
+
+
+def _sharded_overhead_128(dev, group):
+    """(c) bench.py:bench_sharded_overhead's cell: TGV-128^2 f32 Jacobi,
+    K = 32, halo 640, n_loc = N: the sharded step over the plain one, both
+    timed with CUDA events from the same state."""
+    from isph_tpu_torch.parallel.sharded import ShardedSimulation, partition_state, slab
+
+    sim, state = _tgv(dev, 128, "jacobi")
+    n = state.n
+    ss = ShardedSimulation(sim=sim, group=group, n_loc=n, halo=640, migrate_cap=256)
+    st = ss.prepare(slab(partition_state(state, sim.domain, 1, n), 0, n))
+    plain = _event_ms(lambda: sim.step(state))
+    sharded = _event_ms(lambda: ss.step(st))
+    ratio = sharded / plain
+    _log(f"sharded: TGV-128^2 f32 Jacobi K=32 halo 640: sharded step {sharded:.3f} ms, "
+         f"plain step {plain:.3f} ms (CUDA events, median of 5); "
+         f"sharded_overhead_ratio={ratio:.4f}")
+    return ratio
+
+
+def phase_sharded(dev, flush, large):
+    """Phase 26: the sharded step at world size 1 on NCCL, in-process."""
+    from isph_tpu_torch.ops import spmv_cuda as sc
+    from isph_tpu_torch.parallel import mesh
+
+    store = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    group = mesh.make_mesh(1, 0, backend="nccl", init_file=os.path.join(store, "store"),
+                           device=dev)
+    try:
+        # (a) the 1M step at full width: phase 7's lattice and AMG, the AMG
+        # cache on as phase 7's one-device driver caches
+        sim, state = _tgv1024(dev)
+        ss, st, layer = _sharded(sim, state, group, amg_cache_enabled=True)
+        _log(f"sharded: world size 1 on NCCL; TGV-1024^2 f32 AMG: n_loc={ss.n_loc} "
+             f"halo={ss.halo} (cut layer {layer[0]} and {layer[1]} particles at the two "
+             f"x-faces, cut {sim.cfg.cut:.6f}), local cell capacity "
+             f"{ss._local_cell_capacity()}")
+        iters, step_s = [], []
+        st, aux, launches = _run_steps("sharded", sim, st, (sc.ell_spmv, sc.take),
+                                       each=_record_iters(iters), step_times=step_s,
+                                       step=ss.step)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        if min(launches.values()) <= 0:
+            raise RuntimeError(f"a kernel never launched on the sharded path: {launches}")
+        ke, vmax = float(aux.status.kinetic_energy), float(aux.status.vmax)
+        d_ke, d_v = abs(ke / large["ke"] - 1.0), abs(vmax / large["vmax"] - 1.0)
+        med = statistics.median(step_s[1:])
+        _log(f"sharded: KE {ke!r} (phase 7 {large['ke']!r}, rel {d_ke:.3e}), vmax {vmax!r} "
+             f"(phase 7 {large['vmax']!r}, rel {d_v:.3e}), nfluid {float(aux.status.nfluid)!r}; "
+             f"(helmholtz, poisson) iterations {iters} beside phase 7's {large['iters']}; "
+             f"peak memory {peak:.1f} MiB")
+        if max(d_ke, d_v) > 1e-4 or float(aux.status.nfluid) != large["nfluid"]:
+            raise RuntimeError("the sharded 1M step departs from phase 7's")
+        _log(f"sharded: sharded_overhead_ratio_1m={med / large['median_s']:.4f} "
+             f"(sharded median {med:.4f} s / phase 7 median {large['median_s']:.4f} s)")
+        nv, vms = _vcycles(ss, st)
+        _log(f"sharded: one more step: {nv} V-cycles, {vms:.1f} ms, "
+             f"{vms / max(nv, 1):.3f} ms each")
+        wall, busy, nk = _idle_share(lambda: ss.step(st))
+        _log(f"sharded: profiled step {wall:.4f} s, device busy {busy:.4f} s over {nk} "
+             f"kernels, idle share {1.0 - busy / wall:.3f}")
+        kd = _sharded_kernels(flush, ss, st)
+        del sim, state, ss, st, aux
+        torch.cuda.empty_cache()
+        # (b) exactness; (c) the reference's yardstick
+        _sharded_exact(dev, group)
+        _sharded_overhead_128(dev, group)
+    finally:
+        mesh.close_mesh()
+    return dict(launches=launches, **kd)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2543,7 +2823,7 @@ def main() -> int:
     kb = phase_band_kernels(dev, flush)
     del flush
     torch.cuda.empty_cache()
-    launches_large = phase_large_n(dev)
+    launches_large, large = phase_large_n(dev)
 
     # phase 8: 3-D kernels; phase 9: the 3-D path; phase 10: channel
     # kernels; phase 11: the channel path
@@ -2607,6 +2887,10 @@ def main() -> int:
     flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
     kx = phase_solver_extras(dev, flush, main_iters, tgv_state)
     kq = phase_qeq(dev, flush)
+
+    # phase 26: the sharded step at world size 1 on NCCL
+    torch.cuda.empty_cache()
+    ks = phase_sharded(dev, flush, large)
     del flush
 
     def row(name, source, replaces, launched, err, t):
@@ -2630,22 +2914,31 @@ def main() -> int:
         through a (K, N) flat index into K*N values), with the launches of
         its ILU, recycled and pipelined runs; phase 25's QEq matrix (f64
         C = 2, K = 448), type ids (int32) and positions (f64 (3, N)) with
-        the launches of its six solves."""
+        the launches of its six solves; phase 26's Poisson matrix of the
+        extended slab (f32) and the slab's neighbor gather (f32 (N,)), the
+        kernels of the world-size-1 path, with the launches of its three 1M
+        sharded steps, and beside them the world-size > 1 shapes: A_own
+        (f32) and the boundary strip (f32 (N,))."""
         kname = "spmv" if name == "ell_spmv" else name
         mls_rows = (dict(at_cylinder=times(km["spmv_cylinder"]),
                          at_mls_3d=times(km["spmv_3d"])) if name == "ell_spmv"
                     else dict(at_cylinder=times(km["take"])))
         extras = (dict(at_ilu=times(kx["spmv_L"]), at_ilu_upper=times(kx["spmv_U"]),
-                       at_qeq=times(kq["spmv"])) if name == "ell_spmv"
+                       at_qeq=times(kq["spmv"]), at_sharded=times(ks["spmv"]),
+                       at_sharded_own=times(ks["spmv_own"]))
+                  if name == "ell_spmv"
                   else dict(at_ilu=times(kx["take_upper"]),
                             at_ilu_columns=times(kx["take_columns"]),
                             at_qeq=times(kq["take"]),
-                            at_qeq_positions=times(kq["take_positions"])))
+                            at_qeq_positions=times(kq["take_positions"]),
+                            at_sharded=times(ks["take"]),
+                            at_sharded_strip=times(ks["take_strip"])))
         return dict(launches_3d=launches_3d[name], launches_channel=launches_channel[name],
                     launches_ilu=kx["launches_ilu"][name],
                     launches_recycle=kx["launches_recycle"][name],
                     launches_pipelined=kx["launches_pipelined"][name],
-                    launches_qeq=kq["launches"][name], **extras,
+                    launches_qeq=kq["launches"][name],
+                    launches_sharded=ks["launches"][name], **extras,
                     launches_edl=launches_edl[name],
                     launches_transport=launches_transport[name],
                     launches_walls=launches_walls[name],
@@ -2659,7 +2952,7 @@ def main() -> int:
         {**row("ell_spmv", "spmv.cu", 298, launches["ell_spmv"],
                max(k["spmv_err"], kb["spmv32_err"], k3["spmv_err"], kc["spmv_err"],
                    ke["spmv_err"], kp["spmv_err"], km["spmv_err"], kx["err_L"], kx["err_U"],
-                   kq["spmv_err"]), k["spmv"]),
+                   kq["spmv_err"], ks["spmv_err"]), k["spmv"]),
          **beyond("ell_spmv")},
         {**row("take", "take.cu", 332, launches["take"], 0.0, k["take"]), **beyond("take")},
         row("ell_spmv_band", "spmv_band.cu", 458, launches_large["ell_spmv_band"],

@@ -133,3 +133,25 @@ def config_from_dict(d: Mapping) -> C.SimulationConfig:
             g=tuple(ns.g),
         )
     return C.SimulationConfig(**kw)
+
+
+def _n_slots(fields: Mapping[str, np.ndarray]) -> int:
+    return np.asarray(fields["valid"]).shape[-1]
+
+
+def gather_slabs(parts) -> dict:
+    """The ranks' slabs (``state_to_numpy`` dicts, in rank order) back into
+    one slab-blocked dict of numpy arrays: per-particle fields concatenated
+    along the particle axis, scalars from rank 0, the solver caches left
+    behind."""
+    n_loc = _n_slots(parts[0])
+    out = {}
+    for name, arr in parts[0].items():
+        if name in ("solver_cache", "amg_cache", "ale_hist"):
+            continue
+        a = np.asarray(arr)
+        if a.ndim and a.shape[-1] == n_loc:
+            out[name] = np.concatenate([np.asarray(p[name]) for p in parts], axis=-1)
+        else:
+            out[name] = a
+    return out

@@ -103,7 +103,7 @@ class Simulation:
         return state
 
     # -- one full timestep -------------------------------------------------
-    def step(self, state: ParticleState) -> Tuple[ParticleState, StepAux]:
+    def step(self, state: ParticleState, *, group=None) -> Tuple[ParticleState, StepAux]:
         """One timestep (PairISPH::compute, pair_isph.cpp:1241-1380):
         modifier -> neighbors -> pair geometry -> computePre -> extra force
         -> applied E-field -> Poisson-Boltzmann (+ electrostatic force) ->
@@ -113,7 +113,11 @@ class Simulation:
         random stress draws its noise from a generator seeded by
         (``cfg.rs.seed``, step): not JAX's threefry stream
         (:mod:`~isph_tpu_torch.physics.fluctuation`).  The "mls_ale" backend
-        follows the ALE dispatch instead (:meth:`_step_mls_ale`)."""
+        follows the ALE dispatch instead (:meth:`_step_mls_ale`).
+
+        ``group`` (JAX's ``axis_name``) all-reduces the solves' reductions
+        and the status, as JAX's step does under its mesh axis; the sharded
+        step with halos is ``parallel.sharded.ShardedSimulation``."""
         cfg = self.cfg
         if cfg.backend == "mls_ale":
             return self._step_mls_ale(state)
@@ -142,12 +146,13 @@ class Simulation:
         if cfg.ae.enabled:
             with named_scope("applied_efield", dev):
                 phi, phigrad = electrokinetics.solve_applied_electric_potential(
-                    state, geom, pre, cfg)
+                    state, geom, pre, cfg, group=group)
             state = state.replace(phi=phi, phigrad=phigrad)
 
         if cfg.pb.enabled:
             with named_scope("poisson_boltzmann", dev):
-                psi, psigrad, _ = electrokinetics.solve_poisson_boltzmann(state, geom, pre, cfg)
+                psi, psigrad, _ = electrokinetics.solve_poisson_boltzmann(
+                    state, geom, pre, cfg, group=group)
                 state = state.replace(psi=psi, psigrad=psigrad)
                 f = electrokinetics.electrostatic_force(
                     state, cfg, psigrad, phigrad=state.phigrad if cfg.ae.enabled else None)
@@ -155,7 +160,7 @@ class Simulation:
 
         if cfg.tr.enabled and state.conc is not None:
             with named_scope("transport", dev):
-                conc, _ = transport.solute_transport_step(state, geom, pre, cfg)
+                conc, _ = transport.solute_transport_step(state, geom, pre, cfg, group=group)
             state = state.replace(conc=conc)
 
         if cfg.rs.enabled:
@@ -179,7 +184,7 @@ class Simulation:
 
         # phases "helmholtz", "poisson" and "correct" are scoped inside
         state, info = ns_projection.navier_stokes_step(
-            state, geom, pre, cfg, domain=self.domain)
+            state, geom, pre, cfg, domain=self.domain, group=group)
         with named_scope("advance", dev):
             state = ns_projection.advance_time(state, geom, pre, cfg, self.domain)
 
@@ -191,7 +196,7 @@ class Simulation:
                 nbrs2 = self.neighbors(state)
                 geom2 = self.geometry(state, nbrs2)
                 pre2 = self.precompute(state, geom2)
-                dr = shift_mod.compute_shift_vectors(state, geom2, cfg)
+                dr = shift_mod.compute_shift_vectors(state, geom2, cfg, group=group)
                 state = shift_mod.apply_shift(state, geom2, pre2, cfg, dr, self.domain)
             overflow = overflow + nbrs2.overflow
 
@@ -200,7 +205,7 @@ class Simulation:
             time = state.step.to(state.dtype) * cfg.dt
         else:
             time = 0.0
-        status = compute_status(state, pre.vfrac, time)
+        status = compute_status(state, pre.vfrac, time, group=group)
         h = info.helmholtz
         aux = StepAux(
             status=status,

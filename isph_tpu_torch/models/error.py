@@ -44,6 +44,10 @@ _FUNCS = {
 _DOTTED = re.compile(r"\b([A-Za-z_]\w*(?:\.[A-Za-z_]\w*)+)\b(?!\s*\()")
 
 
+def _psum(s: torch.Tensor, group) -> torch.Tensor:
+    return s if group is None else group.psum(s)
+
+
 def _namespace(variables: Mapping) -> Dict[str, object]:
     """The math functions, each promoting number arguments to tensors of
     the first tensor variable's dtype and device (f64 on the CPU when the
@@ -131,23 +135,27 @@ class AnalyticErrorFix:
         return None if f is None else f(**variables)
 
     @staticmethod
-    def _norms(pairs, w, ntotal):
+    def _norms(pairs, w, ntotal, group=None):
         """sqrt(sum diff^2 / n) and sqrt(sum val^2 / n) over
         [(field, exact), ...] accumulated jointly (the reference sums u.x,
-        u.y and u.z into one err_u, fix_isph_error.cpp:441-470)."""
+        u.y and u.z into one err_u, fix_isph_error.cpp:441-470); under
+        ``group`` (JAX's ``axis_name``) both sums are all-reduced."""
         esq = sum(((f - v) * w) ** 2 for f, v in pairs).sum()
         ssq = sum((v * w) ** 2 for _, v in pairs).sum()
+        if group is not None:
+            esq, ssq = group.psum(torch.stack([esq, ssq]))
         err = torch.sqrt(esq / ntotal)
         sol = torch.sqrt(ssq / ntotal)
         return err, sol, err / torch.clamp_min(sol, torch.finfo(err.dtype).tiny)
 
-    def navier_stokes_error(self, state: ParticleState, t) -> Dict[str, torch.Tensor]:
+    def navier_stokes_error(self, state: ParticleState, t, *, group=None
+                            ) -> Dict[str, torch.Tensor]:
         """computeIncompressibleNavierStokesError: velocity (the joint
         u.x/u.y/u.z norm) and zero-mean-adjusted pressure, over the
-        non-solid particles."""
+        non-solid particles (every sum all-reduced under ``group``)."""
         variables = self._vars(state, t)
         w = (state.valid & ~state.is_solid).to(state.dtype)
-        ntotal = w.sum()
+        ntotal = _psum(w.sum(), group)
         out: Dict[str, torch.Tensor] = {"ntotal": ntotal}
 
         vel_pairs = []
@@ -156,28 +164,29 @@ class AnalyticErrorFix:
             if val is not None:
                 vel_pairs.append((state.v[d], val))
         if vel_pairs:
-            err, sol, rel = self._norms(vel_pairs, w, ntotal)
+            err, sol, rel = self._norms(vel_pairs, w, ntotal, group)
             out.update({"err.u.norm2": err, "sol.u.norm2": sol, "rel.u": rel})
 
         pex = self._eval("p", variables)
         if pex is not None:
             # remove the discrete zero-mean offset (computeZeroMeanPressure)
-            mean_p = (state.p * w).sum() / ntotal
-            err, sol, rel = self._norms([(state.p - mean_p, pex)], w, ntotal)
+            mean_p = _psum((state.p * w).sum(), group) / ntotal
+            err, sol, rel = self._norms([(state.p - mean_p, pex)], w, ntotal, group)
             out.update({"err.p.norm2": err, "sol.p.norm2": sol, "rel.p": rel})
         return out
 
-    def poisson_boltzmann_error(self, state: ParticleState, t=0.0
+    def poisson_boltzmann_error(self, state: ParticleState, t=0.0, *, group=None
                                 ) -> Dict[str, torch.Tensor]:
-        """computePoissonBoltzmannError: psi and the joint psi-gradient norm."""
+        """computePoissonBoltzmannError: psi and the joint psi-gradient norm
+        (every sum all-reduced under ``group``)."""
         variables = self._vars(state, t)
         w = (state.valid & ~state.is_solid).to(state.dtype)
-        ntotal = w.sum()
+        ntotal = _psum(w.sum(), group)
         out: Dict[str, torch.Tensor] = {"ntotal": ntotal}
 
         val = self._eval("psi", variables)
         if val is not None:
-            err, sol, rel = self._norms([(state.psi, val)], w, ntotal)
+            err, sol, rel = self._norms([(state.psi, val)], w, ntotal, group)
             out.update({"err.psi.norm2": err, "sol.psi.norm2": sol, "rel.psi": rel})
 
         grad_pairs = []
@@ -186,7 +195,7 @@ class AnalyticErrorFix:
             if v is not None:
                 grad_pairs.append((state.psigrad[d], v))
         if grad_pairs:
-            err, sol, rel = self._norms(grad_pairs, w, ntotal)
+            err, sol, rel = self._norms(grad_pairs, w, ntotal, group)
             out.update({"err.psi.grad.norm2": err, "sol.psi.grad.norm2": sol,
                         "rel.psi.grad": rel})
         return out

@@ -25,6 +25,7 @@ from isph_tpu_torch.state import Kind
 from isph_tpu_torch.ops.neighbors import PairGeom
 from isph_tpu_torch.ops.ell import ELL
 from isph_tpu_torch.utils import dense
+from isph_tpu_torch.utils.fsum import sqrt_rn
 from isph_tpu_torch.utils.packed import (
     packed_identity,
     packed_indices,
@@ -187,7 +188,7 @@ def interface_normal(geom: PairGeom, vfrac: torch.Tensor, kind: torch.Tensor,
     gr = _g_dot_r(Gc, geom.rij)  # (D, K, N)
     grad_c = torch.stack([(gr[b] * coef).sum(dim=0) for b in range(dim)])  # (D, N)
 
-    mag = torch.sqrt(sum(grad_c[d] * grad_c[d] for d in range(dim)))
+    mag = sqrt_rn(sum(grad_c[d] * grad_c[d] for d in range(dim)))
     normal = torch.where(mag[None, :] > 0.0,
                          grad_c / torch.clamp_min(mag, 1e-30)[None, :], 0.0)
 
@@ -243,7 +244,7 @@ class Family:
         """(K, N) pair volume weight."""
         vj = geom.gather(vfrac)
         if self.antisymmetric:
-            return torch.sqrt(vfrac[None, :] * vj) * geom.mask
+            return sqrt_rn(vfrac[None, :] * vj) * geom.mask
         return vj * geom.mask
 
     def combine(self, fi, fj):

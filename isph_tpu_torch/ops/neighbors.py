@@ -39,6 +39,7 @@ import torch
 
 from isph_tpu_torch.state import Domain
 from isph_tpu_torch.ops.kernels import Kernel
+from isph_tpu_torch.utils.fsum import sqrt_rn
 from isph_tpu_torch.ops.spmv_cuda import (LANE, BandSpec, SlotFormat, slot_format, take,
                                           take_band)
 
@@ -387,7 +388,7 @@ def compute_pair_geometry(
     rij = torch.stack(
         [domain.minimum_image_axis(xw[d][None, :] - xj[d], d) * maskf for d in range(dim)]
     )  # (D, K, N)
-    r = torch.sqrt(sum(rij[d] * rij[d] for d in range(dim))) + _R_EPS
+    r = sqrt_rn(sum(rij[d] * rij[d] for d in range(dim))) + _R_EPS
     eij = rij / r
     w = kernel.w(r, h, dim) * maskf
     dwdr = kernel.dw(r, h, dim) * maskf

@@ -38,6 +38,7 @@ from isph_tpu_torch.ops.neighbors import PairGeom, gather
 from isph_tpu_torch.ops.spmv_cuda import BandSpec
 from isph_tpu_torch.physics.ns_projection import _fluid_pair_coeff, _mirror, family_of
 from isph_tpu_torch.solvers.krylov import KrylovResult, gmres
+from isph_tpu_torch.utils.fsum import sqrt_rn
 
 
 def _mix(w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -104,7 +105,7 @@ def _row_average_normal(geom: PairGeom, normal: torch.Tensor) -> torch.Tensor:
     (functor_laplacian_matrix.h:268-276), (D, N)."""
     dim = normal.shape[0]
     acc = normal + (geom.gather(normal) * geom.mask[None]).sum(dim=1)
-    mag = torch.sqrt(sum(acc[d] ** 2 for d in range(dim)))
+    mag = sqrt_rn(sum(acc[d] ** 2 for d in range(dim)))
     return torch.where(mag[None, :] > 0, acc / torch.clamp_min(mag, 1e-30)[None, :], 0.0)
 
 
@@ -218,17 +219,31 @@ def block_helmholtz_system(state: ParticleState, geom: PairGeom, pre: Precompute
 
 
 def solve_block_helmholtz(state: ParticleState, geom: PairGeom, pre: Precomputed,
-                          cfg: SimulationConfig) -> Tuple[torch.Tensor, KrylovResult]:
+                          cfg: SimulationConfig, *, group=None, exchange=None,
+                          ownedf: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, KrylovResult]:
     """Solve the coupled system as one GMRES over the flattened (D*N) vector
     with the block-diagonal Jacobi (the reference runs Belos on the
     Thyra-blocked operator, solver_lin.cpp:78-107).  The tolerance has the
     scalar solves' dtype-aware floor (30 eps), which leaves f64 at the
-    configured tolerance and lets f32 meet it."""
+    configured tolerance and lets f32 meet it.
+
+    Distributed (the same Belos GMRES over the MPI-distributed block
+    operator): ``exchange`` refreshes the halo of the (D, N_ext) iterate
+    before each block matvec, ``ownedf`` masks rows to owned slots so the
+    all-reduced dots count every row once, and ``group`` is JAX's
+    ``axis_name``."""
     A, b = block_helmholtz_system(state, geom, pre, cfg)
     dim, N = b.shape
 
+    def own(v):
+        return v if ownedf is None else v * ownedf[None, :]
+
     def mv(xflat):
-        return A.matvec(xflat.reshape(dim, N)).reshape(-1)
+        xm = xflat.reshape(dim, N)
+        if exchange is not None:
+            xm = exchange(xm)
+        return own(A.matvec(xm)).reshape(-1)
 
     dd = torch.stack([A.diag[a, a] for a in range(dim)])  # (D, N)
     dinv = torch.where(dd.abs() > 0, 1.0 / torch.where(dd == 0, 1.0, dd), 1.0)
@@ -238,6 +253,6 @@ def solve_block_helmholtz(state: ParticleState, geom: PairGeom, pre: Precomputed
 
     sc = cfg.solver
     tol = max(sc.tol, 30.0 * float(torch.finfo(b.dtype).eps))
-    res = gmres(mv, b.reshape(-1), state.v.reshape(-1), M=M, tol=tol, restart=sc.restart,
-                max_restarts=sc.max_restarts)
+    res = gmres(mv, own(b).reshape(-1), own(state.v).reshape(-1), M=M, tol=tol,
+                restart=sc.restart, max_restarts=sc.max_restarts, group=group)
     return res.x.reshape(dim, N), res

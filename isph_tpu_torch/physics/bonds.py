@@ -21,6 +21,7 @@ import dataclasses
 import torch
 
 from isph_tpu_torch.state import Domain, ParticleState
+from isph_tpu_torch.utils.fsum import sqrt_rn
 
 
 @dataclasses.dataclass
@@ -56,7 +57,7 @@ def _bond_geometry(state: ParticleState, bonds: BondList, domain: Domain):
         [domain.minimum_image_axis(state.x[d, i] - state.x[d, j], d)
          for d in range(state.dim)]
     )  # (D, B)
-    r = torch.sqrt(sum(rij[d] ** 2 for d in range(state.dim))) + 1e-30
+    r = sqrt_rn(sum(rij[d] ** 2 for d in range(state.dim))) + 1e-30
     return rij, r
 
 

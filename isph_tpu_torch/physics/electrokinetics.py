@@ -14,6 +14,10 @@ Reference:
   (Fluid, All), Morris-Holmes variant for walls).
 
 Every matvec of these solves is the ELL SpMV kernel on CUDA tensors.
+
+The solves take the distributed hooks of the JAX package: ``group`` (JAX's
+``axis_name``: all-reduced dots), ``exchange`` (the halo refresh of a field
+on the extended slab) and ``owned`` (the float mask of owned rows).
 """
 
 from __future__ import annotations
@@ -63,12 +67,15 @@ def pb_system(
     *,
     extra_f: Optional[torch.Tensor] = None,
     mirror: Optional[torch.Tensor] = None,
+    exchange: Optional[Callable] = None,
 ) -> Tuple[Callable, Callable]:
     """(residual, jacobian) of F(psi) = -div(eps grad psi) + kappa^2 s(psi)
     (+ extra manufactured source) with Dirichlet psi = psi0 on solid.  The
     Laplacian is assembled once here; ``jacobian(psi)`` only updates its
     diagonal, as the reference caches A between computeJacobian calls
-    (functor_poisson_boltzmann_jacobian.h:50-65)."""
+    (functor_poisson_boltzmann_jacobian.h:50-65).  ``exchange`` refreshes
+    the halo of psi at the top of every residual, where the reference
+    forward-comms Psi in computeF (pair_isph_corrected.cpp:447-450)."""
     dtype = state.dtype
     pb = cfg.pb
     kappasq = 2.0 * pb.ezcb / pb.psiref
@@ -87,6 +94,8 @@ def pb_system(
     )
 
     def residual(psi):
+        if exchange is not None:
+            psi = exchange(psi)
         g, _ = pb_nonlinearity(psi, kappasq, pb.gamma, pb.is_linearized)
         f_fluid = L.matvec(psi) + g + fext
         f = torch.where(solid, -psi + psi0, f_fluid)
@@ -111,18 +120,31 @@ def solve_poisson_boltzmann(
     extra_f: Optional[torch.Tensor] = None,
     psi0_init: Optional[torch.Tensor] = None,
     mirror: Optional[torch.Tensor] = None,
+    group=None,
+    exchange: Optional[Callable] = None,
+    owned: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, NewtonResult]:
     """Newton-Krylov solve of the PB system (:func:`pb_system`).  Returns
-    (psi, psigrad, newton_info)."""
-    residual, jacobian = pb_system(state, geom, pre, cfg, extra_f=extra_f, mirror=mirror)
+    (psi, psigrad, newton_info).  Distributed: the Jacobian matvec imports
+    the halo first and every row outside ``owned`` is masked."""
+    residual, jacobian = pb_system(state, geom, pre, cfg, extra_f=extra_f, mirror=mirror,
+                                   exchange=exchange)
     x0 = psi0_init if psi0_init is not None else _field(state.psi, state, 0.0)
     nw = cfg.newton
+    wrap = None
+    if exchange is not None:
+        ownedf = owned if owned is not None else state.valid.to(state.dtype)
+
+        def wrap(mv):
+            return lambda v: mv(exchange(v)) * ownedf
     res = newton_krylov(
         residual, jacobian, x0,
         tol_f=nw.tol_f, tol_update=nw.tol_update, max_iters=nw.max_iters,
         linear_tol=nw.linear_tol, linear_restart=nw.linear_max_iters,
+        group=group, wrap_matvec=wrap, owned=(owned if exchange is not None else None),
     )
-    psi = res.x
+    # comm Psi after the solve (pair_isph.cpp:596-598)
+    psi = res.x if exchange is None else exchange(res.x)
 
     # psi gradient: Symmetric corrected gradient, filter (Fluid, All)
     psigrad = ops.gradient(
@@ -138,10 +160,16 @@ def solve_applied_electric_potential(
     geom: PairGeom,
     pre: Precomputed,
     cfg: SimulationConfig,
+    *,
+    group=None,
+    exchange: Optional[Callable] = None,
+    owned: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Laplace equation div(sigma grad phi) = 0 with Dirichlet rows on the
     buffer kinds (their preset phi) and on solid (phi = 0)
-    (functor_applied_electric_potential.h:37-94).  Returns (phi, phigrad)."""
+    (functor_applied_electric_potential.h:37-94).  Returns (phi, phigrad).
+    Distributed: halo import in every matvec, owned-row masking, and the
+    solution's halo refreshed before its gradient."""
     dtype = state.dtype
     sigma = _field(state.sigma, state, 1.0)
     phi = _field(state.phi, state, 0.0)
@@ -160,17 +188,38 @@ def solve_applied_electric_potential(
     buffer = state.is_kind(Kind.BUFFER_DIRICHLET | Kind.BUFFER_NEUMANN)
     b = torch.where(buffer & state.valid, phi, 0.0)
 
+    mv, M, x_init = A.matvec, jacobi(A), phi
+    if exchange is not None:
+        mv, M, ownedf = _distributed(A, M, exchange, owned, state)
+        b = b * ownedf
+        x_init = phi * ownedf
     res = gmres(
-        A.matvec, b, phi, M=jacobi(A),
+        mv, b, x_init, M=M,
         tol=cfg.solver.tol, restart=cfg.solver.restart,
-        max_restarts=cfg.solver.max_restarts,
+        max_restarts=cfg.solver.max_restarts, group=group,
     )
+    phi_new = res.x if exchange is None else exchange(res.x)
     phigrad = ops.gradient(
-        geom, pre.vfrac, pre.Gc, res.x, family=SYMMETRIC,
+        geom, pre.vfrac, pre.Gc, phi_new, family=SYMMETRIC,
         coeff=PairFilter(Kind.FLUID, Kind.ALL).pair(state.kind, geom).to(dtype) * geom.mask,
         row_mask=state.is_fluid,
     )
-    return res.x, phigrad
+    return phi_new, phigrad
+
+
+def _distributed(A, M: Callable, exchange: Callable, owned, state: ParticleState):
+    """The slab form of a solve on ``A``: the matvec refreshes the halo of
+    its input and masks its output to owned rows, and so does ``M``.
+    Returns (matvec, M, the owned mask)."""
+    ownedf = owned if owned is not None else state.valid.to(state.dtype)
+
+    def mv(v):
+        return A.matvec(exchange(v)) * ownedf
+
+    def M_owned(r):
+        return M(r) * ownedf
+
+    return mv, M_owned, ownedf
 
 
 def electrostatic_force(

@@ -24,28 +24,43 @@ from isph_tpu_torch.state import Kind, ParticleState, Precomputed
 from isph_tpu_torch.ops import corrected as ops
 from isph_tpu_torch.ops.corrected import ANTISYMMETRIC, PairFilter
 from isph_tpu_torch.ops.neighbors import PairGeom
+from isph_tpu_torch.utils.fsum import sqrt_rn
 
 
 _M64 = (1 << 64) - 1
 
 
-def noise_seed(seed: int, step: int) -> int:
-    """The generator seed of step ``step`` under ``cfg.rs.seed``: the two
-    32-bit words side by side, mixed by splitmix64's finalizer.  The
-    finalizer is a bijection of 64-bit words, so distinct pairs get distinct
-    seeds, and it spreads both words over the low 32 bits, all that a CPU
-    generator keeps."""
-    z = (((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF)) + 0x9E3779B97F4A7C15 & _M64
+def _splitmix(z: int) -> int:
+    z = z + 0x9E3779B97F4A7C15 & _M64
     z = (z ^ (z >> 30)) * 0xBF58476D1CE4E5B9 & _M64
     z = (z ^ (z >> 27)) * 0x94D049BB133111EB & _M64
     return z ^ (z >> 31)
 
 
-def random_stress_noise(seed: int, step: int, state: ParticleState) -> torch.Tensor:
-    """(D, D, N) standard-normal draw of step ``step`` on the state's device
-    and dtype."""
+def noise_seed(seed: int, step: int, rank: int = 0) -> int:
+    """The generator seed of step ``step`` under ``cfg.rs.seed``: the two
+    32-bit words side by side, mixed by splitmix64's finalizer.  The
+    finalizer is a bijection of 64-bit words, so distinct pairs get distinct
+    seeds, and it spreads both words over the low 32 bits, all that a CPU
+    generator keeps.
+
+    Under a slab decomposition each rank draws for its own extended slab,
+    as JAX folds the device index into its key (``fold_in(key, me)``): a
+    rank r > 0 mixes its index into the step's seed once more, so the
+    ranks' streams differ, each is fixed by (seed, step, rank), and rank 0
+    (the one-device run too) keeps the one-device stream."""
+    z = _splitmix(((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF))
+    if rank:
+        z = _splitmix(z ^ ((rank & 0xFFFFFFFF) * 0xD1B54A32D192ED03 & _M64))
+    return z
+
+
+def random_stress_noise(seed: int, step: int, state: ParticleState,
+                        rank: int = 0) -> torch.Tensor:
+    """(D, D, N) standard-normal draw of step ``step`` (on rank ``rank``
+    of a slab decomposition) on the state's device and dtype."""
     gen = torch.Generator(device=state.device)
-    gen.manual_seed(noise_seed(seed, step))
+    gen.manual_seed(noise_seed(seed, step, rank))
     return torch.randn((state.dim, state.dim, state.n), generator=gen,
                        dtype=state.dtype, device=state.device)
 
@@ -85,6 +100,6 @@ def random_stress_force(
         for a in range(dim)
     ])  # (D, N)
 
-    sq_var = torch.sqrt(
+    sq_var = sqrt_rn(
         2.0 * cfg.rs.kbt * state.nu * state.rho / cfg.dt / torch.clamp_min(pre.vfrac, 1e-30))
     return state.f + divS * sq_var[None, :] * row.to(dtype)[None, :]

@@ -26,6 +26,7 @@ from isph_tpu_torch.config import SimulationConfig
 from isph_tpu_torch.state import Kind, ParticleState, Precomputed
 from isph_tpu_torch.ops.corrected import PairFilter, _g_dot_r
 from isph_tpu_torch.ops.neighbors import PairGeom
+from isph_tpu_torch.utils.fsum import sqrt_rn
 
 
 _EPS = 1.0e-24
@@ -38,7 +39,7 @@ def _phase(state: ParticleState) -> torch.Tensor:
 
 
 def _norm(v: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(sum(v[d] * v[d] for d in range(v.shape[0])))
+    return sqrt_rn(sum(v[d] * v[d] for d in range(v.shape[0])))
 
 
 def phase_gradient(

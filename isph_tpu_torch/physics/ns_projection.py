@@ -13,6 +13,11 @@ pair_isph.cpp:910-1034):
                  v = v*.
 
 Layout: vectors are (D, N).
+
+Under a slab decomposition (``parallel/sharded.py``) the functions take the
+JAX package's distributed hooks: ``group`` (JAX's ``axis_name``: every
+reduction all-reduced), ``exchange`` (a halo refresh of a field on the
+extended slab) and ``ownedf`` (the float mask of owned rows).
 """
 
 from __future__ import annotations
@@ -40,12 +45,24 @@ def family_of(cfg: SimulationConfig) -> Family:
     return ANTISYMMETRIC if cfg.ns.use_momentum_preserve_operator else SYMMETRIC
 
 
-def compute_pre(state: ParticleState, geom: PairGeom, cfg: SimulationConfig) -> Precomputed:
-    """Reference PairISPH_Corrected::computePre (pair_isph_corrected.cpp:302-430)."""
+def compute_pre(state: ParticleState, geom: PairGeom, cfg: SimulationConfig, *,
+                exchange=None) -> Precomputed:
+    """Reference PairISPH_Corrected::computePre (pair_isph_corrected.cpp:302-430).
+
+    ``exchange`` is the distributed halo refresh: the Shepard volume is read
+    at neighbor positions by the correction tensors, so its halo is
+    imported before Gc and Lc (the reference forward-comms Vfrac in
+    FunctorVolume::exitFor, functor_volume.h:76-81), and the normals and
+    pnd after computeNormals (pair_isph_corrected.cpp:1352-1377)."""
     vfrac = ops.shepard_volume(geom)
+    if exchange is not None:
+        vfrac = exchange(vfrac)
     Gc = ops.gradient_correction(geom, vfrac)
     Lc = ops.laplacian_correction(geom, vfrac, Gc)
     normal, pnd = ops.interface_normal(geom, vfrac, state.kind, Gc, cfg.h)
+    if exchange is not None:
+        normal = None if normal is None else exchange(normal)
+        pnd = None if pnd is None else exchange(pnd)
     return Precomputed(vfrac=vfrac, Gc=Gc, Lc=Lc, normal=normal, pnd=pnd)
 
 
@@ -76,14 +93,15 @@ def _precond(cfg: SimulationConfig, A: ELL, *, null_vec=None, amg: Optional[Tupl
 
 def _solve(cfg: SimulationConfig, A: ELL, b, x0, *, null_vec=None,
            amg: Optional[Tuple] = None, recycle: Optional[RecycleSpace] = None,
-           M_override=None) -> Tuple[KrylovResult, Optional[RecycleSpace]]:
+           M_override=None, group=None) -> Tuple[KrylovResult, Optional[RecycleSpace]]:
     """One Krylov solve with the configured method and preconditioner;
     returns (result, recycle space), the space None unless one was passed
     in.  ``M_override`` is a ready preconditioner apply (a cached AMG
     cycle, see :func:`_amg_cached`, or one built once for several
     right-hand sides) that takes the place of :func:`_precond`.  With a
     ``recycle`` space the solve is GCRO-DR recycling GMRES on the projected
-    operator, whatever ``method`` says, as in the JAX package."""
+    operator, whatever ``method`` says, as in the JAX package.  ``group``
+    (JAX's ``axis_name``) all-reduces the Krylov reductions."""
     sc = cfg.solver
     # dtype-aware tolerance floor: the Belos default 1e-8 presumes f64; in
     # f32 the attainable relative residual bottoms out near ~30 eps
@@ -92,18 +110,32 @@ def _solve(cfg: SimulationConfig, A: ELL, b, x0, *, null_vec=None,
         M = M_override
     else:
         M = _precond(cfg, A, null_vec=null_vec, amg=amg)
+    return krylov_solve(cfg, A.matvec, b, x0, M, tol, null_vec=null_vec, recycle=recycle,
+                        group=group)
+
+
+def krylov_solve(cfg: SimulationConfig, matvec, b, x0, M, tol: float, *, null_vec=None,
+                 recycle: Optional[RecycleSpace] = None, group=None
+                 ) -> Tuple[KrylovResult, Optional[RecycleSpace]]:
+    """The configured Krylov method on ``matvec`` with the preconditioner
+    ``M``: recycling GMRES on the projected operator when a ``recycle``
+    space is given, else ``method``'s solver.  The sharded step shares it
+    with :func:`_solve`."""
+    sc = cfg.solver
     if recycle is not None:
-        proj = make_null_projector(null_vec) if null_vec is not None else (lambda v: v)
-        return gmres_recycled(lambda v: proj(A.matvec(v)), proj(b), x0, recycle=recycle,
+        proj = (make_null_projector(null_vec, group) if null_vec is not None
+                else (lambda v: v))
+        return gmres_recycled(lambda v: proj(matvec(v)), proj(b), x0, recycle=recycle,
                               M=M, tol=tol, restart=sc.restart,
-                              max_restarts=sc.max_restarts)
+                              max_restarts=sc.max_restarts, group=group)
     if sc.method == "pipelined_cg":
-        return pipelined_cg(A.matvec, b, x0, M=M, tol=tol, maxiter=sc.max_iters,
-                            null_vec=null_vec), None
+        return pipelined_cg(matvec, b, x0, M=M, tol=tol, maxiter=sc.max_iters,
+                            null_vec=null_vec, group=group), None
     if sc.method == "cg":
-        return cg(A.matvec, b, x0, M=M, tol=tol, maxiter=sc.max_iters, null_vec=null_vec), None
-    return gmres(A.matvec, b, x0, M=M, tol=tol, restart=sc.restart,
-                 max_restarts=sc.max_restarts, null_vec=null_vec), None
+        return cg(matvec, b, x0, M=M, tol=tol, maxiter=sc.max_iters, null_vec=null_vec,
+                  group=group), None
+    return gmres(matvec, b, x0, M=M, tol=tol, restart=sc.restart,
+                 max_restarts=sc.max_restarts, null_vec=null_vec, group=group), None
 
 
 def _fluid_pair_coeff(state: ParticleState, geom: PairGeom, jset: int) -> torch.Tensor:
@@ -191,6 +223,7 @@ def helmholtz_system(
 
 def solve_helmholtz(
     state: ParticleState, geom: PairGeom, pre: Precomputed, cfg: SimulationConfig,
+    *, group=None,
 ) -> Tuple[torch.Tensor, Optional[KrylovResult]]:
     """Returns v* (and solver info with per-component (D,) iters/relres).
     For |theta| < eps the system is the identity and b is v*."""
@@ -201,7 +234,8 @@ def solve_helmholtz(
     # unbatched solve (the JAX package vmaps the same solve); the
     # preconditioner is built once for all of them
     M = _precond(cfg, A)
-    res = [_solve(cfg, A, b[c], state.v[c], M_override=M)[0] for c in range(state.dim)]
+    res = [_solve(cfg, A, b[c], state.v[c], M_override=M, group=group)[0]
+           for c in range(state.dim)]
     out = KrylovResult(*(torch.stack(f) for f in zip(*res)))
     return out.x, out
 
@@ -285,6 +319,7 @@ def solve_poisson(
     vstar: torch.Tensor, *, domain: Optional[Domain] = None,
     recycle: Optional[RecycleSpace] = None,
     amg_cache: Optional[AMGCache] = None, amg_rebuild: Optional[bool] = None,
+    group=None,
 ) -> Tuple[torch.Tensor, KrylovResult, Optional[RecycleSpace], Optional[AMGCache]]:
     """Solve the pressure Poisson system; returns (dp, result, recycle,
     cache), as the JAX package's does.
@@ -318,13 +353,13 @@ def solve_poisson(
         b_f = torch.where(fluid_rows, b, 0.0)
         M, cache = _amg_cached(cfg, A_f, amg, null_vec, amg_cache, amg_rebuild)
         res, recycle = _solve(cfg, A_f, b_f, x0, null_vec=null_vec, amg=amg,
-                              recycle=recycle, M_override=M)
-        dp = relax_wall_pressure(A, b, res.x, state, pre)
+                              recycle=recycle, M_override=M, group=group)
+        dp = relax_wall_pressure(A, b, res.x, state, pre, group=group)
         return dp, res, recycle, cache
 
     M, cache = _amg_cached(cfg, A, amg, null_vec, amg_cache, amg_rebuild)
     res, recycle = _solve(cfg, A, b, x0, null_vec=null_vec, amg=amg, recycle=recycle,
-                          M_override=M)
+                          M_override=M, group=group)
     return res.x, res, recycle, cache
 
 
@@ -343,31 +378,42 @@ def _amg_cached(cfg: SimulationConfig, A: ELL, amg, null_vec, amg_cache, amg_reb
 
 def relax_wall_pressure(
     A: ELL, b: torch.Tensor, dp: torch.Tensor, state: ParticleState, pre: Precomputed,
-    *, tol: float = 1.0e-8, restart: int = 30,
+    *, tol: float = 1.0e-8, restart: int = 30, exchange=None,
+    ownedf: Optional[torch.Tensor] = None, group=None,
 ) -> torch.Tensor:
     """Wall pressure extension: solve the homogeneous-Neumann rows on
     solid-wall particles with a small masked GMRES on
     ``wall . A . wall + (I - wall)``.  All-fluid decks have a zero wall
     residual: the GMRES outer loop exits at once (the 1e-30 floors keep the
-    zero right-hand side finite)."""
+    zero right-hand side finite).  Distributed: ``exchange`` refreshes the
+    halo before each matvec, ``ownedf`` masks rows to owned ones and
+    ``group`` all-reduces the dots."""
     nsq = sum(pre.normal[d] * pre.normal[d] for d in range(state.dim))
     wall = state.is_solid & (nsq > 0.5)
     wallf = wall.to(dp.dtype)
-    keepf = 1.0 - wallf
+    if ownedf is not None:
+        wallf = wallf * ownedf
+    keepf = (1.0 if ownedf is None else ownedf) - wallf
+    ex = (lambda f: f) if exchange is None else exchange
 
     def mv(v):
-        return wallf * A.matvec(wallf * v) + keepf * v
+        return wallf * A.matvec(ex(wallf * v)) + keepf * v
 
-    rhs = wallf * (b - A.matvec(dp))
-    res = gmres(mv, rhs, torch.zeros_like(dp), tol=tol, restart=restart, max_restarts=2)
+    rhs = wallf * (b - A.matvec(ex(dp)))
+    res = gmres(mv, rhs, torch.zeros_like(dp), tol=tol, restart=restart, max_restarts=2,
+                group=group)
     return dp + wallf * res.x
 
 
-def zero_mean_pressure(p: torch.Tensor, state: ParticleState) -> torch.Tensor:
+def zero_mean_pressure(p: torch.Tensor, state: ParticleState, *, group=None) -> torch.Tensor:
     """Zero-mean over fluid rows; solid pressure cleaned to 0
-    (PairISPH::computeZeroMeanPressure, pair_isph.cpp:422-464)."""
+    (PairISPH::computeZeroMeanPressure, pair_isph.cpp:422-464).  Under
+    ``group`` both sums are all-reduced (one all-reduce)."""
     fl = (state.is_fluid & state.valid).to(p.dtype)
-    mean = (p * fl).sum() / torch.clamp_min(fl.sum(), 1.0)
+    s, c = (p * fl).sum(), fl.sum()
+    if group is not None:
+        s, c = group.psum(torch.stack([s, c]))
+    mean = s / torch.clamp_min(c, 1.0)
     p = torch.where(state.is_solid, 0.0, p - mean)
     return torch.where(state.valid, p, 0.0)
 
@@ -450,18 +496,19 @@ def navier_stokes_step(
     cfg: SimulationConfig,
     *,
     domain: Optional[Domain] = None,
+    group=None,
 ) -> Tuple[ParticleState, SolveInfo]:
     """computeIncompressibleNavierStokes (pair_isph.cpp:910-1034): returns the
     state with updated (vstar, dp, p); positions unchanged (advance_time is a
-    separate call)."""
+    separate call).  ``group`` is JAX's ``axis_name``."""
     dev = state.device
     with named_scope("helmholtz", dev):
         if cfg.ns.is_block_helmholtz_enabled:
             from isph_tpu_torch.physics.block_helmholtz import solve_block_helmholtz
 
-            vstar, hinfo = solve_block_helmholtz(state, geom, pre, cfg)
+            vstar, hinfo = solve_block_helmholtz(state, geom, pre, cfg, group=group)
         else:
-            vstar, hinfo = solve_helmholtz(state, geom, pre, cfg)
+            vstar, hinfo = solve_helmholtz(state, geom, pre, cfg, group=group)
     with named_scope("poisson", dev):
         # the GCRO-DR recycle space rides in state.solver_cache, zero until
         # the first solve populates it
@@ -472,14 +519,14 @@ def navier_stokes_step(
                 rec = init_recycle(state.n, cfg.solver.recycle_k, state.dtype, dev)
         dp, pinfo, rec, cache = solve_poisson(
             state, geom, pre, cfg, vstar, domain=domain, recycle=rec,
-            amg_cache=state.amg_cache, amg_rebuild=amg_rebuild_due(state, cfg))
+            amg_cache=state.amg_cache, amg_rebuild=amg_rebuild_due(state, cfg), group=group)
     if rec is not None:
         state = state.replace(solver_cache=rec)
     if cache is not None:
         state = state.replace(amg_cache=cache)
     with named_scope("correct", dev):
         if cfg.ns.use_incremental_pressure:
-            dp = zero_mean_pressure(dp, state)
+            dp = zero_mean_pressure(dp, state, group=group)
         vstar = correct_velocity(state, geom, pre, cfg, vstar, dp)
         p = correct_pressure(state, cfg, dp)
         p = torch.where(state.is_solid, 0.0, p)

@@ -4,7 +4,8 @@ Reference: FixISPH_Shift (fix_isph_shift.cpp) driving
 PairISPH_Corrected::shiftParticles (pair_isph_corrected.cpp:1203-1262) with
 FunctorComputeShift (functor_compute_shift.h:45-116) and FunctorApplyShift
 (functor_apply_shift.h).  The shift magnitude scales with the maximum fluid
-speed over the whole system (one device here: a plain max).
+speed over the whole system: a plain max on one device, the all-rank
+maximum under a process group.
 
 Layout: vectors (D, N), pair arrays (K, N).
 """
@@ -19,19 +20,23 @@ from isph_tpu_torch.ops import corrected as ops
 from isph_tpu_torch.ops.corrected import PairFilter
 from isph_tpu_torch.ops.neighbors import PairGeom
 from isph_tpu_torch.physics.ns_projection import family_of
+from isph_tpu_torch.utils.fsum import sqrt_rn
 
 
 def compute_shift_vectors(state: ParticleState, geom: PairGeom,
-                          cfg: SimulationConfig) -> torch.Tensor:
+                          cfg: SimulationConfig, *, group=None) -> torch.Tensor:
     """dr_i = C dt vmax * sum_j (r_bar/r)^2 e_ij (1 + w_nf (r_bar/r)^2 [j nonfluid]);
-    returns (D, N)."""
+    returns (D, N).  Under ``group`` (JAX's ``axis_name``) vmax is the
+    all-rank maximum (the vmax Allreduce, pair_isph_corrected.cpp:1232-1233)."""
     dtype = state.dtype
     sc = cfg.shift
     shiftcut = sc.shiftcut if sc.shiftcut is not None else cfg.cut
 
     fluid = state.is_fluid & state.valid
-    vmag = torch.sqrt(sum(state.v[d] * state.v[d] for d in range(state.dim)))
+    vmag = sqrt_rn(sum(state.v[d] * state.v[d] for d in range(state.dim)))
     vmax = torch.where(fluid, vmag, 0.0).max()
+    if group is not None:
+        vmax = group.pmax(vmax)
     coeff = sc.shift * cfg.dt * vmax
 
     filt = PairFilter(Kind.FLUID, Kind.ALL)

@@ -20,6 +20,7 @@ from isph_tpu_torch.ops import corrected as ops
 from isph_tpu_torch.ops.corrected import SYMMETRIC, PairFilter
 from isph_tpu_torch.ops.neighbors import PairGeom
 from isph_tpu_torch.solvers.krylov import KrylovResult, gmres
+from isph_tpu_torch.physics.electrokinetics import _distributed
 from isph_tpu_torch.solvers.precond import jacobi
 
 
@@ -28,6 +29,10 @@ def solute_transport_step(
     geom: PairGeom,
     pre: Precomputed,
     cfg: SimulationConfig,
+    *,
+    group=None,
+    exchange=None,
+    owned: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, List[Optional[KrylovResult]]]:
     """Advance all enabled species one step; returns (conc (S, N), the
     GMRES result of each species, None where its diffusivity is None).
@@ -35,7 +40,13 @@ def solute_transport_step(
     Row filter: exact-fluid rows only (FilterMatchBinary(Fluid,
     Fluid - BufferNeumann), functor_solute_transport.h:62-63): columns span
     pure fluid + BufferDirichlet; solid and buffer rows are Dirichlet
-    (diag 1, rhs = current concentration)."""
+    (diag 1, rhs = current concentration).
+
+    ``group`` (JAX's ``axis_name``), ``exchange`` and ``owned`` are the
+    distributed hooks: halo import inside the Krylov matvec (Epetra
+    Import-in-Multiply) and owned-row masking; the reference forward-comms
+    each species after its solve (pair_isph.cpp:838-842), so callers
+    refresh the returned conc."""
     dtype = state.dtype
     tr = cfg.tr
     dt, theta = cfg.dt, tr.theta
@@ -67,9 +78,15 @@ def solute_transport_step(
         A = A.scale(-theta)
         A = A.with_diag(torch.where(dirich, one, 1.0 + A.diag)).zero_rows(dirich)
         b = torch.where(dirich, c, c + w)
+        mv, M, x_init = A.matvec, jacobi(A), c
+        if exchange is not None:
+            mv, M, ownedf = _distributed(A, M, exchange, owned, state)
+            b = b * ownedf
+            x_init = c * ownedf
         res = gmres(
-            A.matvec, b, c, M=jacobi(A), tol=cfg.solver.tol,
+            mv, b, x_init, M=M, tol=cfg.solver.tol,
             restart=cfg.solver.restart, max_restarts=cfg.solver.max_restarts,
+            group=group,
         )
         out.append(res.x)
         infos.append(res)

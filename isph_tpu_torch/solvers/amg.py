@@ -18,17 +18,24 @@ Restriction and prolongation are one-hot matrix products (``torch.matmul``;
 the JAX package leaves them to XLA, outside any Pallas kernel); the
 segment sums of the transfer-free Galerkin path are ``index_add_``.
 Fine-level matvecs are ``ELL.matvec`` and so go through the SpMV kernels;
-coarse levels carry no band spec.  The distributed arguments of the JAX
-``build_amg`` (``exchange``, ``owned``, ``axis_name``, ``fine_matvec``) and
-``amg_cache_zeros`` are not ported: the port builds the hierarchy at a
-state's first solve instead of seeding a zero cache.
+coarse levels carry no band spec.
+
+Distributed (the JAX package's hooks of ``build_amg``, ``amg_from_cache``
+and ``AMG``): the fine level is the rank's slab on the extended axis, its
+halo refreshed by ``exchange`` before every fine matvec (or the given
+``fine_matvec``, already owned-masked); only ``owned`` rows feed the
+Galerkin partial sums, which one all-reduce makes the replicated coarse
+hierarchy; each V-cycle all-reduces its owned partial restriction once.
+``group`` is JAX's ``axis_name``.  ``amg_cache_zeros`` is not ported: the
+port builds the hierarchy at a state's first solve instead of seeding a
+zero cache.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -215,6 +222,7 @@ def make_transfer(x: torch.Tensor, grid: CoarseGrid, dtype: torch.dtype, budget:
 def galerkin_coarse(
     A: ELL, agg: torch.Tensor, fine_x_agg_of_col: torch.Tensor, grid: CoarseGrid,
     transfer=None,
+    group=None,
 ) -> ELL:
     """A_c = P^T A P for piecewise-constant P over aggregates.
 
@@ -222,7 +230,10 @@ def galerkin_coarse(
     aggregate id of each fine column entry (= agg[A.idx]).  Off-aggregate
     entries land in the stencil slot of their coarse-grid offset;
     same-aggregate entries land on the coarse diagonal.  With ``transfer``
-    the per-aggregate sums are one-hot products, without it segment sums."""
+    the per-aggregate sums are one-hot products, without it segment sums.
+    Under ``group`` each rank passes its owned rows only, and one
+    all-reduce of the stacked partial sums makes the coarse operator the
+    same on every rank (owned rows partition the global rows)."""
     dim = grid.dim
     ncell = np.asarray(grid.ncell)
     strides = _strides(ncell)
@@ -275,6 +286,9 @@ def galerkin_coarse(
         cdiag = segsum(diag_row)
         cvals = torch.stack([segsum(r) for r in off_rows])
         touched = segsum(torch.ones_like(diag_row))
+    if group is not None:
+        parts = group.psum(torch.cat([cdiag[None], cvals, touched[None]]))
+        cdiag, cvals, touched = parts[0], parts[1:-1], parts[-1]
 
     # empty aggregates (zero diag, no entries): pin to identity
     empty = (touched == 0) & (torch.abs(cdiag) == 0)
@@ -305,10 +319,13 @@ def _l1_jacobi(lvl: ELL, omega: float) -> torch.Tensor:
     return omega * sgn / torch.clamp_min(l1, 1e-30)
 
 
-def _normalized(null_vec: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+def _normalized(null_vec: Optional[torch.Tensor], group=None) -> Optional[torch.Tensor]:
     if null_vec is None:
         return None
-    return null_vec / torch.clamp_min(torch.sqrt((null_vec * null_vec).sum()), 1e-30)
+    nsq = (null_vec * null_vec).sum()
+    if group is not None:
+        nsq = group.psum(nsq)
+    return null_vec / torch.clamp_min(torch.sqrt(nsq), 1e-30)
 
 
 @dataclasses.dataclass
@@ -325,23 +342,43 @@ class AMG:
     null_vec: Optional[torch.Tensor] = None  # normalized fine-level null vector
     npre: int = 2
     npost: int = 2
+    # distributed hooks: the fine level is slab-local (refreshed by
+    # ``exchange`` before each fine matvec, or ``fine_matvec``, already
+    # owned-masked), levels >= 1 are the same on every rank
+    exchange: Optional[Callable] = None
+    ownedf: Optional[torch.Tensor] = None
+    group: Optional[object] = None
+    fine_matvec: Optional[Callable] = None
+
+    def _dist(self, l: int) -> bool:
+        return l == 0 and self.exchange is not None
 
     def _matvec(self, l: int, A: ELL, x):
+        if self._dist(l):
+            if self.fine_matvec is not None:
+                return self.fine_matvec(x)
+            return A.matvec(self.exchange(x))
         if l == 0:
             return A.matvec(x)
         return _stencil_matvec(A, x, self.grid_shapes[l - 1])
 
     def _smooth(self, l: int, A: ELL, x, b, sweeps: int):
         """l1-Jacobi sweeps from x; x None means from zero, whose first
-        sweep is exactly dinv * b (A 0 = 0), so it needs no matvec."""
+        sweep is exactly dinv * b (A 0 = 0), so it needs no matvec.  On a
+        slab every sweep ends masked to owned rows."""
         dinv = self.dinvs[l]
+        own = self.ownedf if self._dist(l) else None
         if x is None:
             if sweeps == 0:
                 return torch.zeros_like(b)
             x = dinv * b
+            if own is not None:
+                x = x * own
             sweeps -= 1
         for _ in range(sweeps):
             x = x + dinv * (b - self._matvec(l, A, x))
+            if own is not None:
+                x = x * own
         return x
 
     def _cycle(self, l: int, b):
@@ -351,8 +388,17 @@ class AMG:
         x = self._smooth(l, A, None, b, self.npre)
         r = b - self._matvec(l, A, x)
         tr = self.transfers[l]
-        x = x + tr.prolong(self._cycle(l + 1, tr.restrict(r)))
+        if self._dist(l):
+            # owned partial restrictions -> the replicated coarse residual
+            rc = self.group.psum(tr.restrict(r * self.ownedf))
+            x = x + tr.prolong(self._cycle(l + 1, rc)) * self.ownedf
+        else:
+            x = x + tr.prolong(self._cycle(l + 1, tr.restrict(r)))
         return self._smooth(l, A, x, b, self.npost)
+
+    def _dot(self, a, b):
+        s = (a * b).sum()
+        return s if self.group is None else self.group.psum(s)
 
     def apply(self, r):
         """V-cycle; for singular (pure-Neumann) operators the input and the
@@ -363,10 +409,10 @@ class AMG:
             return torch.stack([self.apply(x) for x in r])
         nh = self.null_vec
         if nh is not None:
-            r = r - (r * nh).sum() * nh
+            r = r - self._dot(r, nh) * nh
         x = self._cycle(0, r)
         if nh is not None:
-            x = x - (x * nh).sum() * nh
+            x = x - self._dot(x, nh) * nh
         return x
 
 
@@ -385,8 +431,17 @@ def build_amg(
     # dense one-hot cutover in entries (nc * N); factored transfers beyond
     onehot_budget: int = 4_000_000,
     null_vec: Optional[torch.Tensor] = None,
+    exchange: Optional[Callable] = None,
+    owned: Optional[torch.Tensor] = None,
+    group=None,
+    fine_matvec: Optional[Callable] = None,
 ) -> AMG:
-    """Assemble the AMG hierarchy for the current matrix and positions."""
+    """Assemble the AMG hierarchy for the current matrix and positions.
+
+    Distributed (``group``, JAX's ``axis_name``, with ``owned``): ``x``
+    carries global wrapped coordinates on the extended slab, so halo
+    columns bin to their true aggregates; the owned rows alone feed the
+    Galerkin sums (a halo row repeats a neighbor's owned row)."""
     grids = make_coarse_grids(domain, cutoff, coarsen=coarsen, min_n=min_coarse)
     dtype = A.vals.dtype
     dev = A.vals.device
@@ -394,7 +449,13 @@ def build_amg(
     transfers = []
 
     agg0, tr0 = make_transfer(x, grids[0], dtype, onehot_budget)
-    levels.append(galerkin_coarse(A, agg0, agg0[A.idx.long()], grids[0], transfer=tr0))
+    A_galerkin = A
+    if group is not None and owned is not None:
+        owned_b = owned > 0
+        A_galerkin = A.zero_rows(~owned_b).with_diag(
+            torch.where(owned_b, A.diag, torch.zeros_like(A.diag)))
+    levels.append(galerkin_coarse(A_galerkin, agg0, agg0[A.idx.long()], grids[0],
+                                  transfer=tr0, group=group))
     transfers.append(tr0)
     for l in range(1, len(grids)):
         parent = _grid_parent(grids[l - 1], grids[l], dev)
@@ -416,6 +477,8 @@ def build_amg(
     ncoarse = Ad.shape[0]
     reg = max(coarse_reg, 100.0 * float(torch.finfo(dtype).eps))
     fine_scale = torch.abs(levels[0].diag).max()
+    if group is not None:
+        fine_scale = group.pmax(fine_scale)
     scale = torch.maximum(torch.abs(Ad).max(), 1e-3 * fine_scale + 1e-30)
     Ad = Ad + reg * scale * torch.eye(ncoarse, dtype=dtype, device=dev)
     if null_vec is not None:
@@ -425,8 +488,9 @@ def build_amg(
     coarse_inv = torch.linalg.inv(Ad)
 
     return AMG(levels=levels, dinvs=dinvs, transfers=transfers,
-               coarse_inv=coarse_inv, null_vec=_normalized(null_vec), npre=npre,
-               npost=npost, grid_shapes=tuple(tuple(g.ncell) for g in grids))
+               coarse_inv=coarse_inv, null_vec=_normalized(null_vec, group), npre=npre,
+               npost=npost, grid_shapes=tuple(tuple(g.ncell) for g in grids),
+               exchange=exchange, ownedf=owned, group=group, fine_matvec=fine_matvec)
 
 
 # ---------------------------------------------------------------------------
@@ -466,14 +530,20 @@ def amg_from_cache(
     npre: int = 2,
     npost: int = 2,
     null_vec: Optional[torch.Tensor] = None,
+    exchange: Optional[Callable] = None,
+    owned: Optional[torch.Tensor] = None,
+    group=None,
+    fine_matvec: Optional[Callable] = None,
 ) -> AMG:
     """A V-cycle from the current fine matrix and a cached hierarchy
-    (fresh fine l1-Jacobi diagonal; everything else reused)."""
+    (fresh fine l1-Jacobi diagonal; everything else reused), with the
+    distributed hooks of :func:`build_amg`."""
     return AMG(
         levels=[A, *cache.coarse_levels],
         dinvs=[_l1_jacobi(A, omega), *cache.coarse_dinvs],
         transfers=list(cache.transfers),
         coarse_inv=cache.coarse_inv,
-        null_vec=_normalized(null_vec), npre=npre, npost=npost,
+        null_vec=_normalized(null_vec, group), npre=npre, npost=npost,
         grid_shapes=cache.grid_shapes,
+        exchange=exchange, ownedf=owned, group=group, fine_matvec=fine_matvec,
     )

@@ -13,6 +13,12 @@ The loops keep the JAX package's structure so that iteration counts match
 it exactly; their state stays on the device.  The host reads one flag an
 iteration in the CG variants, once per Arnoldi block and once per restart
 in ``gmres``, and once per restart in ``gmres_recycled``.
+
+Every solver takes ``group`` (a :class:`~isph_tpu_torch.parallel.mesh.Group`,
+JAX's ``axis_name``): the vectors are then one rank's owned-masked slab and
+every reduction is all-reduced, so each host read tests a value that is the
+same on every rank.  With ``group=None`` the arithmetic is the one-device
+one.
 """
 
 from __future__ import annotations
@@ -37,37 +43,47 @@ def _use_compensated(dtype: torch.dtype) -> bool:
     return torch.finfo(dtype).bits <= 32
 
 
-def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _psum(s: torch.Tensor, group) -> torch.Tensor:
+    return s if group is None else group.psum(s)
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor, group=None) -> torch.Tensor:
+    """a . b; in f32 compensated, and under ``group`` the [hi, lo] pair is
+    all-reduced before it is rounded to one number, as JAX psums it."""
     if _use_compensated(a.dtype):
         hi, lo = comp_dot(a, b)
+        if group is not None:
+            hl = group.psum(torch.stack([hi, lo]))
+            return hl[0] + hl[1]
         return hi + lo
-    return torch.sum(a * b)
+    return _psum(torch.sum(a * b), group)
 
 
-def _fused_dots(pairs) -> torch.Tensor:
-    """Many dots as one stacked (len(pairs),) tensor."""
+def _fused_dots(pairs, group=None) -> torch.Tensor:
+    """Many dots as one stacked (len(pairs),) tensor: one all-reduce of the
+    stacked partials (in f32 the hi and lo parts ride the same one)."""
     if _use_compensated(pairs[0][0].dtype):
         hilo = [comp_dot(p, q) for p, q in pairs]
-        s = torch.stack([h for h, _ in hilo] + [l for _, l in hilo])
+        s = _psum(torch.stack([h for h, _ in hilo] + [l for _, l in hilo]), group)
         k = len(pairs)
         return s[:k] + s[k:]
-    return torch.stack([torch.sum(p * q) for p, q in pairs])
+    return _psum(torch.stack([torch.sum(p * q) for p, q in pairs]), group)
 
 
-def _norm(a: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(_dot(a, a))
+def _norm(a: torch.Tensor, group=None) -> torch.Tensor:
+    return torch.sqrt(_dot(a, a, group))
 
 
-def make_null_projector(null_vec: torch.Tensor):
+def make_null_projector(null_vec: torch.Tensor, group=None):
     """P x = x - (x . n) n with n normalized (reference PoissonProjection,
     solver_lin.h:148-170)."""
-    nrm = _norm(null_vec)
+    nrm = _norm(null_vec, group)
     nhat = null_vec / torch.clamp_min(nrm, 1e-30)
 
     def project(x):
         if x.ndim == 2:  # (C, N): each row on its own
             return torch.stack([project(r) for r in x])
-        return x - _dot(x, nhat) * nhat
+        return x - _dot(x, nhat, group) * nhat
 
     return project
 
@@ -85,12 +101,13 @@ def cg(
     tol: float = 1.0e-8,
     maxiter: int = 500,
     null_vec: Optional[torch.Tensor] = None,
+    group=None,
 ) -> KrylovResult:
     """Preconditioned conjugate gradients; two reductions per iteration and
     one host read of the convergence test per iteration."""
     x = torch.zeros_like(b) if x0 is None else x0
     M = _identity if M is None else M
-    proj = make_null_projector(null_vec) if null_vec is not None else _identity
+    proj = make_null_projector(null_vec, group) if null_vec is not None else _identity
 
     b = proj(b)
 
@@ -100,17 +117,17 @@ def cg(
     r = b - A(x)
     z = M(r)
     p = z
-    d0 = _fused_dots([(r, z), (r, r), (b, b)])
+    d0 = _fused_dots([(r, z), (r, r), (b, b)], group)
     rz, rr, bb = d0[0], d0[1], d0[2]
     bnorm = torch.clamp_min(torch.sqrt(bb), 1e-30)
     it = 0
     while it < maxiter and bool(torch.sqrt(rr) / bnorm > tol):
         ap = A(p)
-        alpha = rz / _dot(p, ap)
+        alpha = rz / _dot(p, ap, group)
         x = x + alpha * p
         r = r - alpha * ap
         z = M(r)
-        d = _fused_dots([(r, z), (r, r)])
+        d = _fused_dots([(r, z), (r, r)], group)
         rz_new, rr = d[0], d[1]
         p = z + (rz_new / rz) * p
         rz = rz_new
@@ -131,6 +148,7 @@ def gmres(
     max_restarts: int = 15,
     null_vec: Optional[torch.Tensor] = None,
     block: int = 5,
+    group=None,
 ) -> KrylovResult:
     """Right-preconditioned restarted GMRES(m).
 
@@ -151,18 +169,18 @@ def gmres(
         block = 1
     x = torch.zeros_like(b) if x0 is None else x0
     M = _identity if M is None else M
-    proj = make_null_projector(null_vec) if null_vec is not None else _identity
+    proj = make_null_projector(null_vec, group) if null_vec is not None else _identity
 
     b = proj(b)
 
     def A(v):
         return proj(matvec(v))
 
-    bnorm = torch.clamp_min(_norm(b), 1e-30)
+    bnorm = torch.clamp_min(_norm(b, group), 1e-30)
 
     def cycle(x):
         r = b - A(x)
-        beta = _norm(r)
+        beta = _norm(r, group)
         V = torch.zeros((m + 1, n), dtype=dtype, device=dev)
         V[0] = r / torch.clamp_min(beta, 1e-30)
         H = torch.zeros((m + 1, m), dtype=dtype, device=dev)
@@ -173,12 +191,12 @@ def gmres(
             w = A(M(V[j]))
             # two-pass classical Gram-Schmidt (DGKS); rows j+1.. of V are
             # zero, so their dots vanish
-            h1 = V @ w
+            h1 = _psum(V @ w, group)
             w = w - V.T @ h1
-            h2 = V @ w
+            h2 = _psum(V @ w, group)
             w = w - V.T @ h2
             h = h1 + h2
-            hw = _norm(w)
+            hw = _norm(w, group)
             h[j + 1] = hw
             v_next = w / torch.clamp_min(hw, 1e-30)
 
@@ -223,14 +241,14 @@ def gmres(
         x = x + M(V[:m].T @ y)
         return x, jdone
 
-    relres = _norm(b - A(x)) / bnorm
+    relres = _norm(b - A(x), group) / bnorm
     going = bool(relres > tol)
     it = 0
     iters = 0
     stalls = 0
     while going and it < max_restarts and stalls < 2:
         x, j = cycle(x)
-        relres_new = _norm(b - A(x)) / bnorm
+        relres_new = _norm(b - A(x), group) / bnorm
         # one host read per restart for both tests
         stalled, going = torch.stack([relres_new > 0.9 * relres, relres_new > tol]).tolist()
         stalls = stalls + 1 if stalled else 0
@@ -241,15 +259,16 @@ def gmres(
                         relres=relres, converged=relres <= tol)
 
 
-def _rowdots(pairs) -> torch.Tensor:
-    """(len(pairs), C) row dots of (C, N) pairs as one stacked tensor;
-    compensated in f32, each row with the bits of ``comp_dot`` on it."""
+def _rowdots(pairs, group=None) -> torch.Tensor:
+    """(len(pairs), C) row dots of (C, N) pairs as one stacked tensor (one
+    all-reduce under ``group``); compensated in f32, each row with the bits
+    of ``comp_dot`` on it."""
     if _use_compensated(pairs[0][0].dtype):
         hilo = [comp_dot_rows(p, q) for p, q in pairs]
-        s = torch.stack([h for h, _ in hilo] + [l for _, l in hilo])
+        s = _psum(torch.stack([h for h, _ in hilo] + [l for _, l in hilo]), group)
         k = len(pairs)
         return s[:k] + s[k:]
-    return torch.stack([torch.sum(p * q, dim=-1) for p, q in pairs])
+    return _psum(torch.stack([torch.sum(p * q, dim=-1) for p, q in pairs]), group)
 
 
 def cg_multi(
@@ -260,6 +279,7 @@ def cg_multi(
     M: Optional[Callable] = None,
     tol: float = 1.0e-8,
     maxiter: int = 500,
+    group=None,
 ) -> KrylovResult:
     """Batched preconditioned CG over a (C, N) multivector: the C systems
     share one matvec and one stacked reduction per iteration, with
@@ -273,7 +293,7 @@ def cg_multi(
     R = B - matvec(X)
     Z = M(R)
     P = Z
-    d0 = _rowdots([(R, Z), (R, R), (B, B)])
+    d0 = _rowdots([(R, Z), (R, R), (B, B)], group)
     rz, rr, bb = d0[0], d0[1], d0[2]
     bnorm = torch.clamp_min(torch.sqrt(bb), 1e-30)
     its = torch.zeros((B.shape[0],), dtype=torch.int32, device=B.device)
@@ -285,12 +305,12 @@ def cg_multi(
     while bool(act.any()):  # the one host read of an iteration
         actf = act.to(dtype)[:, None]
         AP = matvec(P)
-        pap = _rowdots([(P, AP)])[0]
+        pap = _rowdots([(P, AP)], group)[0]
         alpha = (rz / torch.where(pap != 0, pap, 1.0))[:, None] * actf
         X = X + alpha * P
         R = R - alpha * AP
         Z = M(R)
-        d = _rowdots([(R, Z), (R, R)])
+        d = _rowdots([(R, Z), (R, R)], group)
         rz_new = torch.where(act, d[0], rz)
         rr = torch.where(act, d[1], rr)
         beta = (rz_new / torch.where(rz != 0, rz, 1.0))[:, None] * actf
@@ -311,6 +331,7 @@ def pipelined_cg(
     tol: float = 1.0e-8,
     maxiter: int = 500,
     null_vec: Optional[torch.Tensor] = None,
+    group=None,
 ) -> KrylovResult:
     """Single-reduction (Chronopoulos-Gear) preconditioned CG, the analogue
     of the reference QEq's ``CG_async`` (fix_qeq_reax.cpp:883-977): the
@@ -318,7 +339,7 @@ def pipelined_cg(
     reduction, and the convergence test reads the carried ||r||^2."""
     x = torch.zeros_like(b) if x0 is None else x0
     M = _identity if M is None else M
-    proj = make_null_projector(null_vec) if null_vec is not None else _identity
+    proj = make_null_projector(null_vec, group) if null_vec is not None else _identity
     b = proj(b)
 
     def A(v):
@@ -327,7 +348,7 @@ def pipelined_cg(
     r = b - A(x)
     u = M(r)
     w = A(u)
-    d0 = _fused_dots([(r, u), (w, u), (b, b), (r, r)])
+    d0 = _fused_dots([(r, u), (w, u), (b, b), (r, r)], group)
     gamma, delta, bb, rr = d0[0], d0[1], d0[2], d0[3]
     bnorm = torch.clamp_min(torch.sqrt(bb), 1e-30)
     m = M(w)
@@ -340,7 +361,7 @@ def pipelined_cg(
         r = r - alpha * s
         u = u - alpha * q
         w = w - alpha * z
-        d = _fused_dots([(r, u), (w, u), (r, r)])
+        d = _fused_dots([(r, u), (w, u), (r, r)], group)
         gamma_new, delta, rr = d[0], d[1], d[2]
         m = M(w)
         nn = A(m)
@@ -396,6 +417,7 @@ def gmres_recycled(
     tol: float = 1.0e-8,
     restart: int = 50,
     max_restarts: int = 15,
+    group=None,
 ) -> Tuple[KrylovResult, RecycleSpace]:
     """GCRO-DR-style recycling GMRES (Belos "Recycling GMRES",
     solver_lin_belos.h:233), as the JAX package simplifies it:
@@ -407,9 +429,8 @@ def gmres_recycled(
       ``restart``) and updates ``x += M V y + U (C^T r0 - B y)`` with
       ``B = C^T A M V`` and y the least-squares solution (:func:`_lstsq`);
     - the refreshed space takes the k smallest singular triplets of the
-      square part of H.  The JAX package forms ``Pk @ vmap(M)(V)``; this
-      forms ``M(Pk @ V)``, M on k rows instead of ``restart``, equal for a
-      linear M up to round-off;
+      square part of H: ``Pk @ (M V)``, as the JAX package forms it, with
+      the rows M V[j] kept from the Arnoldi sweep (no extra M application);
     - the restart loop exits on convergence, ``max_restarts`` or two
       consecutive cycles that each cut the true residual by less than 10%.
 
@@ -417,6 +438,10 @@ def gmres_recycled(
     package vmaps them over the recycle space): ``ELL.matvec`` runs a block
     in pieces of at most 3 rows, Jacobi, Chebyshev and ILU(0) through it,
     the AMG cycle and the null projector row by row.
+
+    Under ``group`` three kinds of reduction are all-reduced, as JAX psums
+    them: the projections on C (``cdot``), the k x k Gram matrix of
+    ``reform`` (one all-reduce) and the norms.
 
     A singular vector's sign (or a rotation within a repeated singular value)
     may differ between LAPACK and cuSOLVER; the deflation ``U^T C r`` does
@@ -428,15 +453,18 @@ def gmres_recycled(
     x = torch.zeros_like(b) if x0 is None else x0
     M = _identity if M is None else M
     A = matvec
-    bnorm = torch.clamp_min(_norm(b), 1e-30)
+    bnorm = torch.clamp_min(_norm(b, group), 1e-30)
     eps = torch.finfo(dtype).eps
+
+    def cdot(rows, w):
+        return _psum(rows @ w, group)
 
     def reform(U_in):
         """(U, C) with C = A U orthonormal for the current operator, by
         Gram-Cholesky; rows whose image is ~zero (unpopulated slots) are
         masked to exact zeros rather than given fabricated directions."""
         C_raw = A(U_in)
-        G = C_raw @ C_raw.T
+        G = _psum(C_raw @ C_raw.T, group)
         d = torch.diagonal(G)
         ridge = 32.0 * eps * torch.clamp_min(torch.clamp_min(d.max(), 0.0), 1e-30)
         lf = (d > ridge).to(dtype)
@@ -451,23 +479,25 @@ def gmres_recycled(
 
     def cycle(x, U, C):
         r = b - A(x)
-        ctr0 = C @ r
+        ctr0 = cdot(C, r)
         r = r - C.T @ ctr0  # (I - C C^T) r
-        beta = _norm(r)
+        beta = _norm(r, group)
         V = torch.zeros((m + 1, n), dtype=dtype, device=dev)
         V[0] = r / torch.clamp_min(beta, 1e-30)
         H = torch.zeros((m + 1, m), dtype=dtype, device=dev)
         Bm = torch.zeros((k, m), dtype=dtype, device=dev)
+        Z = torch.zeros((m, n), dtype=dtype, device=dev)  # M V, kept for the refresh
         for j in range(m):
-            w = A(M(V[j]))
-            bj = C @ w
+            Z[j] = M(V[j])
+            w = A(Z[j])
+            bj = cdot(C, w)
             w = w - C.T @ bj
-            h1 = V @ w
+            h1 = cdot(V, w)
             w = w - V.T @ h1
-            h2 = V @ w
+            h2 = cdot(V, w)
             w = w - V.T @ h2
             h = h1 + h2
-            hw = _norm(w)
+            hw = _norm(w, group)
             h[j + 1] = hw
             V[j + 1] = w / torch.clamp_min(hw, 1e-30)
             H[:, j] = h
@@ -478,19 +508,19 @@ def gmres_recycled(
         x = x + M(V[:m].T @ y) + U.T @ (ctr0 - Bm @ y)
         # the k smallest singular triplets of H give the slowest directions
         Wt = torch.linalg.svd(H[:m, :], full_matrices=False).Vh
-        U_new = M(Wt[-k:, :] @ V[:m])
+        U_new = Wt[-k:, :] @ Z
         U_new, C_new = reform(U_new)
         return x, U_new, C_new
 
     U, C = reform(recycle.U)
-    x = x + U.T @ (C @ (b - A(x)))  # outer projection (no-op when U == 0)
-    relres = _norm(b - A(x)) / bnorm
+    x = x + U.T @ cdot(C, b - A(x))  # outer projection (no-op when U == 0)
+    relres = _norm(b - A(x), group) / bnorm
     going = bool(relres > tol)
     it = 0
     stalls = 0
     while going and it < max_restarts and stalls < 2:
         x, U, C = cycle(x, U, C)
-        relres_new = _norm(b - A(x)) / bnorm
+        relres_new = _norm(b - A(x), group) / bnorm
         # one host read per restart for both tests
         stalled, going = torch.stack([relres_new > 0.9 * relres, relres_new > tol]).tolist()
         stalls = stalls + 1 if stalled else 0

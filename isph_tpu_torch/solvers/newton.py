@@ -40,6 +40,10 @@ def _identity(v):
     return v
 
 
+def _masked(M: Callable, owned: torch.Tensor) -> Callable:
+    return lambda r: M(r) * owned
+
+
 def newton_krylov(
     residual: Callable,  # x -> F(x)
     jacobian: Optional[Callable],  # x -> ELL analytic Jacobian, or None: matrix-free
@@ -50,10 +54,20 @@ def newton_krylov(
     max_iters: int = 100,
     linear_tol: float = 1.0e-6,
     linear_restart: int = 80,
+    group=None,
+    wrap_matvec: Optional[Callable] = None,
+    owned: Optional[torch.Tensor] = None,
 ) -> NewtonResult:
     """Solve F(x) = 0 from ``x0``.  Each iteration solves J dx = -F with one
     GMRES cycle of at most ``linear_restart`` iterations (Jacobi on the
-    analytic Jacobian, none matrix-free) and takes the full step."""
+    analytic Jacobian, none matrix-free) and takes the full step.
+
+    ``group``, ``wrap_matvec`` and ``owned`` are the distributed hooks
+    (``group`` is JAX's ``axis_name``): the sharded caller wraps the
+    Jacobian matvec with a halo import (Epetra Import inside Multiply) and
+    masks rows to owned slots, so every all-reduced norm counts each
+    particle once.  The scaled update norm divides by the local length, as
+    JAX's does."""
     dev = x0.device
     sqrt_n = math.sqrt(x0.shape[0])
     x = x0
@@ -71,12 +85,21 @@ def newton_krylov(
             f = residual(x)
             J = jacobian(x)
             mv, M = J.matvec, jacobi(J)
-        res = gmres(mv, -f, M=M, tol=linear_tol, restart=linear_restart, max_restarts=1)
+        if wrap_matvec is not None:
+            mv = wrap_matvec(mv)
+        if owned is not None:
+            M = _masked(M, owned)
+            f = f * owned
+        res = gmres(mv, -f, M=M, tol=linear_tol, restart=linear_restart, max_restarts=1,
+                    group=group)
         dx = res.x
         x = x + dx
-        nf = _norm(residual(x))
+        f_new = residual(x)
+        if owned is not None:
+            f_new = f_new * owned
+        nf = _norm(f_new, group)
         # scaled update norm (NOX NormUpdate, a WRMS-like 2-norm)
-        nupd = _norm(dx) / sqrt_n
+        nupd = _norm(dx, group) / sqrt_n
         lin = lin + res.iters
         it += 1
         going = not bool((nf <= tol_f) & (nupd <= tol_update))

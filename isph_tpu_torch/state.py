@@ -155,6 +155,9 @@ class Precomputed:
     Lc: torch.Tensor  # (DL, N) packed Laplacian-correction tensor
     normal: Optional[torch.Tensor] = None  # (D, N) interface normal
     pnd: Optional[torch.Tensor] = None  # (N,) particle number density
+    # (N,) wall-distance coordinate: declared as in the JAX package, which
+    # never sets it either (ops.corrected.boundary_coordinate computes it)
+    bd_coord: Optional[torch.Tensor] = None
 
 
 def require_device(builder: str, device) -> None:

@@ -1,0 +1,1 @@
+from isph_tpu_torch.utils import dense, packed, profiling, time_bdf

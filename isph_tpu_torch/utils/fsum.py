@@ -66,3 +66,14 @@ def comp_dot_rows(a: torch.Tensor, b: torch.Tensor):
     ``jax.vmap(comp_dot)``)."""
     y = a * b
     return comp_sum2(y, torch.zeros_like(y))
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root, as XLA's and CUDA's ``sqrt`` give
+    it.  PyTorch's vectorized f32 sqrt on the CPU is not correctly rounded
+    (about 0.6% of its results are one ulp off), so f32 on the CPU takes
+    the root in f64 and rounds once: a double root rounded to f32 is the
+    correctly rounded f32 root.  Everything else is ``torch.sqrt``."""
+    if x.dtype == torch.float32 and x.device.type == "cpu":
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)

@@ -262,3 +262,28 @@ def test_step_phases_appear_in_a_trace(tmp_path):
     text = (tmp_path / "trace.json").read_text()
     for name in ("neighbors", "compute_pre", "helmholtz", "poisson", "correct", "advance"):
         assert f'"{name}"' in text, name
+
+
+def test_run_adaptive_regrows_where_jax_raises():
+    """At K = 16 the TGV-16 lattice overflows its neighbor slots.  JAX's
+    ``run_adaptive`` raises (``isph_tpu/models/driver.py:420-427``); the
+    port's regrows under the driver's one overflow policy, a deliberate
+    difference, and its run equals, bit for bit, a run started from the
+    grown shapes."""
+    jsim, js = jtgv.make_tgv(16, max_neighbors=16)
+    jsim = _jacobi(jsim)
+    dx = 2 * np.pi / 16
+    with pytest.raises(RuntimeError, match="run_adaptive"):
+        jsim.run_adaptive(js, 2, cfl=0.5, dx=dx, umin=1e-3)
+    sim, st = _port(jsim, js)
+    count = int(sim.neighbors(st).count.max())
+    assert count > 16
+    grown = sim
+    for _ in range(math.ceil((count - 16) / 8)):
+        grown = grown.with_larger_neighbors()
+    assert int(grown.neighbors(st).overflow) == 0
+    a, aux_a, dt_a = sim.run_adaptive(st, 2, cfl=0.5, dx=dx, umin=1e-3)
+    b, aux_b, dt_b = grown.run_adaptive(st, 2, cfl=0.5, dx=dx, umin=1e-3)
+    assert dt_a == dt_b and int(aux_a.poisson_iters) == int(aux_b.poisson_iters)
+    for f in ("x", "v", "p"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f

@@ -123,6 +123,24 @@ def test_noise_depends_only_on_seed_and_step():
     assert abs(float(a.mean())) < 0.2 and abs(float(a.std()) - 1.0) < 0.2
 
 
+def test_ranks_draw_their_own_deterministic_noise():
+    """Under a slab decomposition each rank draws from (seed, step, rank),
+    as JAX folds the device index into its key: rank 0 keeps the one-device
+    stream, each rank's draw repeats bit for bit, and the ranks' draws
+    differ, also in the low 32 bits of their seeds."""
+    _, st = tgv.make_tgv(8, device="cpu")
+    base = fluctuation.random_stress_noise(7, 12, st)
+    assert torch.equal(fluctuation.random_stress_noise(7, 12, st, rank=0), base)
+    draws = [fluctuation.random_stress_noise(7, 12, st, rank=r) for r in range(4)]
+    for r in range(4):
+        assert torch.equal(draws[r], fluctuation.random_stress_noise(7, 12, st, rank=r))
+        for q in range(r):
+            assert not torch.equal(draws[r], draws[q])
+    seeds = {fluctuation.noise_seed(s, k, r) for s in range(3) for k in range(16)
+             for r in range(8)}
+    assert len(seeds) == len({x & 0xFFFFFFFF for x in seeds}) == 3 * 16 * 8
+
+
 def test_step_with_random_stress_matches_jax_on_its_draw(monkeypatch):
     """Two steps of Simulation.step with rs on, the port's noise replaced by
     JAX's draw of the same (seed, step): the branch sits between transport
