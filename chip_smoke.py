@@ -219,7 +219,24 @@ Phases (each raises on failure; the script then exits non-zero):
    sharded steps against the one-device steps: iterations equal, fields
    within 1e-9 after matching by position; (c) bench.py's
    bench_sharded_overhead cell (TGV-128^2 f32 Jacobi, K = 32, halo 640):
-   sharded_overhead_ratio, both steps timed with CUDA events.
+   sharded_overhead_ratio, both steps timed with CUDA events;
+27. the rest of the distributed layer at world size 1 on NCCL, in this
+   process, the launch counters set to 0 around each part: (a) three
+   steps of phase 21's n = 256 cylinder (f64, K = 48, fully periodic)
+   through ShardedSimulation.step (n_loc from choose_n_loc, the halo the
+   cut layer + 25%), each Poisson relres < 1e-6 and vmax within 1e-5 of
+   JAX's, no overflow, both kernels ran; the iterations beside phase 21's,
+   sharded_overhead_ratio_ale (the median step over phase 21's), the peak
+   memory, the idle share and collectives of a profiled step; (b) phase
+   25's 262,144-atom QEq lattice as one slab (n_loc = N): solve_qeq with
+   the halo refresh and the group against the one-device solve on the
+   same atoms at 1e-10 (q within 1e-10, s/t iterations equal), then two
+   calls at 1e-6 timed beside phase 25's;
+   (d) ell_spmv on the extended slabs' ALE Poisson matrix (f64 C = 1) and
+   QEq H (f64 C = 2), take on the ALE slab list (f64 pressure, int32
+   kinds) and the QEq slab's type ids (int32), against their plain
+   versions as in phase 3; the group closed, then (c)
+   entry.dryrun_multichip on every card, one NCCL rank each.
 
 The last lines are the card's name and power limit from nvidia-smi, one
 JSON line describing the kernels (time, launches on the main path, plain
@@ -227,8 +244,9 @@ and library times and bound of each, at the f32 (N,) shape of its phase;
 ell_spmv and take also at 64^3, on the channel, on the PB Jacobian, on
 the pore-scale deck, on the MLS matrices and fields of phase 22, on the
 ILU factors and gathers of phase 24, the QEq matrix, types and
-positions of phase 25 and the sharded A_own and strip of phase 26, with
-their launches on phases 9, 11, 14-16, 18, 19, 21, 24, 25 and 26),
+positions of phase 25, the sharded A_own and strip of phase 26 and the
+extended slabs of phase 27, with their launches on phases 9, 11, 14-16,
+18, 19, 21, 24, 25, 26 and 27),
 and the result line
 {"ok": true, "device": {...}}.  Without a CUDA device it prints no result
 and exits non-zero.
@@ -1988,16 +2006,18 @@ CYL_JAX_VMAX = (1.1780202282725939e-3, 2.4129037642273026e-3, 3.6963705518801527
 CYL_CD = 1.8561873826547262  # tests/test_decks.py's n = 32, 20-step drag golden
 
 
-def _ale_poisson_matrix(sim, state):
+def _ale_poisson_matrix(sim, state, geom=None):
     """The ALE Poisson matrix of a state as ale_navier_stokes_step
     assembles it: -dt times the MLS Laplacian rows of the fluid (filter
-    F,F; mass matrix F,ALL), solid rows diag -1 and zeroed.  Returns (the
-    matrix, the pair geometry)."""
+    F,F; mass matrix F,ALL), solid rows diag -1 and zeroed; on ``geom``
+    where given (an extended slab's), else on the state's own neighbor
+    list.  Returns (the matrix, the pair geometry)."""
     from isph_tpu_torch.ops import mls
     from isph_tpu_torch.ops.corrected import PairFilter
     from isph_tpu_torch.state import Kind
 
-    _, geom, _ = _geometry(sim, state)
+    if geom is None:
+        _, geom, _ = _geometry(sim, state)
     cfg = sim.cfg
     basis = mls.MLSBasis(dim=state.dim, order=cfg.mls.basis_order)
     Minv = mls.mass_matrix_inverse(basis, geom, cfg.cut, state.kind,
@@ -2085,13 +2105,15 @@ def phase_cylinder(dev):
     each Poisson relres < 1e-6 and vmax within 1e-5 of JAX's; the step
     time, iterations, peak memory, a breakdown by named phase and the idle
     share of a profiled step; then one step at n = 512, logged.  Returns
-    the launches and the step-3 (simulation, state) for phase 22."""
+    the launches, the step-3 (simulation, state) for phase 22 and the
+    iterations and median step for phase 27."""
     from isph_tpu_torch.models import decks
     from isph_tpu_torch.ops import spmv_cuda as sc
 
     sim, state = decks.build_deck(CYL, n=CYL_N, device=dev)
     solid = state.is_solid & state.valid
     sc_ = sim.cfg.solver
+    iters, step_s = [], []
     _log(f"cylinder: {CYL} n={CYL_N} N={state.n} ({int(solid.sum())} solid), "
          f"K={sim.cfg.neighbor.max_neighbors}, dt {sim.cfg.dt:.6g}, f64; Jacobi GMRES"
          f"({sc_.restart}) x {sc_.max_restarts} restarts, tol {sc_.tol:g} (config precond "
@@ -2105,9 +2127,10 @@ def phase_cylinder(dev):
              f"helmholtz relres {float(aux.helmholtz_relres):.3e}")
         if not (float(aux.poisson_relres) < 1e-6 and abs(rel) < 1e-5):
             bad.append(k + 1)
+        iters.append((int(aux.helmholtz_iters), int(aux.poisson_iters)))
 
     state, aux, launches = _run_steps("cylinder", sim, state, (sc.ell_spmv, sc.take),
-                                      cap_check=False, each=each)
+                                      cap_check=False, each=each, step_times=step_s)
     if bad:
         raise RuntimeError(f"cylinder steps {bad}: Poisson relres >= 1e-6 or vmax off JAX's")
     if min(launches.values()) <= 0:
@@ -2132,7 +2155,7 @@ def phase_cylinder(dev):
          f"{bool(torch.isfinite(st5.v).all())}; peak "
          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB (a record, no bar: JAX on the "
          f"CPU stops at its 750-iteration cap, relres 3.16e-5)")
-    return launches, sim, state
+    return launches, sim, state, dict(iters=iters, median_s=statistics.median(step_s[1:]))
 
 
 MLS_OPERATOR_DECKS = (("poisson-operator-2d", (256, 512), 0.6, 0.08),
@@ -2481,9 +2504,10 @@ def phase_qeq(dev, flush):
          f"{t_nb:.3f} s, peak {geo_peak / 2**30:.2f} GiB above the positions; count.max {cmax}")
     torch.cuda.reset_peak_memory_stats()
     st = qeq.QEqState.zeros(n, device=dev)
-    calls = []
+    calls, call_s = [], []
     for call in range(6):
         res, t = _timed(lambda: qeq.solve_qeq(geom, tid, params, st, valid))
+        call_s.append(t)
         st = res.state
         qsum, qabs = float(st.q.sum()), float(st.q.abs().sum())
         calls.append((int(res.s_info.iters), int(res.t_info.iters)))
@@ -2533,22 +2557,24 @@ def phase_qeq(dev, flush):
     if not off <= 1e-10:
         raise RuntimeError(f"QEq on the card off the JAX package's by {off:.3e}")
     return dict(spmv=spmv[(torch.float64, 2)], take=take["int32 (N,)"],
-                take_positions=take["f64 (3,N)"], spmv_err=err, launches=launches)
+                take_positions=take["f64 (3,N)"], spmv_err=err, launches=launches,
+                call_s=call_s)
 
 # ---------------------------------------------------------------------------
 # phase 26: the sharded step (parallel/sharded.py) at world size 1 on NCCL
 # ---------------------------------------------------------------------------
 
-def _sharded(sim, state, group, halo=None, **kw):
+def _sharded(sim, state, group, halo=None, n_loc=None, **kw):
     """The ShardedSimulation of ``state`` on ``group`` and this rank's slab:
-    n_loc from choose_n_loc; without ``halo`` the halo holds the fuller
-    face's cut layer (the particles within the cutoff of a slab face) with
-    25% slack, rounded up to 128."""
+    without ``n_loc`` it comes from choose_n_loc; without ``halo`` the halo
+    holds the fuller face's cut layer (the particles within the cutoff of a
+    slab face) with 25% slack, rounded up to 128."""
     from isph_tpu_torch.parallel.sharded import (ShardedSimulation, choose_n_loc,
                                                  partition_state, slab)
 
     dom = sim.domain
-    n_loc = choose_n_loc(state, dom, group.size)
+    if n_loc is None:
+        n_loc = choose_n_loc(state, dom, group.size)
     layer = None
     if halo is None:
         slab_w = dom.length[0] / group.size
@@ -2779,6 +2805,180 @@ def phase_sharded(dev, flush, large):
     return dict(launches=launches, **kd)
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the sharded MLS/ALE step, distributed QEq and the multichip entry
+# ---------------------------------------------------------------------------
+
+def _sharded_ale(dev, group, flush, cyl):
+    """(a) flow-past-cylinder-2d-mls at n = 256 (65,536 particles, f64,
+    K = 48, fully periodic) through ShardedSimulation.step at world size 1:
+    three steps, each Poisson relres < 1e-6 and vmax within 1e-5 of JAX's
+    (phase 21's bar), no overflow; the iterations beside phase 21's, the
+    median step over phase 21's (sharded_overhead_ratio_ale), the peak memory
+    and the idle share of a profiled step.  (d) on the step-3 slab: ell_spmv
+    on the extended slab's ALE Poisson matrix (f64 C = 1) and take on the
+    slab list (f64 pressure, int32 kinds) against their plain versions as in
+    phase 3.  Returns (launches, kernel rows)."""
+    from isph_tpu_torch.models import decks
+    from isph_tpu_torch.ops import spmv_cuda as sc
+
+    sim, state = decks.build_deck(CYL, n=CYL_N, device=dev)
+    ss, st, layer = _sharded(sim, state, group)
+    _log(f"sharded ale: world size 1 on NCCL; {CYL} n={CYL_N} N={state.n} f64: n_loc={ss.n_loc} "
+         f"halo={ss.halo} (cut layer {layer[0]} and {layer[1]} particles at the two x-faces), "
+         f"local cell capacity {ss._local_cell_capacity()}")
+    bad, iters, step_s = [], [], []
+
+    def each(k, _, aux):
+        vmax = float(aux.status.vmax)
+        rel = vmax / CYL_JAX_VMAX[k] - 1.0
+        iters.append((int(aux.helmholtz_iters), int(aux.poisson_iters)))
+        _log(f"sharded ale: step {k + 1}: vmax {vmax:.17g} (JAX {CYL_JAX_VMAX[k]:.17g}, "
+             f"{rel:+.2e})")
+        if not (float(aux.poisson_relres) < 1e-6 and abs(rel) < 1e-5):
+            bad.append(k + 1)
+
+    st, aux, launches = _run_steps("sharded ale", sim, st, (sc.ell_spmv, sc.take),
+                                   cap_check=False, each=each, step_times=step_s, step=ss.step)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    if bad:
+        raise RuntimeError(f"sharded cylinder steps {bad}: Poisson relres >= 1e-6 or vmax off "
+                           "JAX's")
+    if min(launches.values()) <= 0:
+        raise RuntimeError(f"a kernel never launched on the sharded ALE path: {launches}")
+    med = statistics.median(step_s[1:])
+    _log(f"sharded ale: (helmholtz, poisson) iterations {iters} beside phase 21's "
+         f"{cyl['iters']}; sharded_overhead_ratio_ale={med / cyl['median_s']:.4f} (sharded "
+         f"median {med:.4f} s / phase 21 median {cyl['median_s']:.4f} s); peak memory "
+         f"{peak:.1f} MiB")
+    group.reset()
+    wall, busy, nk = _idle_share(lambda: ss.step(st))
+    _log(f"sharded ale: profiled step {wall:.4f} s, device busy {busy:.4f} s over {nk} "
+         f"kernels, idle share {1.0 - busy / wall:.3f}; {group.allreduces} all-reduces, "
+         f"{group.ring_hops} ring hops")
+
+    ext, _, geom, _, _ = ss._borders(st, *ss._slab_bounds(st.dtype, st.device))
+    A, _ = _ale_poisson_matrix(sim, ext, geom)
+    K, n = A.vals.shape
+    nnz = int(A.mask.sum().item()) + n
+    _log(f"sharded ale kernels: extended slab N={n} (n_loc {ss.n_loc} + 2 x halo {ss.halo}) "
+         f"K={K} nnz={nnz}")
+    rng = np.random.default_rng(27)
+    spmv, err = _sweep_ell("sharded ale kernels: spmv ALE Poisson", A, nnz, flush, rng,
+                           ((torch.float64, (1,)),))
+    shapes = ("f64 (N,) p", "int32 (N,) kind")
+    take = _take_sweep("sharded ale kernels: take", sc.take, geom.idx,
+                       dict(zip(shapes, (ext.p, ext.kind))), flush, main_shapes=shapes)
+    return launches, dict(spmv=spmv[(torch.float64, 1)], take=take["f64 (N,) p"], spmv_err=err)
+
+
+def _sharded_qeq(dev, group, flush, call_s):
+    """(b) phase 25's 262,144-atom lattice (f64, K = 448, cutoff 10 A) as one
+    world-size-1 slab (n_loc = N: QEq moves no atom; the halo the cut layer
+    + 25%), its type ids on ``phase``: the borders build, then solve_qeq
+    with the halo refresh and the group against the one-device solve_qeq
+    on the same atoms at QEQ_CHECK_TOL: q on the owned rows within 1e-10 of
+    the one-device solve's, the s/t iterations equal; then two calls at tol
+    1e-6 from a zero history, timed beside phase 25's first two.  (d)
+    ell_spmv on the extended slab's H (f64 C = 2) and take on its type ids
+    (int32 (N,)).  Returns (launches, kernel rows)."""
+    from isph_tpu_torch.config import (KernelConfig, KernelType, NeighborConfig,
+                                       SimulationConfig)
+    from isph_tpu_torch.models.driver import Simulation
+    from isph_tpu_torch.ops import spmv_cuda as sc
+    from isph_tpu_torch.physics import qeq
+    from isph_tpu_torch.state import Kind, make_state
+
+    x, valid, tid, dom, cap = _qeq_setup(QEQ_SIDE, dev)
+    n = x.shape[1]
+    check = qeq.QEqParams(**{**QEQ_PARAMS, "tol": QEQ_CHECK_TOL, "maxiter": 1000})
+    _, geom = _qeq_geometry(x, valid, dom, cap)
+    r = qeq.solve_qeq(geom, tid, check, qeq.QEqState.zeros(n, device=dev), valid)
+    q_ref, its_ref = r.state.q, (int(r.s_info.iters), int(r.t_info.iters))
+    del geom, r
+    torch.cuda.empty_cache()
+
+    cut = QEQ_PARAMS["swb"]
+    cfg = SimulationConfig(dim=3, h=cut / 2.0, dt=1.0,
+                           kernel=KernelConfig(type=KernelType.WENDLAND, cut_over_h=2.0),
+                           neighbor=NeighborConfig(max_neighbors=QEQ_K, cell_capacity=cap))
+    state = make_state(x.T.cpu().numpy(), kind=np.full(n, Kind.FLUID_BIT, np.int32), rho=1.0,
+                       nu=0.0, pad_to=n, dtype=torch.float64, device=dev).replace(phase=tid)
+    ss, st, layer = _sharded(Simulation(cfg=cfg, domain=dom), state, group, n_loc=n)
+    for w in (sc.ell_spmv, sc.take):
+        w.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (ext, comm, geom, _, ovf), t_b = _timed(
+        lambda: ss._borders(st, *ss._slab_bounds(st.dtype, st.device)))
+    n_ext = ext.x.shape[-1]
+
+    def solve(params, qs):
+        return qeq.solve_qeq(geom, ext.phase, params, qs, comm.owned, group=group,
+                             exchange=comm.refresh)
+
+    _log(f"sharded qeq: world size 1 on NCCL; N={n} N_ext={n_ext} (halo {ss.halo}, cut layer "
+         f"{layer[0]} and {layer[1]} atoms), borders build {t_b:.3f} s, overflow {int(ovf)}")
+    res, t_c = _timed(lambda: solve(check, qeq.QEqState.zeros(n_ext, device=dev)))
+    its = (int(res.s_info.iters), int(res.t_info.iters))
+    dq = float((res.state.q[:n] - q_ref).abs().max())
+    _log(f"sharded qeq: tol {check.tol:.0e}: s/t iterations {its} (one device {its_ref}), q "
+         f"on the owned rows within {dq:.3e} of the one-device q, {t_c:.4f} s")
+    if int(ovf) != 0 or its != its_ref or not dq <= 1e-10:
+        raise RuntimeError(f"the sharded QEq solve departs from the one-device solve at tol "
+                           f"{QEQ_CHECK_TOL:.0e}")
+    params = qeq.QEqParams(**QEQ_PARAMS)
+    qs = qeq.QEqState.zeros(n_ext, device=dev)
+    for call in range(2):
+        group.reset()
+        r, t = _timed(lambda: solve(params, qs))
+        qs = r.state
+        q = r.state.q[:n]
+        _log(f"sharded qeq: call {call + 1} at tol {params.tol:g}: s/t "
+             f"{int(r.s_info.iters)}/{int(r.t_info.iters)}, {t:.4f} s (phase 25's call "
+             f"{call + 1}: {call_s[call]:.4f} s), {group.allreduces} all-reduces, "
+             f"{group.ring_hops} ring hops; sum q {float(q.sum()):.3e}")
+        if not (bool(r.s_info.converged) and bool(r.t_info.converged)):
+            raise RuntimeError(f"sharded QEq call {call + 1} did not converge")
+    launches = {"ell_spmv": sc.ell_spmv.launches, "take": sc.take.launches}
+    _log(f"sharded qeq: launches {launches}; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+         f"GiB")
+    if min(launches.values()) <= 0:
+        raise RuntimeError(f"a kernel never launched on the sharded QEq path: {launches}")
+
+    H = qeq.assemble_h(geom, ext.phase, params, comm.owned)
+    nnz = int(H.mask.sum().item()) + n_ext
+    rng = np.random.default_rng(28)
+    spmv, err = _sweep_ell("sharded qeq kernels: spmv H", H, nnz, flush, rng,
+                           ((torch.float64, (2,)),))
+    take = _take_sweep("sharded qeq kernels: take", sc.take, H.idx, {"int32 (N,)": ext.phase},
+                       flush, main_shapes=("int32 (N,)",))
+    return launches, dict(spmv=spmv[(torch.float64, 2)], take=take["int32 (N,)"], spmv_err=err)
+
+
+def phase_sharded_rest(dev, flush, cyl, call_s):
+    """Phase 27: (a) and (b) at world size 1 on NCCL in this process, the
+    launch counters set to 0 around each; the group closed, then (c)
+    entry.dryrun_multichip on every card of the machine, one NCCL rank each."""
+    from isph_tpu_torch import entry
+    from isph_tpu_torch.parallel import mesh
+
+    store = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    group = mesh.make_mesh(1, 0, backend="nccl", init_file=os.path.join(store, "store"),
+                           device=dev)
+    try:
+        launches_ale, kale = _sharded_ale(dev, group, flush, cyl)
+        torch.cuda.empty_cache()
+        launches_qeq, kqeq = _sharded_qeq(dev, group, flush, call_s)
+        torch.cuda.empty_cache()
+    finally:
+        mesh.close_mesh()
+    n_cards = torch.cuda.device_count()
+    out, t = _timed(lambda: entry.dryrun_multichip(n_cards, device=dev))
+    _log(f"multichip entry: dryrun_multichip({n_cards}) on NCCL passed in {t:.1f} s: {out}")
+    return dict(launches_ale=launches_ale, launches_qeq=launches_qeq, ale=kale, qeq=kqeq)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a "
@@ -2875,7 +3075,7 @@ def main() -> int:
     # cylinder's and the 3-D operator deck's matrices
     torch.cuda.empty_cache()
     phase_cylinder_golden(dev)
-    launches_cyl, cyl_sim, cyl_state = phase_cylinder(dev)
+    launches_cyl, cyl_sim, cyl_state, cyl = phase_cylinder(dev)
     torch.cuda.empty_cache()
     A3 = phase_mls_operators(dev)
     flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
@@ -2888,9 +3088,12 @@ def main() -> int:
     kx = phase_solver_extras(dev, flush, main_iters, tgv_state)
     kq = phase_qeq(dev, flush)
 
-    # phase 26: the sharded step at world size 1 on NCCL
+    # phase 26: the sharded step at world size 1 on NCCL; phase 27: the
+    # sharded ALE step, distributed QEq and the multichip entry
     torch.cuda.empty_cache()
     ks = phase_sharded(dev, flush, large)
+    torch.cuda.empty_cache()
+    kr = phase_sharded_rest(dev, flush, cyl, kq["call_s"])
     del flush
 
     def row(name, source, replaces, launched, err, t):
@@ -2918,7 +3121,11 @@ def main() -> int:
         extended slab (f32) and the slab's neighbor gather (f32 (N,)), the
         kernels of the world-size-1 path, with the launches of its three 1M
         sharded steps, and beside them the world-size > 1 shapes: A_own
-        (f32) and the boundary strip (f32 (N,))."""
+        (f32) and the boundary strip (f32 (N,)); phase 27's extended-slab
+        ALE Poisson matrix (f64 C = 1) and pressure gather (f64 (N,)) with
+        the launches of the three sharded cylinder steps, and its
+        extended-slab QEq H (f64 C = 2) and type ids (int32 (N,)) with the
+        launches of the sharded QEq's borders build and three solves."""
         kname = "spmv" if name == "ell_spmv" else name
         mls_rows = (dict(at_cylinder=times(km["spmv_cylinder"]),
                          at_mls_3d=times(km["spmv_3d"])) if name == "ell_spmv"
@@ -2933,7 +3140,11 @@ def main() -> int:
                             at_qeq_positions=times(kq["take_positions"]),
                             at_sharded=times(ks["take"]),
                             at_sharded_strip=times(ks["take_strip"])))
+        extras.update(at_sharded_ale=times(kr["ale"][kname]),
+                      at_sharded_qeq=times(kr["qeq"][kname]))
         return dict(launches_3d=launches_3d[name], launches_channel=launches_channel[name],
+                    launches_sharded_ale=kr["launches_ale"][name],
+                    launches_sharded_qeq=kr["launches_qeq"][name],
                     launches_ilu=kx["launches_ilu"][name],
                     launches_recycle=kx["launches_recycle"][name],
                     launches_pipelined=kx["launches_pipelined"][name],
@@ -2952,7 +3163,8 @@ def main() -> int:
         {**row("ell_spmv", "spmv.cu", 298, launches["ell_spmv"],
                max(k["spmv_err"], kb["spmv32_err"], k3["spmv_err"], kc["spmv_err"],
                    ke["spmv_err"], kp["spmv_err"], km["spmv_err"], kx["err_L"], kx["err_U"],
-                   kq["spmv_err"], ks["spmv_err"]), k["spmv"]),
+                   kq["spmv_err"], ks["spmv_err"], kr["ale"]["spmv_err"],
+                   kr["qeq"]["spmv_err"]), k["spmv"]),
          **beyond("ell_spmv")},
         {**row("take", "take.cu", 332, launches["take"], 0.0, k["take"]), **beyond("take")},
         row("ell_spmv_band", "spmv_band.cu", 458, launches_large["ell_spmv_band"],

@@ -143,15 +143,22 @@ def gather_slabs(parts) -> dict:
     """The ranks' slabs (``state_to_numpy`` dicts, in rank order) back into
     one slab-blocked dict of numpy arrays: per-particle fields concatenated
     along the particle axis, scalars from rank 0, the solver caches left
-    behind."""
+    behind.  ``ale_hist`` is gathered the same way: its ``vprev`` and
+    ``dxprev`` by particle, ``dts`` and ``nprev`` from rank 0."""
     n_loc = _n_slots(parts[0])
-    out = {}
-    for name, arr in parts[0].items():
-        if name in ("solver_cache", "amg_cache", "ale_hist"):
-            continue
-        a = np.asarray(arr)
+
+    def join(get):
+        a = np.asarray(get(parts[0]))
         if a.ndim and a.shape[-1] == n_loc:
-            out[name] = np.concatenate([np.asarray(p[name]) for p in parts], axis=-1)
+            return np.concatenate([np.asarray(get(p)) for p in parts], axis=-1)
+        return a
+
+    out = {}
+    for name in parts[0]:
+        if name in ("solver_cache", "amg_cache"):
+            continue
+        if name == "ale_hist":
+            out[name] = {k: join(lambda p, k=k: p["ale_hist"][k]) for k in parts[0][name]}
         else:
-            out[name] = a
+            out[name] = join(lambda p, name=name: p[name])
     return out

@@ -123,11 +123,16 @@ def dist_matvec(diag, vals, idx, mask, x_own, *, halo: int, group: Group) -> tor
 
 def make_distributed_cg(part: PartitionedELL, group: Group, *, tol: float = 1e-10,
                         maxiter: int = 500, null_space: bool = False,
-                        device="cpu") -> Callable:
+                        device=None) -> Callable:
     """Returns ``cg_fn(b_global (N,)) -> (x_own (S,), iters)`` for this
     rank: CG on the rank's slab, the reductions all-reduced (JAX's version
     runs the loop inside one ``shard_map``; ``group`` stands for its
-    mesh).  Every rank passes the same global right-hand side."""
+    mesh).  Every rank passes the same global right-hand side.  The slab
+    lives on ``device``: by default the rank's card (the group's under
+    NCCL, else the current one); CPU ranks pass ``"cpu"``."""
+    if device is None:
+        device = (group.device if group.device is not None
+                  else torch.device("cuda", torch.cuda.current_device()))
     r = group.rank
     H, S = part.halo, part.shard
 

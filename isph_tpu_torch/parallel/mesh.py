@@ -43,27 +43,62 @@ def _wire(t: torch.Tensor) -> torch.Tensor:
 
 class Group:
     """The reduction and ring-hop context of one rank: JAX's ``axis_name``,
-    over the default ``torch.distributed`` process group.  A sum or max is one ``all_reduce`` of a tensor, whose output carries the
-    same bits on every rank, so host decisions taken on it agree.  A ring
-    hop is one ``batch_isend_irecv``; at world size 1 it is a local copy,
-    as JAX's world-1 ``ppermute`` is the identity (a rank does not send to
-    itself)."""
+    over the default ``torch.distributed`` process group.  A sum or max is
+    one ``all_reduce`` of a tensor, whose output carries the same bits on
+    every rank, so host decisions taken on it agree.  A ring hop is one
+    ``batch_isend_irecv``; at world size 1 it is a local copy, as JAX's
+    world-1 ``ppermute`` is the identity (a rank does not send to itself).
 
-    def __init__(self, rank: int, size: int):
+    ``device`` is the rank's card under NCCL (None on gloo).  The counters
+    count what the rank did since they were last set to 0 (:meth:`reset`):
+    ``allreduces`` the ``psum``/``pmax`` calls, ``ring_hops`` the messages
+    sent to a neighbor and ``ring_bytes`` their payload (0 at world size 1,
+    where a hop is a local copy), the quantities ``scripts/weak_scaling.py``
+    counts in JAX's compiled program."""
+
+    def __init__(self, rank: int, size: int, device: Optional[torch.device] = None):
         self.rank = rank
         self.size = size
+        self.device = device
+        self.reset()
+
+    def reset(self) -> None:
+        """Set the counters to 0."""
+        self.allreduces = 0
+        self.ring_hops = 0
+        self.ring_bytes = 0
+
+    def _all_reduce(self, t: torch.Tensor, op) -> torch.Tensor:
+        out = t.contiguous().clone()
+        dist.all_reduce(out.view(-1), op=op)
+        self.allreduces += 1
+        return out
 
     def psum(self, t: torch.Tensor) -> torch.Tensor:
         """``lax.psum``: the all-rank sum of ``t`` (a new tensor)."""
-        out = t.contiguous().clone()
-        dist.all_reduce(out.view(-1), op=dist.ReduceOp.SUM)
-        return out
+        return self._all_reduce(t, dist.ReduceOp.SUM)
 
     def pmax(self, t: torch.Tensor) -> torch.Tensor:
         """``lax.pmax``: the all-rank maximum of ``t``."""
-        out = t.contiguous().clone()
-        dist.all_reduce(out.view(-1), op=dist.ReduceOp.MAX)
-        return out
+        return self._all_reduce(t, dist.ReduceOp.MAX)
+
+    def _hops(self, sends) -> list:
+        """Post every hop of ``sends``, ``(payload, dst, src, tag)`` each:
+        the payload goes to rank ``dst`` and a tensor of its shape comes
+        from rank ``src`` under the same tag.  Returns the received tensors
+        in ``sends``' order, in the payloads' dtypes."""
+        ops, recv = [], []
+        for payload, dst, src, tag in sends:
+            a = _wire(payload)
+            r = torch.empty_like(a)
+            ops += [dist.P2POp(dist.isend, a, dst, tag=tag),
+                    dist.P2POp(dist.irecv, r, src, tag=tag)]
+            recv.append(r)
+            self.ring_hops += 1
+            self.ring_bytes += a.numel() * a.element_size()
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return [r.to(p[0].dtype) for r, p in zip(recv, sends)]
 
     def ring_pair(self, to_right: torch.Tensor, to_left: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -72,24 +107,23 @@ class Group:
         what the right neighbor sent left), JAX's
         ``(ppermute(to_right, fwd), ppermute(to_left, bwd))``."""
         if self.size == 1:
+            self.ring_hops += 2
             return to_right.clone(), to_left.clone()
-        a, b = _wire(to_right), _wire(to_left)
-        from_left, from_right = torch.empty_like(a), torch.empty_like(b)
         right, left = (self.rank + 1) % self.size, (self.rank - 1) % self.size
-        ops = [dist.P2POp(dist.isend, a, right, tag=_TAG_RIGHT),
-               dist.P2POp(dist.irecv, from_left, left, tag=_TAG_RIGHT),
-               dist.P2POp(dist.isend, b, left, tag=_TAG_LEFT),
-               dist.P2POp(dist.irecv, from_right, right, tag=_TAG_LEFT)]
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        return from_left.to(to_right.dtype), from_right.to(to_left.dtype)
+        from_left, from_right = self._hops([(to_right, right, left, _TAG_RIGHT),
+                                            (to_left, left, right, _TAG_LEFT)])
+        return from_left, from_right
 
     def ring_shift(self, t: torch.Tensor, shift: int) -> torch.Tensor:
         """One ring hop: +1 sends ``t`` to rank + 1 and returns what rank - 1
         sent (JAX's ``ppermute`` with ``[(i, i + 1)]``); -1 the other way."""
         if shift not in (1, -1):
             raise ValueError(f"ring_shift takes +1 or -1, got {shift}")
-        return self.ring_pair(t, t)[0 if shift == 1 else 1]
+        if self.size == 1:
+            self.ring_hops += 1
+            return t.clone()
+        dst, src = (self.rank + shift) % self.size, (self.rank - shift) % self.size
+        return self._hops([(t, dst, src, _TAG_RIGHT if shift == 1 else _TAG_LEFT)])[0]
 
 
 def make_mesh(world: int, rank: int, *, backend: str, init_file: str,
@@ -98,7 +132,8 @@ def make_mesh(world: int, rank: int, *, backend: str, init_file: str,
     ``make_mesh``: the mesh axis becomes the group).  The store is a file
     (``init_file``, fresh for each group); ``timeout`` bounds the start and
     every later collective, so a rank that skips one fails instead of
-    hanging.  ``device`` is the rank's card under NCCL."""
+    hanging.  ``device`` is the rank's card under NCCL (by default the
+    current one), and the group's ``device``."""
     kw = {}
     if backend == "nccl":
         if device is None:
@@ -108,7 +143,7 @@ def make_mesh(world: int, rank: int, *, backend: str, init_file: str,
     dist.init_process_group(backend=backend, init_method=f"file://{init_file}",
                             world_size=world, rank=rank,
                             timeout=datetime.timedelta(seconds=timeout), **kw)
-    return Group(rank=rank, size=world)
+    return Group(rank=rank, size=world, device=kw.get("device_id"))
 
 
 def close_mesh() -> None:
@@ -142,7 +177,11 @@ def spawn(fn: Callable, world: int, *args, backend: str = "gloo",
     package).  Each rank runs with one CPU thread, a process group started
     by :func:`make_mesh` over a file store, and ``RANK_TIMEOUT_S`` on every
     collective; the launcher kills them all at ``timeout`` seconds and
-    raises, and raises with the rank's error output when one fails."""
+    raises, and raises with the rank's error output when one fails.  Under
+    NCCL rank r runs on card r, so ``world`` may not exceed the cards."""
+    if backend == "nccl" and world > torch.cuda.device_count():
+        raise ValueError(f"{world} NCCL ranks need {world} cards, this machine has "
+                         f"{torch.cuda.device_count()}")
     tmp = tempfile.mkdtemp(prefix="isph_spawn_")
     with open(os.path.join(tmp, "job.pkl"), "wb") as fh:
         pickle.dump((fn, args, backend), fh)
@@ -191,8 +230,9 @@ def run_rank(tmp: str, rank: int, world: int) -> None:
     torch.set_num_threads(1)
     with open(os.path.join(tmp, "job.pkl"), "rb") as fh:
         fn, args, backend = pickle.load(fh)
-    group = make_mesh(world, rank, backend=backend,
-                      init_file=os.path.join(tmp, "store"), timeout=RANK_TIMEOUT_S)
+    device = torch.device("cuda", rank) if backend == "nccl" else None
+    group = make_mesh(world, rank, backend=backend, init_file=os.path.join(tmp, "store"),
+                      timeout=RANK_TIMEOUT_S, device=device)
     try:
         out = fn(group, *args)
     finally:

@@ -30,8 +30,7 @@ which makes the slab axis non-periodic locally.
 
 Not ported: the gather-plan machinery (``gather_chunks``, ``strip_plan``
 and the 128-lane congruence of ``with_larger_neighbors``): the strip gather
-is the ``take`` kernel.  The MLS/ALE step under distribution
-(``_step_local_ale``) is not ported yet.
+is the ``take`` kernel.
 """
 
 from __future__ import annotations
@@ -50,7 +49,7 @@ from isph_tpu_torch.ops.kernels import get_kernel
 from isph_tpu_torch.ops.neighbors import _cell_grid, build_neighbor_list, compute_pair_geometry
 from isph_tpu_torch.ops.spmv_cuda import take
 from isph_tpu_torch.parallel.mesh import Group, particle_sharding_spec
-from isph_tpu_torch.physics import electrokinetics, fluctuation, multiphase, ns_projection
+from isph_tpu_torch.physics import ale, electrokinetics, fluctuation, multiphase, ns_projection
 from isph_tpu_torch.physics import shift as shift_mod, transport
 from isph_tpu_torch.physics.status import compute_status
 from isph_tpu_torch.solvers.krylov import RecycleSpace, init_recycle
@@ -62,6 +61,13 @@ HALO_STATE_FIELDS = (
     "psi", "psi0", "psigrad", "eps", "sigma", "phi", "phigrad", "conc",
     "phase",
 )
+
+
+def _per_particle_hist(hist, fn):
+    """``hist`` (an ``ale.ALEHistory``) with ``fn`` applied to its
+    per-particle leaves, ``vprev`` and ``dxprev``; the timesteps ``dts`` and
+    the count ``nprev`` are not particle data and stay as they are."""
+    return dataclasses.replace(hist, vprev=fn(hist.vprev), dxprev=fn(hist.dxprev))
 
 
 class HaloSpec(NamedTuple):
@@ -339,11 +345,10 @@ class ShardedSimulation:
 
     def step(self, state: ParticleState) -> Tuple[ParticleState, StepAux]:
         """One sharded timestep of this rank's slab; every rank of the group
-        calls it on its own slab.  The aux is the same on every rank."""
+        calls it on its own slab.  The aux is the same on every rank.  The
+        MLS/ALE backend takes :meth:`_step_ale`."""
         if self.cfg.backend == "mls_ale":
-            raise NotImplementedError(
-                "the sharded MLS/ALE step (ShardedSimulation._step_local_ale) is not "
-                "ported yet; run the ALE backend on one device")
+            return self._step_ale(state)
         cfg = self.cfg
         group = self.group
         dom = self.sim.domain
@@ -498,6 +503,68 @@ class ShardedSimulation:
         )
         return new_state, aux
 
+    def _step_ale(self, state: ParticleState) -> Tuple[ParticleState, StepAux]:
+        """The sharded MLS/ALE velocity-correction step (the reference runs
+        the MLS pair under the same MPI decomposition,
+        mls-src/pair_isph_mls.cpp:553-827): the BDF move of the owned
+        particles, the ALE shift on its own borders build when enabled, the
+        main borders build, then the ALE solves with a halo refresh inside
+        every Krylov matvec, and migration."""
+        cfg = self.cfg
+        group = self.group
+        dom = self.sim.domain
+        n_loc, H = self.n_loc, self.halo
+        dtype, dev = state.dtype, state.device
+        order = cfg.mls.bdf_order
+        if state.ale_hist is None:
+            raise RuntimeError("call ShardedSimulation.prepare(state) for the ALE backend")
+        my_lo, my_hi = self._slab_bounds(dtype, dev)
+
+        # initial integrate: the BDF-extrapolated move of the owned particles
+        # (FixISPH::initial_integrate -> advanceTime, fix_isph.cpp:110-126)
+        state, hist = ale.ale_advance(state, state.ale_hist, cfg, dom, order)
+        state = state.replace(ale_hist=hist)
+        shift_overflow = torch.zeros((), dtype=torch.int32, device=dev)
+        if cfg.shift.enabled:
+            # FixISPH_Shift::initial_integrate under MPI: borders at the moved
+            # positions, the shift of the owned fluid (xdot absorbs gamma/dt
+            # dr), then the main borders below re-neighbor
+            ext0, _, geom0, _, shift_overflow = self._borders(state, my_lo, my_hi)
+            ext0 = ale.ale_apply_shift(ext0, hist, geom0, cfg, dom, order, group=group)
+            state = state.replace(x=ext0.x[:, :n_loc].contiguous(),
+                                  v=ext0.v[:, :n_loc].contiguous())
+
+        ext, comm, geom, pre, bord_overflow = self._borders(state, my_lo, my_hi)
+        ext = ext.replace(f=torch.zeros_like(ext.v))
+        if self.sim.extra_force is not None:
+            ext = ext.replace(f=self.sim.extra_force(ext, dom))
+        # the BDF difference is read on owned rows only: the histories take
+        # 2H dead halo slots
+        hist_ext = _per_particle_hist(hist, lambda a: torch.cat(
+            [a, torch.zeros(a.shape[:-1] + (2 * H,), dtype=a.dtype, device=dev)], dim=-1))
+        ext, info = ale.ale_navier_stokes_step(
+            ext, geom, pre, hist_ext, cfg, dom, order=order, basis_order=cfg.mls.basis_order,
+            group=group, exchange=comm.refresh, ownedf=comm.ownedf)
+
+        new_state = self._shrink(ext).replace(ale_hist=hist)
+        new_state, mig_overflow = self._migrate(new_state, my_lo, my_hi)
+        if new_state.step is not None:
+            new_state = new_state.replace(step=new_state.step + 1)
+            time = new_state.step.to(dtype) * cfg.dt
+        else:
+            time = 0.0
+        status = compute_status(new_state, pre.vfrac[:n_loc], time, group=group)
+        overflow = group.psum((bord_overflow + shift_overflow + mig_overflow).to(torch.int32))
+        aux = StepAux(
+            status=status,
+            helmholtz_iters=info.helmholtz.iters.sum(),
+            helmholtz_relres=info.helmholtz.relres.max(),
+            poisson_iters=info.poisson.iters,
+            poisson_relres=info.poisson.relres,
+            neighbor_overflow=overflow,
+        )
+        return new_state, aux
+
     def _shrink(self, ext: ParticleState) -> ParticleState:
         """Back to the owned slots: every per-particle field cut to n_loc
         (the solver caches pass through)."""
@@ -618,6 +685,10 @@ class ShardedSimulation:
 
         leaves = {k: place(getattr(state, k)) for k in HALO_STATE_FIELDS
                   if getattr(state, k) is not None}
+        if state.ale_hist is not None:
+            # the BDF histories ride with their particle (the reference ships
+            # vprev/xprev through comm->exchange, AtomVecISPH pack/unpack_exchange)
+            leaves["ale_hist"] = _per_particle_hist(state.ale_hist, place)
         new_valid = stay.clone()
         new_valid[put] = True
         return state.replace(valid=new_valid, **leaves), overflow.to(torch.int32)
@@ -628,13 +699,16 @@ class ShardedSimulation:
     def prepare(self, state: ParticleState) -> ParticleState:
         """Add to this rank's slab every field the configured physics
         writes: the recycle space (``recycle_k > 0``; n_loc columns),
-        psigrad for PB, phi/phigrad for the applied E-field, and a step
-        counter when the AMG cache is on (its rebuild reads the step)."""
+        psigrad for PB, phi/phigrad for the applied E-field, a step counter
+        when the AMG cache is on (its rebuild reads the step), and the BDF
+        histories on the MLS/ALE backend."""
         n = state.n
         dim, dtype, dev = state.dim, state.dtype, state.device
         cfg = self.cfg
         if self.amg_cache_enabled and state.step is None:
             state = state.replace(step=torch.zeros((), dtype=torch.int32, device=dev))
+        if cfg.backend == "mls_ale" and state.ale_hist is None:
+            state = state.replace(ale_hist=ale.ALEHistory.init(state, cfg.mls.bdf_order, cfg.dt))
         if cfg.solver.recycle_k > 0 and state.solver_cache is None:
             state = state.replace(solver_cache=init_recycle(n, cfg.solver.recycle_k, dtype,
                                                             dev))
@@ -747,6 +821,8 @@ def partition_state(state: ParticleState, domain: Domain, n_dev: int,
 
     new = {k: remap(getattr(state, k), fills.get(k, 0.0))
            for k in HALO_STATE_FIELDS if getattr(state, k) is not None}
+    if state.ale_hist is not None:
+        new["ale_hist"] = _per_particle_hist(state.ale_hist, remap)
     new_valid = np.zeros((n_dev * n_loc,), bool)
     new_valid[sel] = valid[out_idx[sel]]
     return state.replace(valid=torch.as_tensor(new_valid, device=dev), **new)
@@ -755,13 +831,20 @@ def partition_state(state: ParticleState, domain: Domain, n_dev: int,
 def slab(state: ParticleState, rank: int, n_loc: int) -> ParticleState:
     """Rank ``rank``'s slots ``[rank n_loc, (rank+1) n_loc)`` of a
     slab-blocked state (the ``shard_map`` split of JAX); scalars are
-    replicated.  The solver caches are left behind."""
+    replicated, and so are the BDF timesteps.  The solver caches are left
+    behind."""
     n_tot = state.n
+
+    def cut(a):
+        return particle_sharding_spec(a, rank, n_loc).contiguous()
+
     kw = {}
     for f in dataclasses.fields(state):
         a = getattr(state, f.name)
         if isinstance(a, torch.Tensor) and a.ndim > 0 and a.shape[-1] == n_tot:
-            kw[f.name] = particle_sharding_spec(a, rank, n_loc).contiguous()
+            kw[f.name] = cut(a)
+    if state.ale_hist is not None:
+        kw["ale_hist"] = _per_particle_hist(state.ale_hist, cut)
     return state.replace(solver_cache=None, amg_cache=None, **kw)
 
 

@@ -34,7 +34,7 @@ The BDF order in effect, min(nprev, bdf_order), is read on the host from
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -129,11 +129,20 @@ class ALEInfo(NamedTuple):
     helmholtz: KrylovResult  # (D,) iters and relres, one solve per component
 
 
-def _gmres(A, b, x0, cfg: SimulationConfig, null_vec=None) -> KrylovResult:
-    """Jacobi GMRES with the configured tol, restart and max_restarts."""
+def _gmres(A, b, x0, cfg: SimulationConfig, null_vec=None, *, group=None, exchange=None,
+           ownedf=None) -> KrylovResult:
+    """Jacobi GMRES with the configured tol, restart and max_restarts.
+    Distributed (``exchange`` given), the matvec refreshes the halo of its
+    input and keeps the owned rows, and ``b``, ``x0`` are owned-masked."""
     sc = cfg.solver
-    return gmres(A.matvec, b, x0, M=jacobi(A), tol=sc.tol, restart=sc.restart,
-                 max_restarts=sc.max_restarts, null_vec=null_vec)
+    mv = A.matvec
+    if exchange is not None:
+        def mv(v):
+            return A.matvec(exchange(v)) * ownedf
+
+        b, x0 = b * ownedf, x0 * ownedf
+    return gmres(mv, b, x0, M=jacobi(A), tol=sc.tol, restart=sc.restart,
+                 max_restarts=sc.max_restarts, null_vec=null_vec, group=group)
 
 
 def ale_navier_stokes_step(
@@ -146,12 +155,20 @@ def ale_navier_stokes_step(
     *,
     order: int = 2,
     basis_order: int = 2,
+    group=None,
+    exchange: Optional[Callable] = None,
+    ownedf: Optional[torch.Tensor] = None,
 ) -> Tuple[ParticleState, ALEInfo]:
     """Steps 1-4 of the ALE scheme on MLS operators, under the named phases
     ``mls_assembly`` (the mass matrix and the predict), ``poisson``,
-    ``correct`` and ``helmholtz``.  The JAX function's distributed arguments
-    (``axis_name``, ``exchange``, ``ownedf``) belong to the distributed
-    layer, which the port does not have yet (ROADMAP queue 1, #9)."""
+    ``correct`` and ``helmholtz``.
+
+    Distributed (the reference runs the MLS/ALE pair under the same MPI
+    decomposition, mls-src/pair_isph_mls.cpp:553-700): ``exchange`` is the
+    halo refresh, ``ownedf`` the owned-row mask and ``group`` (JAX's
+    ``axis_name``) all-reduces the solves' reductions and the pressure
+    mean.  The state is then an extended slab whose halo fields are
+    refreshed and whose ``valid`` marks the owned rows only."""
     dtype = state.dtype
     dev = state.device
     dim = state.dim
@@ -187,12 +204,15 @@ def ale_navier_stokes_step(
         vstar = (vdiff + dt * (-state.nu[None, :] * curlcurl - adv
                                + body + g[:, None])) / gamma
         vstar = torch.where(fluid[None, :], vstar, state.v)
+        if exchange is not None:
+            vstar = exchange(vstar)  # comm Vstar after the predict (pair_isph.cpp:1086-1093)
+    comm_kw = dict(group=group, exchange=exchange, ownedf=ownedf)
 
     # --- step 2: Poisson for p --------------------------------------------
     with named_scope("poisson", dev):
         if cfg.mls.compact_poisson:
             p, pres = _compact_poisson(state, geom, pre, cfg, basis, Minv, vstar, gamma,
-                                       lap_betas)
+                                       lap_betas, **comm_kw)
         else:
             A = mls.operator_matrix(basis, geom, rth, state.kind, filt_ff, Minv,
                                     betas=lap_betas, alpha=-dt)
@@ -204,8 +224,10 @@ def ale_navier_stokes_step(
             null_vec = None
             if cfg.ns.singular_poisson == SingularPoisson.NULL_SPACE:
                 null_vec = fluid.to(dtype)
-            pres = _gmres(A, b, torch.zeros_like(b), cfg, null_vec)
-            p = zero_mean_pressure(pres.x, state)
+            pres = _gmres(A, b, torch.zeros_like(b), cfg, null_vec, **comm_kw)
+            p = zero_mean_pressure(pres.x, state, group=group)
+        if exchange is not None:
+            p = exchange(p)  # comm Pressure (pair_isph.cpp:1100-1132)
 
     # --- step 3: correct ---------------------------------------------------
     with named_scope("correct", dev):
@@ -213,6 +235,8 @@ def ale_navier_stokes_step(
         grad_p = mls.gradient(basis, Minv, qp, rth)
         vstar = torch.where(fluid[None, :],
                             vstar - (dt / gamma) * grad_p / state.rho[None, :], vstar)
+        if exchange is not None:
+            vstar = exchange(vstar)  # the halo vstar feeds the step-4 moments
 
     # --- step 4: Helmholtz for v^{n+1} -------------------------------------
     with named_scope("helmholtz", dev):
@@ -230,21 +254,25 @@ def ale_navier_stokes_step(
         b_h = gamma * vstar + dt * (adv + state.nu[None, :] * curlcurl)
         b_h = torch.where(fluid[None, :], b_h, state.v)
         # one solve per component (JAX vmaps them: each runs as if alone)
-        hs = [_gmres(H, b_h[c], state.v[c], cfg) for c in range(dim)]
+        hs = [_gmres(H, b_h[c], state.v[c], cfg, **comm_kw) for c in range(dim)]
         hres = KrylovResult(*(torch.stack(t) for t in zip(*hs)))
+        v_new = hres.x
+        if exchange is not None:
+            v_new = exchange(v_new)  # comm Velocity (pair_isph.cpp:1159-1167)
 
-    state = state.replace(v=hres.x, vstar=vstar, p=p)
+    state = state.replace(v=v_new, vstar=vstar, p=p)
     return state, ALEInfo(poisson=pres, helmholtz=hres)
 
 
-def _compact_poisson(state, geom, pre, cfg, basis, Minv, vstar, gamma, lap_betas):
+def _compact_poisson(state, geom, pre, cfg, basis, Minv, vstar, gamma, lap_betas, *,
+                     group=None, exchange=None, ownedf=None):
     """The compact-Poisson BOUNDARY variant (PairISPH_MLS::computeAlePoisson
     CP branch, mls-src/pair_isph_mls.cpp:596-641 + ale-src/functor_ale_
     incomp_navier_stokes_compact_poisson_boundary.h): solve directly for p
     with the penalty-constrained Laplacian that is TOLD the interior data
     f = -(gamma/dt) div v* and the wall-Neumann data g = (gamma/dt)(w - v*).n
     (stationary walls: w = 0); fluid and boundary rows carry the equation.
-    Returns (p, the GMRES result)."""
+    Returns (p, the GMRES result); distributed as the caller's solves."""
     dtype = state.dtype
     dim = state.dim
     rth = cfg.cut
@@ -278,11 +306,14 @@ def _compact_poisson(state, geom, pre, cfg, basis, Minv, vstar, gamma, lap_betas
     null_vec = None
     if cfg.ns.singular_poisson == SingularPoisson.NULL_SPACE:
         null_vec = rows.to(dtype)
-    pres = _gmres(A, b, torch.zeros_like(b), cfg, null_vec)
+    pres = _gmres(A, b, torch.zeros_like(b), cfg, null_vec, group=group, exchange=exchange,
+                  ownedf=ownedf)
     # zero-mean over the solved rows; invalid slots cleaned
     rf = rows.to(dtype)
     s = (pres.x * rf).sum()
     c = rf.sum()
+    if group is not None:
+        s, c = group.psum(torch.stack([s, c]))
     p = torch.where(rows, pres.x - s / torch.clamp_min(c, 1.0), 0.0)
     return p, pres
 
@@ -294,13 +325,16 @@ def ale_apply_shift(
     cfg: SimulationConfig,
     domain: Domain,
     order: int,
+    *,
+    group=None,
 ) -> ParticleState:
     """ALE particle shifting (ale-src/functor_ale_apply_shift.h:40-56,
     driven from FixISPH_Shift::initial_integrate on the ALE scheme): the
     Fickian shift vectors move x, and xdot — which ``ale_advance`` stored in
     state.v — absorbs gamma/dt * dr so the BDF position recurrence stays
-    consistent with the shifted trajectory."""
-    dr = shift_mod.compute_shift_vectors(state, geom, cfg)
+    consistent with the shifted trajectory.  ``group`` all-reduces the
+    shift's vmax."""
+    dr = shift_mod.compute_shift_vectors(state, geom, cfg, group=group)
     gamma, _, _ = _weights(hist, order)
     moving = state.is_fluid & state.valid
     x_new = domain.wrap(torch.where(moving[None, :], state.x + dr, state.x))

@@ -12,14 +12,14 @@ H is an ELL matrix on the full padded neighbor list (its SpMV is the
 ``ell_spmv`` kernel on CUDA tensors), neighbor types come through
 ``PairGeom.gather`` (the ``take`` kernel), and the two solves run as one
 batched CG over the (2, N) stack (``solvers/krylov.py:cg_multi``), one C = 2
-SpMV an iteration.  The JAX package's distributed arguments (``axis_name``,
-``exchange``) wait for the port's distributed layer.
+SpMV an iteration.  Distributed, the matvec refreshes the halo of its
+input (``exchange``) and the reductions are all-reduced over ``group``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -118,8 +118,17 @@ class QEqResult(NamedTuple):
 
 
 def solve_qeq(geom: PairGeom, type_id: torch.Tensor, params: QEqParams,
-              qstate: QEqState, valid: torch.Tensor) -> QEqResult:
-    """One charge-equilibration step (FixQEqReax::pre_force)."""
+              qstate: QEqState, valid: torch.Tensor, *, group=None,
+              exchange: Optional[Callable] = None) -> QEqResult:
+    """One charge-equilibration step (FixQEqReax::pre_force).
+
+    Distributed (the reference's MPI CG, fix_qeq_reax.cpp:883-1073: a halo
+    forward-comm of the iterate in every sparse_matvec and all-reduced
+    dots): ``geom`` is an extended slab's, ``valid`` the owned-and-valid
+    mask, ``exchange`` the halo refresh and ``group`` (JAX's
+    ``axis_name``) all-reduces the CG's reductions and the charge
+    normalization.  Owned rows of H keep their halo columns; the Krylov
+    vectors live on the owned rows."""
     dtype, dev = geom.r.dtype, geom.r.device
     H = assemble_h(geom, type_id, params, valid)
     chi = torch.as_tensor(params.chi, dtype=dtype, device=dev)[type_id.long()]
@@ -132,17 +141,26 @@ def solve_qeq(geom: PairGeom, type_id: torch.Tensor, params: QEqParams,
     s0 = 4.0 * (sh[0] + sh[2]) - (6.0 * sh[1] + sh[3])
     t0 = th[2] + 3.0 * (th[0] - th[1])
 
+    mv = H.matvec
+    if exchange is not None:
+        def mv(v):
+            return H.matvec(exchange(v)) * vf
+
+        s0, t0 = s0 * vf, t0 * vf
     # one batched CG over the (2, N) stack: both systems share every SpMV
     # and every reduction (the reference's CG_async dual solve)
-    res = cg_multi(H.matvec, torch.stack([b_s, b_t]), torch.stack([s0, t0]), M=jacobi(H),
-                   tol=params.tol, maxiter=params.maxiter)
+    res = cg_multi(mv, torch.stack([b_s, b_t]), torch.stack([s0, t0]), M=jacobi(H),
+                   tol=params.tol, maxiter=params.maxiter, group=group)
     s, t = res.x[0], res.x[1]
     s_res = KrylovResult(x=s, iters=res.iters[0], relres=res.relres[0],
                          converged=res.converged[0])
     t_res = KrylovResult(x=t, iters=res.iters[1], relres=res.relres[1],
                          converged=res.converged[1])
 
-    u = (s * vf).sum() / (t * vf).sum()
+    sums = torch.stack([(s * vf).sum(), (t * vf).sum()])
+    if group is not None:
+        sums = group.psum(sums)
+    u = sums[0] / sums[1]
     q = (s - u * t) * vf
     return QEqResult(
         state=QEqState(q=q, s_hist=torch.cat([s[None, :], sh[:-1]]),

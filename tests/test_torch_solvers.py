@@ -592,3 +592,37 @@ def test_f32_pair_distances_equal_jax_bitwise():
     np.testing.assert_array_equal(g.r.numpy(), np.asarray(jg.r))
     x = torch.rand(10_000, dtype=torch.float32)
     assert torch.equal(tfsum.sqrt_rn(x), torch.sqrt(x.double()).float())
+
+
+@pytest.mark.parametrize("method", ["cg", "pipelined_cg", "gmres"])
+def test_f32_three_steps_match_jax_within_solver_tolerance(method):
+    """TGV-32 f32, Jacobi, three steps in each package: the fields agree to
+    the f32 solves' floor though the Poisson counts differ from step 2 (the
+    tests above).  Bars: x within 2e-6 (4 ulp at 2 pi), v within 1e-5 of
+    max |v| and p within 1e-4 of max |p|: the solves stop at a relres of 30
+    eps = 3.6e-6, and the measured gaps are 4.8e-7, 7.1e-7 and 4.4e-6 of
+    the same scales."""
+    import dataclasses
+
+    from isph_tpu.models import tgv as jtgv
+    from isph_tpu_torch.models import tgv as ttgv
+
+    def solver(cfg):
+        return cfg.replace(solver=dataclasses.replace(cfg.solver, precond="jacobi",
+                                                      method=method))
+
+    jsim, js = jtgv.make_tgv(32, dtype=jnp.float32)
+    jsim = dataclasses.replace(jsim, cfg=solver(jsim.cfg))
+    step = jax.jit(jsim.step_fn())
+    js = jsim.prepare(js)
+    sim, st = ttgv.make_tgv(32, dtype=torch.float32, device="cpu")
+    sim = dataclasses.replace(sim, cfg=solver(sim.cfg))
+    st = sim.prepare(st)
+    for _ in range(3):
+        js, _ = step(js)
+        st, _ = sim.step(st)
+    for name, bar in (("x", 2e-6), ("v", 1e-5), ("p", 1e-4)):
+        want = np.asarray(getattr(js, name))
+        scale = 1.0 if name == "x" else float(np.abs(want).max())
+        np.testing.assert_allclose(getattr(st, name).numpy(), want, rtol=0, atol=bar * scale,
+                                   err_msg=name)

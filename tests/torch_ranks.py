@@ -1,5 +1,6 @@
 """Rank bodies of the port's distributed tests (``tests/test_torch_distributed.py``,
-``tests/test_torch_sharded.py``).
+``tests/test_torch_sharded.py``, ``tests/test_torch_sharded_ale.py``,
+``tests/test_torch_qeq.py``).
 
 Each function runs on every rank of a group that
 ``isph_tpu_torch.parallel.mesh.spawn`` starts; it receives its ``Group``
@@ -22,7 +23,7 @@ from isph_tpu_torch.parallel.sharded import ShardedSimulation, slab
 def tgv_variant(n: int, variant: str, **kw):
     """The port's TGV simulation of one test variant (the configs of
     ``tests/test_sharded.py``); ``kw`` goes to ``make_tgv``."""
-    shift = 0.05 if variant == "shift" else 0.0
+    shift = 0.05 if variant in ("shift", "ale_shift") else 0.0
     sim, state = tgv.make_tgv(n, device="cpu", shift=shift, **kw)
     cfg = sim.cfg
     if variant == "block":
@@ -38,6 +39,8 @@ def tgv_variant(n: int, variant: str, **kw):
         state = state.replace(conc=torch.stack([c0, 0.0 * c0]))
     elif variant == "recycle":
         cfg = cfg.replace(solver=dataclasses.replace(cfg.solver, recycle_k=8))
+    elif variant in ("ale", "ale_shift"):
+        cfg = cfg.replace(backend="mls_ale")
     elif variant not in ("plain", "migration", "shift", "amg_cache"):
         raise ValueError(variant)
     return dataclasses.replace(sim, cfg=cfg), state
@@ -143,7 +146,7 @@ def distributed_cases(group, part, b, b2, x, P):
                                                        part.mask)),
                     torch.as_tensor(x[r * S:(r + 1) * S]), halo=H, group=group)
     out["matvec"] = y.numpy()
-    cg_fn = make_distributed_cg(part, group, tol=1e-10, null_space=True)
+    cg_fn = make_distributed_cg(part, group, tol=1e-10, null_space=True, device="cpu")
     xs, it = cg_fn(torch.as_tensor(b))
     out["dist_cg"] = (xs.numpy(), it)
 
@@ -191,3 +194,63 @@ def sleep(group, seconds):
     import time
 
     time.sleep(seconds)
+
+
+def migrate_history(group, fields, n, n_loc, dx0):
+    """This rank's slab of the slab-blocked TGV-``n`` ``fields`` with every
+    x0 moved by ``dx0``, BDF histories that name their particle (vprev[q] =
+    x + q, dxprev[q] = -x - q), through ``_migrate``.  Returns the slab's
+    fields, histories included, and the migration overflow."""
+    sim, _ = tgv_variant(n, "ale")
+    ss = ShardedSimulation(sim=sim, group=group, n_loc=n_loc, halo=n_loc // 2,
+                           migrate_cap=n_loc // 4)
+    st = ss.prepare(slab(interop.state_from_numpy(fields, "cpu", torch.float64), group.rank,
+                         n_loc))
+    x = sim.domain.wrap(st.x + torch.tensor([[dx0], [0.0]], dtype=st.dtype))
+    q = torch.arange(st.ale_hist.vprev.shape[0], dtype=st.dtype)[:, None, None]
+    hist = dataclasses.replace(st.ale_hist, vprev=x[None] + q, dxprev=-x[None] - q)
+    st = st.replace(x=x, ale_hist=hist)
+    st, overflow = ss._migrate(st, *ss._slab_bounds(st.dtype, st.device))
+    return interop.state_to_numpy(st), int(overflow)
+
+
+def counted_hops(group, payload):
+    """The group's counters after three +1 ring shifts, one ring pair and one
+    psum of ``payload`` on this rank."""
+    t = torch.as_tensor(payload)
+    group.reset()
+    for _ in range(3):
+        group.ring_shift(t, 1)
+    group.ring_pair(t, t)
+    group.psum(t)
+    return dict(hops=group.ring_hops, bytes=group.ring_bytes, allreduces=group.allreduces)
+
+
+def qeq_slabs(group, fields, params, box, cutoff, n_loc, halo):
+    """``tests/test_sharded.py``'s distributed QEq on this rank: the borders
+    of its slab of the crystal in ``fields`` (type ids on ``phase``), then
+    ``solve_qeq`` with the halo refresh and ``group``.  Returns (q on the
+    owned slots, s iterations, t iterations, overflow)."""
+    from isph_tpu_torch.config import KernelConfig, KernelType, NeighborConfig, SimulationConfig
+    from isph_tpu_torch.models.driver import Simulation
+    from isph_tpu_torch.physics import qeq
+    from isph_tpu_torch.state import Domain
+
+    cfg = SimulationConfig(dim=3, h=cutoff / 2.0, dt=1.0,
+                           kernel=KernelConfig(type=KernelType.WENDLAND, cut_over_h=2.0),
+                           neighbor=NeighborConfig(max_neighbors=96, cell_capacity=64))
+    sim = Simulation(cfg=cfg, domain=Domain(**box))
+    ss = ShardedSimulation(sim=sim, group=group, n_loc=n_loc, halo=halo, migrate_cap=16)
+    st = slab(interop.state_from_numpy(fields, "cpu", torch.float64), group.rank, n_loc)
+    ext, comm, geom, _, ovf = ss._borders(st, *ss._slab_bounds(st.dtype, st.device))
+    qs = qeq.QEqState.zeros(ext.x.shape[-1], device="cpu")
+    res = qeq.solve_qeq(geom, ext.phase, qeq.QEqParams(**params), qs, comm.owned, group=group,
+                        exchange=comm.refresh)
+    return (res.state.q[:n_loc].numpy(), int(res.s_info.iters), int(res.t_info.iters),
+            int(group.psum(ovf)))
+
+
+def several(group, calls):
+    """Each ``(fn, args)`` of ``calls`` on this rank in turn (one group for
+    several rank bodies); returns their results in order."""
+    return [fn(group, *args) for fn, args in calls]
