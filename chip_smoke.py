@@ -151,7 +151,13 @@ Phases (each raises on failure; the script then exits non-zero):
    0.8 dx the fluid does, and two runs agree bit for bit); the random
    stress for one step on phase 4's state (the tensor symmetric and
    traceless, the force linear in sqrt(kBT), the noise a function of
-   (seed, step) alone);
+   (seed, step) alone, the step's time beside its draw's); JAX's threefry
+   stream (utils/threefry.py) on the card against the CPU's for a
+   (2, 2, 65536) and a (3, 3, 703,040) draw: the 32- and 64-bit words
+   bitwise, the f32 and f64 normals within 2 ulp, each draw timed; three
+   f64 TGV-32 steps with the random stress (seed 7, kbt 0.01) against the
+   JAX package's CPU values (RS_JAX): counts equal, KE and vmax within
+   1e-9 relative;
 20. the MLS/ALE golden: flow-past-cylinder-2d-mls at n = 32, f64, 20
    steps through Simulation.run, held to tests/test_decks.py's bars
    (finite fields, Poisson relres < 1e-6, no overflow, Cd within 2% of
@@ -219,7 +225,12 @@ Phases (each raises on failure; the script then exits non-zero):
    sharded steps against the one-device steps: iterations equal, fields
    within 1e-9 after matching by position; (c) bench.py's
    bench_sharded_overhead cell (TGV-128^2 f32 Jacobi, K = 32, halo 640):
-   sharded_overhead_ratio, both steps timed with CUDA events;
+   sharded_overhead_ratio, both steps timed with CUDA events; (e)
+   scripts/weak_scaling.py's world-size-1 layout (TGV-32 f64, h_factor
+   1.6, n_loc = halo = 1536): three steps against JAX's sharded step
+   (WEAK_JAX), Helmholtz counts equal, Poisson counts from step 2 (step
+   1's right-hand side is round-off; its count is logged beside JAX's),
+   KE and vmax within 1e-9 relative;
 27. the rest of the distributed layer at world size 1 on NCCL, in this
    process, the launch counters set to 0 around each part: (a) three
    steps of phase 21's n = 256 cylinder (f64, K = 48, fully periodic)
@@ -1958,12 +1969,87 @@ def phase_micelle(dev):
         raise RuntimeError("the bond forces did not move the fluid")
 
 
+# the JAX package's f64 TGV-32 steps with the random stress (kbt 0.01,
+# seed 7; make_tgv's defaults, the AMG cache on) on the CPU: (Poisson
+# iterations, Helmholtz iterations, kinetic energy, vmax) after steps 1-3
+RS_KBT, RS_SEED = 0.01, 7
+RS_JAX = ((35, 30, 0.4535154917531848, 0.4208780812962685),
+          (35, 30, 0.5171041262920552, 0.3981036669602701),
+          (35, 30, 0.5607621128679595, 0.4707916561620587))
+RS_DRAWS = ((2, 2, 65536), (3, 3, 703_040))  # TGV-256^2's draw; the pore deck's N (phase 18)
+
+
+def _ulps(a, b):
+    """Largest distance of two float tensors in units in the last place."""
+    it = torch.int32 if a.dtype == torch.float32 else torch.int64
+
+    def ordered(x):
+        i = x.contiguous().view(it).long()
+        return torch.where(i < 0, torch.iinfo(it).min - i, i)
+
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def _threefry_on_card(dev):
+    """Phase 19c (noise): JAX's threefry stream on the card against the
+    CPU's, for the TGV-256^2 draw and a 3-D draw of the pore deck's size:
+    the 32- and 64-bit words bitwise, the normals within 2 ulp in f32 and
+    f64.  Returns the f32 TGV-256^2 draw's ms on the card (CUDA events)."""
+    from isph_tpu_torch.utils import threefry
+
+    key = threefry.fold_in(threefry.prng_key(RS_SEED), 12)
+    ms = {}
+    for shape in RS_DRAWS:
+        words = all(torch.equal(threefry.random_bits(key, w, shape, dev).cpu(),
+                                threefry.random_bits(key, w, shape, "cpu")) for w in (32, 64))
+        ulps = {str(dt)[6:]: _ulps(threefry.normal(key, shape, dt, dev).cpu(),
+                                   threefry.normal(key, shape, dt, "cpu"))
+                for dt in (torch.float32, torch.float64)}
+        for dt in (torch.float32, torch.float64):
+            ms[(shape, dt)] = _event_ms(lambda: threefry.normal(key, shape, dt, dev))
+        _log(f"random stress: threefry {shape}: card words equal the CPU's bitwise {words}; "
+             f"normals within {ulps} ulp of the CPU's; draw "
+             f"{ms[(shape, torch.float32)]:.3f} ms f32, {ms[(shape, torch.float64)]:.3f} ms "
+             f"f64 (CUDA events, median of 5)")
+        if not words or max(ulps.values()) > 2:
+            raise RuntimeError(f"the card's threefry draw departs from the CPU's: {shape}")
+    return ms[(RS_DRAWS[0], torch.float32)]
+
+
+def _random_stress_against_jax(dev):
+    """Phase 19c (steps): three f64 TGV-32 steps with the random stress on
+    the card against the JAX package's CPU values (RS_JAX): Poisson and
+    Helmholtz counts equal, KE and vmax within 1e-9 relative."""
+    from isph_tpu_torch.config import RandomStressConfig
+    from isph_tpu_torch.models import tgv
+
+    sim, st = tgv.make_tgv(32, device=dev)
+    sim = dataclasses.replace(sim, cfg=sim.cfg.replace(
+        rs=RandomStressConfig(enabled=True, kbt=RS_KBT, seed=RS_SEED)))
+    st = sim.prepare(st)
+    for k, (jp, jh, jke, jv) in enumerate(RS_JAX):
+        st, aux = sim.step(st)
+        p, h = int(aux.poisson_iters), int(aux.helmholtz_iters)
+        ke, vmax = float(aux.status.kinetic_energy), float(aux.status.vmax)
+        d_ke, d_v = abs(ke / jke - 1.0), abs(vmax / jv - 1.0)
+        _log(f"random stress: TGV-32 f64 step {k + 1} (seed {RS_SEED}, kbt {RS_KBT}): "
+             f"(poisson, helmholtz) ({p}, {h}), JAX ({jp}, {jh}); KE {ke!r} (rel {d_ke:.2e}), "
+             f"vmax {vmax!r} (rel {d_v:.2e})")
+        if (p, h) != (jp, jh) or max(d_ke, d_v) > 1e-9:
+            raise RuntimeError(f"the card's random-stress step {k + 1} departs from JAX's")
+
+
 def phase_random_stress(dev, tgv_sim, tgv_state):
     """Phase 19c: the random stress for one step on phase 4's TGV-256^2 f32
     state: the tensor symmetric and traceless, the force linear in
-    sqrt(kBT), the noise a function of (seed, step) alone."""
+    sqrt(kBT), the noise a function of (seed, step) alone; JAX's threefry
+    draw on the card against the CPU's, and three f64 TGV-32 steps against
+    JAX's values."""
     from isph_tpu_torch.config import RandomStressConfig
     from isph_tpu_torch.physics import fluctuation as fl
+
+    draw_ms = _threefry_on_card(dev)
+    _random_stress_against_jax(dev)
 
     seed, step = 7, int(tgv_state.step)
     cfg1 = tgv_sim.cfg.replace(rs=RandomStressConfig(enabled=True, kbt=1.0, seed=seed))
@@ -1983,7 +2069,11 @@ def phase_random_stress(dev, tgv_sim, tgv_state):
     # the step itself at a gentler kBT (1e-6 in the deck's units)
     sim = dataclasses.replace(tgv_sim, cfg=cfg1.replace(
         rs=RandomStressConfig(enabled=True, kbt=1e-6, seed=seed)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     out, aux = sim.run(tgv_state, 1)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0)
     base, _ = tgv_sim.run(tgv_state, 1)
     dv = float((out.v - base.v).abs().max())
     _log(f"random stress: TGV-256^2 f32 step {step}, seed {seed}: noise std "
@@ -1991,7 +2081,8 @@ def phase_random_stress(dev, tgv_sim, tgv_state):
          f"{other}; S symmetric to {sym:.1e}, trace {trace:.1e} of max |S|; "
          f"f(kbt 4) - f0 against 2 (f(kbt 1) - f0): {lin:.3e} relative; one step with rs "
          f"(kbt 1e-6): "
-         f"poisson_iters {int(aux.poisson_iters)}, max |v - v without rs| {dv:.4e}")
+         f"poisson_iters {int(aux.poisson_iters)}, max |v - v without rs| {dv:.4e}; the "
+         f"step {step_ms:.1f} ms, its (2, 2, 65536) f32 draw {draw_ms:.3f} ms")
     if not (same and other and sym == 0.0 and trace <= 1e-6 and lin <= 1e-6):
         raise RuntimeError("the random stress failed a check")
     if not (bool(torch.isfinite(out.v).all()) and dv > 0.0):
@@ -2719,6 +2810,47 @@ def _sharded_exact(dev, group):
         raise RuntimeError(f"sharded step differs from the one-device step: {diff}")
 
 
+# the JAX package's sharded TGV-32 f64 steps (h_factor 1.6) at world size 1
+# in scripts/weak_scaling.py's layout (n_loc = halo = 1536, migrate_cap 192)
+# on the CPU: (Poisson iterations, Helmholtz iterations, kinetic energy,
+# vmax) after steps 1-3
+WEAK_JAX = ((35, 10, 0.08750189298603842, 0.09345186972415728),
+            (25, 10, 0.07786882414824536, 0.08836063442034693),
+            (30, 10, 0.06929584582344786, 0.08350520390057886))
+
+
+def _sharded_weak(dev, group):
+    """(e) scripts/weak_scaling.py's world-size-1 layout, the halo as wide
+    as the slab: three f64 TGV-32 steps against JAX's sharded step
+    (WEAK_JAX).  Helmholtz counts equal at every step, Poisson counts from
+    step 2, KE and vmax within 1e-9 relative.  Step 1's Poisson count is
+    logged beside JAX's: the start is divergence-free, its right-hand side
+    is round-off, and the count follows its last bits (the CPU tests hold
+    the port's first solve to JAX's count on JAX's right-hand side)."""
+    from isph_tpu_torch.models import tgv
+    from isph_tpu_torch.parallel.sharded import ShardedSimulation, partition_state, slab
+
+    sim, state = tgv.make_tgv(32, h_factor=1.6, device=dev)
+    n_loc = 1536
+    ss = ShardedSimulation(sim=sim, group=group, n_loc=n_loc, halo=n_loc, migrate_cap=192)
+    st = ss.prepare(slab(partition_state(state, sim.domain, 1, n_loc), 0, n_loc))
+    t0 = time.perf_counter()
+    for k, (jp, jh, jke, jv) in enumerate(WEAK_JAX):
+        st, aux = ss.step(st)
+        p, h = int(aux.poisson_iters), int(aux.helmholtz_iters)
+        ke, vmax = float(aux.status.kinetic_energy), float(aux.status.vmax)
+        d_ke, d_v = abs(ke / jke - 1.0), abs(vmax / jv - 1.0)
+        _log(f"sharded weak layout: TGV-32 f64 world 1, n_loc = halo = {n_loc}: step {k + 1}: "
+             f"(poisson, helmholtz) ({p}, {h}), JAX ({jp}, {jh}); poisson relres "
+             f"{float(aux.poisson_relres):.3e}; KE rel {d_ke:.2e}, vmax rel {d_v:.2e}")
+        if h != jh or (k > 0 and p != jp) or max(d_ke, d_v) > 1e-9:
+            raise RuntimeError(f"the weak-scaling layout's step {k + 1} departs from JAX's")
+        if int(aux.neighbor_overflow) != 0:
+            raise RuntimeError("the weak-scaling layout overflowed")
+    torch.cuda.synchronize()
+    _log(f"sharded weak layout: three steps {time.perf_counter() - t0:.3f} s")
+
+
 def _event_ms(fn, reps=5):
     """Median ms of ``fn()`` between two CUDA events, after one warm call."""
     fn()
@@ -2797,9 +2929,11 @@ def phase_sharded(dev, flush, large):
         kd = _sharded_kernels(flush, ss, st)
         del sim, state, ss, st, aux
         torch.cuda.empty_cache()
-        # (b) exactness; (c) the reference's yardstick
+        # (b) exactness; (c) the reference's yardstick; (e) the weak-scaling
+        # layout against JAX's sharded step
         _sharded_exact(dev, group)
         _sharded_overhead_128(dev, group)
+        _sharded_weak(dev, group)
     finally:
         mesh.close_mesh()
     return dict(launches=launches, **kd)

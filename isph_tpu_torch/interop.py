@@ -8,13 +8,15 @@ No function imports jax: the caller converts JAX arrays to numpy
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
 
 from isph_tpu_torch import config as C
+from isph_tpu_torch.ops.ell import ELL
 from isph_tpu_torch.physics.ale import ALEHistory
+from isph_tpu_torch.solvers.amg import AMGCache, DenseTransfer, FactoredTransfer
 from isph_tpu_torch.solvers.krylov import RecycleSpace
 from isph_tpu_torch.state import ParticleState
 
@@ -50,6 +52,54 @@ def _recycle_space(arr, device, dtype: torch.dtype) -> RecycleSpace:
     return RecycleSpace(U=U, C=C)
 
 
+def _amg_cache(arr: Mapping, device, dtype: torch.dtype) -> Optional[AMGCache]:
+    """The port's ``AMGCache`` from JAX's as a mapping of its fields
+    (``dataclasses.asdict`` of the JAX ``AMGCache``): the coarse ELLs, whose
+    slot formats are built here, the transfers (``oh`` of a dense one,
+    ``axes_oh`` and ``shape`` of a factored one), the coarse smoother
+    diagonals, the coarse inverse and the grid shapes.  ``aggs`` is not
+    read: the transfers carry the aggregates.  A ``coarse_inv`` of zeros is
+    the seed of JAX's ``prepare`` (``amg_cache_zeros``), no hierarchy: it
+    maps to None, and the port builds at the state's first solve."""
+    if not np.asarray(arr["coarse_inv"]).any():
+        return None
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(np.array(a), dtype=dt, device=device)
+
+    levels = tuple(ELL(diag=t(lv["diag"]), vals=t(lv["vals"]), mask=t(lv["mask"]),
+                       idx=t(lv["idx"], torch.int32))
+                   for lv in arr["coarse_levels"])
+    transfers = tuple(
+        DenseTransfer(oh=t(tr["oh"])) if "oh" in tr else
+        FactoredTransfer(axes_oh=tuple(t(a) for a in tr["axes_oh"]),
+                         shape=tuple(int(n) for n in tr["shape"]))
+        for tr in arr["transfers"])
+    return AMGCache(coarse_levels=levels, transfers=transfers,
+                    coarse_dinvs=tuple(t(a) for a in arr["coarse_dinvs"]),
+                    coarse_inv=t(arr["coarse_inv"]),
+                    grid_shapes=tuple(tuple(int(n) for n in g) for g in arr["grid_shapes"]))
+
+
+def _amg_cache_to_numpy(cache: AMGCache) -> dict:
+    """What JAX's ``AMGCache`` is built from, as numpy: its fields, with
+    ``aggs`` (each level's aggregate of every row, int32) read off the
+    one-hot transfers, and each ``ELL`` as its four arrays."""
+    def np_(a):
+        return a.detach().cpu().numpy()
+
+    return dict(
+        coarse_levels=[dict(diag=np_(lv.diag), vals=np_(lv.vals), mask=np_(lv.mask),
+                            idx=np_(lv.idx).astype(np.int32)) for lv in cache.coarse_levels],
+        aggs=[np_(tr.aggregates()).astype(np.int32) for tr in cache.transfers],
+        transfers=[{"oh": np_(tr.oh)} if isinstance(tr, DenseTransfer) else
+                   {"axes_oh": [np_(a) for a in tr.axes_oh], "shape": tuple(tr.shape)}
+                   for tr in cache.transfers],
+        coarse_dinvs=[np_(a) for a in cache.coarse_dinvs],
+        coarse_inv=np_(cache.coarse_inv),
+        grid_shapes=tuple(tuple(g) for g in cache.grid_shapes))
+
+
 def state_from_numpy(fields: Mapping[str, np.ndarray], device, dtype: torch.dtype) -> ParticleState:
     """Port state from a JAX state's non-None fields as numpy arrays
     (same names, same layouts).  Floating fields are cast to ``dtype``;
@@ -57,11 +107,10 @@ def state_from_numpy(fields: Mapping[str, np.ndarray], device, dtype: torch.dtyp
     and ``valid`` bool.  ``ale_hist`` is a mapping of the ``ALEHistory``
     fields (``vprev``, ``dxprev``, ``dts``, ``nprev``) as numpy arrays;
     ``solver_cache`` a mapping with the recycle space's ``U`` and ``C``, or
-    the two stacked.  ``amg_cache`` is left behind: the port builds its AMG
-    hierarchy at the state's first solve.  A field that a JAX
-    ``ParticleState`` does not have raises."""
-    names = {f.name for f in dataclasses.fields(ParticleState)} - {"amg_cache"}
-    fields = {k: v for k, v in fields.items() if k != "amg_cache"}
+    the two stacked.  ``amg_cache`` is a mapping of the JAX ``AMGCache``'s
+    fields (:func:`_amg_cache`; None for JAX's zero seed).  A field that a
+    JAX ``ParticleState`` does not have raises."""
+    names = {f.name for f in dataclasses.fields(ParticleState)}
     extra = sorted(set(fields) - names)
     if extra:
         raise ValueError(f"not ParticleState fields: {extra}")
@@ -74,6 +123,8 @@ def state_from_numpy(fields: Mapping[str, np.ndarray], device, dtype: torch.dtyp
                                      for k in _HIST_FIELDS})
         elif name == "solver_cache":
             kw[name] = _recycle_space(arr, device, dtype)
+        elif name == "amg_cache":
+            kw[name] = _amg_cache(arr, device, dtype)
         else:
             kw[name] = _tensor(name, arr, device, dtype)
     return ParticleState(**kw)
@@ -81,16 +132,18 @@ def state_from_numpy(fields: Mapping[str, np.ndarray], device, dtype: torch.dtyp
 
 def state_to_numpy(state: ParticleState) -> dict:
     """The state's non-None fields as numpy arrays, ``ale_hist`` and
-    ``solver_cache`` as dicts of their fields: what :func:`state_from_numpy`
+    ``solver_cache`` as dicts of their fields, ``amg_cache`` as
+    :func:`_amg_cache_to_numpy` gives it: what :func:`state_from_numpy`
     takes, and what the JAX package's ``ParticleState``/``ALEHistory``/
-    ``RecycleSpace`` are built from.  The AMG hierarchy cache is left
-    behind."""
+    ``RecycleSpace``/``AMGCache`` are built from."""
     out = {}
     for f in dataclasses.fields(state):
         val = getattr(state, f.name)
-        if val is None or f.name == "amg_cache":
+        if val is None:
             continue
-        if f.name == "ale_hist":
+        if f.name == "amg_cache":
+            out[f.name] = _amg_cache_to_numpy(val)
+        elif f.name == "ale_hist":
             out[f.name] = {k: getattr(val, k).detach().cpu().numpy() for k in _HIST_FIELDS}
         elif f.name == "solver_cache":
             out[f.name] = {k: getattr(val, k).detach().cpu().numpy() for k in val._fields}

@@ -110,9 +110,9 @@ class Simulation:
         solute transport -> random stress -> surface tension -> NS projection
         (Helmholtz, Poisson, correct) -> advance -> shifting -> status.
         ``cfg.ns.enabled`` is carried but not read, as in the JAX step.  The
-        random stress draws its noise from a generator seeded by
-        (``cfg.rs.seed``, step): not JAX's threefry stream
-        (:mod:`~isph_tpu_torch.physics.fluctuation`).  The "mls_ale" backend
+        random stress draws JAX's own noise, ``normal(fold_in(PRNGKey(
+        cfg.rs.seed), step))``, computed in torch
+        (:mod:`~isph_tpu_torch.utils.threefry`).  The "mls_ale" backend
         follows the ALE dispatch instead (:meth:`_step_mls_ale`).
 
         ``group`` (JAX's ``axis_name``) all-reduces the solves' reductions

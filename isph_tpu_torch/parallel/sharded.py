@@ -382,7 +382,8 @@ class ShardedSimulation:
             ext = ext.replace(conc=comm.refresh(conc))
 
         # random stress / surface tension: local pair operations over the
-        # exchanged halos; each rank draws its own noise stream
+        # exchanged halos; each rank folds its index into JAX's step key,
+        # rank 0 included, as JAX folds in the device index
         if cfg.rs.enabled:
             step = int(ext.step) if ext.step is not None else 0
             noise = fluctuation.random_stress_noise(cfg.rs.seed, step, ext, rank=group.rank)

@@ -8,14 +8,18 @@ sqrt(2 kBT nu rho / dt / V_i) (functor_random_stress.h:52-75, typedef uses
 FunctorOuterDivergenceAntiSymmetric pair_isph_corrected.cpp:130-132).
 
 The standard-normal draw is an argument of both functions.  The step draws
-it with :func:`random_stress_noise`: a ``torch.Generator`` on the state's
-device seeded by a fixed function of (``cfg.rs.seed``, step), so a step's
-noise depends on nothing else and a resumed run draws what an uninterrupted
-one does.  It is not the JAX package's threefry stream, which torch cannot
-reproduce; the parity tests feed JAX's draw to both packages.
+it with :func:`random_stress_noise`, JAX's own stream: the threefry2x32
+words of ``fold_in(PRNGKey(cfg.rs.seed), step)`` (the rank folded in once
+more under a slab decomposition), computed in plain torch ops by
+:mod:`isph_tpu_torch.utils.threefry`.  The words equal JAX's bit for bit on
+the CPU and on the card; the normals are within a few ulp of JAX's (XLA's
+``erf_inv``).  A step's noise depends on (seed, step, rank) alone, so a
+resumed run draws what an uninterrupted one does.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -24,45 +28,20 @@ from isph_tpu_torch.state import Kind, ParticleState, Precomputed
 from isph_tpu_torch.ops import corrected as ops
 from isph_tpu_torch.ops.corrected import ANTISYMMETRIC, PairFilter
 from isph_tpu_torch.ops.neighbors import PairGeom
+from isph_tpu_torch.utils import threefry
 from isph_tpu_torch.utils.fsum import sqrt_rn
 
 
-_M64 = (1 << 64) - 1
-
-
-def _splitmix(z: int) -> int:
-    z = z + 0x9E3779B97F4A7C15 & _M64
-    z = (z ^ (z >> 30)) * 0xBF58476D1CE4E5B9 & _M64
-    z = (z ^ (z >> 27)) * 0x94D049BB133111EB & _M64
-    return z ^ (z >> 31)
-
-
-def noise_seed(seed: int, step: int, rank: int = 0) -> int:
-    """The generator seed of step ``step`` under ``cfg.rs.seed``: the two
-    32-bit words side by side, mixed by splitmix64's finalizer.  The
-    finalizer is a bijection of 64-bit words, so distinct pairs get distinct
-    seeds, and it spreads both words over the low 32 bits, all that a CPU
-    generator keeps.
-
-    Under a slab decomposition each rank draws for its own extended slab,
-    as JAX folds the device index into its key (``fold_in(key, me)``): a
-    rank r > 0 mixes its index into the step's seed once more, so the
-    ranks' streams differ, each is fixed by (seed, step, rank), and rank 0
-    (the one-device run too) keeps the one-device stream."""
-    z = _splitmix(((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF))
-    if rank:
-        z = _splitmix(z ^ ((rank & 0xFFFFFFFF) * 0xD1B54A32D192ED03 & _M64))
-    return z
-
-
 def random_stress_noise(seed: int, step: int, state: ParticleState,
-                        rank: int = 0) -> torch.Tensor:
-    """(D, D, N) standard-normal draw of step ``step`` (on rank ``rank``
-    of a slab decomposition) on the state's device and dtype."""
-    gen = torch.Generator(device=state.device)
-    gen.manual_seed(noise_seed(seed, step, rank))
-    return torch.randn((state.dim, state.dim, state.n), generator=gen,
-                       dtype=state.dtype, device=state.device)
+                        rank: Optional[int] = None) -> torch.Tensor:
+    """(D, D, N) standard-normal draw of step ``step`` on the state's device
+    and dtype: JAX's ``normal(fold_in(PRNGKey(seed), step))``, and under a
+    slab decomposition ``fold_in`` of that key with the rank, rank 0
+    included, as JAX's sharded step folds in the device index."""
+    key = threefry.fold_in(threefry.prng_key(seed), step)
+    if rank is not None:
+        key = threefry.fold_in(key, rank)
+    return threefry.normal(key, (state.dim, state.dim, state.n), state.dtype, state.device)
 
 
 def random_stress_tensor(noise: torch.Tensor, state: ParticleState) -> torch.Tensor:

@@ -170,6 +170,10 @@ class DenseTransfer:
     def prolong(self, xc: torch.Tensor) -> torch.Tensor:
         return xc @ self.oh
 
+    def aggregates(self) -> torch.Tensor:
+        """(N,) the aggregate of every fine row (JAX's ``AMG.aggs`` entry)."""
+        return self.oh.argmax(dim=0)
+
 
 @dataclasses.dataclass
 class FactoredTransfer:
@@ -206,6 +210,12 @@ class FactoredTransfer:
         for a in range(self.shape[0]):
             out = out + ox[a] * ((t[a] @ oz) * oy).sum(dim=0)
         return out
+
+    def aggregates(self) -> torch.Tensor:
+        """(N,) the aggregate of every fine row, sum_d c_d stride_d (JAX's
+        ``AMG.aggs`` entry)."""
+        return sum(int(st) * oh.argmax(dim=0)
+                   for st, oh in zip(_strides(self.shape), self.axes_oh))
 
 
 def make_transfer(x: torch.Tensor, grid: CoarseGrid, dtype: torch.dtype, budget: int):

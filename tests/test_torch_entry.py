@@ -36,8 +36,9 @@ F64 = torch.float64
 def _port(jsim, js):
     cfg = interop.config_from_dict(dataclasses.asdict(jsim.cfg))
     d = jsim.domain
-    fields = {f.name: np.asarray(getattr(js, f.name)) for f in dataclasses.fields(js)
-              if getattr(js, f.name) is not None and f.name != "amg_cache"}
+    # the AMG cache crosses as its fields (a zero seed maps to None)
+    fields = {f.name: dataclasses.asdict(v) if f.name == "amg_cache" else np.asarray(v)
+              for f in dataclasses.fields(js) if (v := getattr(js, f.name)) is not None}
     return (Simulation(cfg=cfg, domain=Domain(lo=d.lo, hi=d.hi, periodic=d.periodic)),
             interop.state_from_numpy(fields, "cpu", F64))
 

@@ -4,10 +4,10 @@ f64: the random stress of fluctuating hydrodynamics
 polymer bond forces (``physics/bonds.py``), and the uncorrected operator
 variants of ``ops/corrected.py`` against ``tests/oracle.py``.
 
-The noise: JAX draws from threefry and torch cannot reproduce that stream,
-so the parity tests feed JAX's own draw to both packages; the port's step
-draws from a generator seeded by (seed, step), which is checked for its
-determinism on its own.
+The noise: the port draws JAX's own threefry stream
+(``isph_tpu_torch/utils/threefry.py``, held to ``jax.random`` in
+``tests/test_torch_noise.py``); the tensor and force tests feed both
+packages JAX's draw, and the steps draw their own from the seed.
 
 Tolerances: forces and tensors within 1e-12 of the largest magnitude of
 JAX's array; a full step with the random stress within 1e-9 absolute with
@@ -107,8 +107,12 @@ def test_random_stress_tensor_and_force_match_jax_on_its_draw():
 
 
 def test_noise_depends_only_on_seed_and_step():
-    """Same (seed, step): bitwise equal, whatever the global generator did
-    in between; another step or seed: different numbers."""
+    """The step's draw is ``normal`` of JAX's key ``fold_in(PRNGKey(seed),
+    step)``: the same (seed, step) is bitwise equal whatever the global
+    generator did in between, and the keys of a grid of seeds and steps
+    are all distinct."""
+    from isph_tpu_torch.utils import threefry
+
     _, st = tgv.make_tgv(8, device="cpu")
     a = fluctuation.random_stress_noise(7, 12, st)
     torch.manual_seed(1234)
@@ -116,43 +120,42 @@ def test_noise_depends_only_on_seed_and_step():
     b = fluctuation.random_stress_noise(7, 12, st)
     assert a.shape == (2, 2, st.n) and a.dtype == st.dtype
     assert torch.equal(a, b)
+    assert torch.equal(a, threefry.normal(threefry.fold_in(threefry.prng_key(7), 12),
+                                          (2, 2, st.n), st.dtype))
     assert not torch.equal(a, fluctuation.random_stress_noise(7, 13, st))
     assert not torch.equal(a, fluctuation.random_stress_noise(8, 12, st))
-    seeds = {fluctuation.noise_seed(s, k) for s in range(4) for k in range(64)}
-    assert len(seeds) == len({x & 0xFFFFFFFF for x in seeds}) == 4 * 64
+    keys = {threefry.fold_in(threefry.prng_key(s), k) for s in range(4) for k in range(64)}
+    assert len(keys) == 4 * 64
     assert abs(float(a.mean())) < 0.2 and abs(float(a.std()) - 1.0) < 0.2
 
 
 def test_ranks_draw_their_own_deterministic_noise():
-    """Under a slab decomposition each rank draws from (seed, step, rank),
-    as JAX folds the device index into its key: rank 0 keeps the one-device
-    stream, each rank's draw repeats bit for bit, and the ranks' draws
-    differ, also in the low 32 bits of their seeds."""
+    """Under a slab decomposition rank r draws from ``fold_in`` of the
+    step's key with r, as JAX's sharded step folds in the device index:
+    rank 0 too, so no rank keeps the one-device stream; each rank's draw
+    repeats bit for bit, and the ranks' draws and keys differ."""
+    from isph_tpu_torch.utils import threefry
+
     _, st = tgv.make_tgv(8, device="cpu")
     base = fluctuation.random_stress_noise(7, 12, st)
-    assert torch.equal(fluctuation.random_stress_noise(7, 12, st, rank=0), base)
     draws = [fluctuation.random_stress_noise(7, 12, st, rank=r) for r in range(4)]
+    assert not torch.equal(draws[0], base)
     for r in range(4):
         assert torch.equal(draws[r], fluctuation.random_stress_noise(7, 12, st, rank=r))
         for q in range(r):
             assert not torch.equal(draws[r], draws[q])
-    seeds = {fluctuation.noise_seed(s, k, r) for s in range(3) for k in range(16)
-             for r in range(8)}
-    assert len(seeds) == len({x & 0xFFFFFFFF for x in seeds}) == 3 * 16 * 8
+    keys = {threefry.fold_in(threefry.fold_in(threefry.prng_key(s), k), r)
+            for s in range(3) for k in range(16) for r in range(8)}
+    assert len(keys) == 3 * 16 * 8
 
 
-def test_step_with_random_stress_matches_jax_on_its_draw(monkeypatch):
-    """Two steps of Simulation.step with rs on, the port's noise replaced by
-    JAX's draw of the same (seed, step): the branch sits between transport
-    and the projection in both packages, so v, p and the iteration counts
-    agree; then the resumed run draws what the uninterrupted one does."""
+def test_step_with_random_stress_matches_jax_on_its_draw():
+    """Two steps of Simulation.step with rs on, each package drawing its
+    own noise from (seed, step), the port through its copy of JAX's
+    threefry stream: the branch sits between transport and the projection
+    in both packages, so v, p and f and the iteration counts agree."""
     jsim, js = _tgv_case()
     sim, st = _port(jsim, js)
-
-    def jax_noise(seed, step, state):
-        return torch.from_numpy(_jax_draw(seed, step, js)[1])
-
-    monkeypatch.setattr(fluctuation, "random_stress_noise", jax_noise)
     step = jax.jit(jsim.step)
     for k in range(2):
         js, jaux = step(js)

@@ -193,9 +193,9 @@ def test_sharded_tgv_matches_jax_sharded_step(jax_tgv4, four_ranks):
 
 
 @pytest.fixture(scope="module")
-def two_ranks():
-    """One 2-rank group: the overflow case and tests/test_sharded.py's
-    variants at TGV-16."""
+def two_ranks(jax_weak):
+    """One 2-rank group: the overflow case, tests/test_sharded.py's
+    variants at TGV-16 and the 2-rank weak-scaling layout."""
     sim, st, k = _cluster_state()
     n_loc = 176
     cl = _fields(partition_state(st, sim.domain, 2, n_loc))
@@ -207,6 +207,7 @@ def two_ranks():
         sim, state = torch_ranks.tgv_variant(16, name, **kw)
         f = _fields(partition_state(state, sim.domain, 2, 192))
         cases.append((name, f, 16, name, kw, 192, 96, 32, steps, opts))
+    cases += _weak_cases(jax_weak, 2)
     return mesh.spawn(torch_ranks.sharded_steps, 2, cases), k
 
 
@@ -273,11 +274,11 @@ def test_two_rank_variant_matches_single_device(two_ranks, name, kw, steps, opts
 
 
 @pytest.fixture(scope="module")
-def one_rank():
+def one_rank(jax_weak):
     sim, state = tgv.make_tgv(16, h_factor=1.6, device="cpu")
     f = _fields(partition_state(state, sim.domain, 1, 320))
     cases = [("tgv", f, 16, "plain", dict(h_factor=1.6), 320, 160, 32, 3,
-              dict(amg_cache=True))]
+              dict(amg_cache=True))] + _weak_cases(jax_weak, 1)
     return mesh.spawn(torch_ranks.sharded_steps, 1, cases)
 
 
@@ -314,3 +315,95 @@ def test_sharded_variant_at_full_size(name):
     g, w = _by_position(got, fields), _by_position(_fields(ref), fields)
     for k in fields:
         np.testing.assert_allclose(g[k], w[k], rtol=0, atol=1e-6, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# scripts/weak_scaling.py's layouts (halo = n_loc) at world sizes 1 and 2
+# ---------------------------------------------------------------------------
+
+WEAK = ((1, 32), (2, 45))  # (ranks, lattice)
+
+
+def _weak_layout(n_dev, n_lat):
+    """(n_loc, halo, migrate_cap) as scripts/weak_scaling.py sizes them."""
+    n_loc = ((int((n_lat * n_lat + n_dev - 1) // n_dev * 1.5) + 127) // 128) * 128
+    return n_loc, n_loc, max(32, n_loc // 8)
+
+
+@pytest.fixture(scope="module")
+def jax_weak():
+    """JAX's sharded TGV steps (h_factor 1.6) on each weak-scaling layout:
+    the partitioned start, the fields and auxes after three steps, and each
+    device's right-hand side of the first Poisson solve."""
+    import jax
+    from jax.sharding import Mesh
+
+    from isph_tpu.models import tgv as jtgv
+    from isph_tpu.parallel import sharded as jsh
+
+    plain = jsh.ShardedSimulation._dist_solve
+    rhs = {}
+
+    def solve(self, cfg, A, b, x0, comm, **kw):
+        if kw.get("amg") is not None:
+            jax.debug.callback(lambda me, v: rhs.setdefault(int(me), np.array(v)),
+                               jax.lax.axis_index(comm.axis), b)
+        return plain(self, cfg, A, b, x0, comm, **kw)
+
+    out = {}
+    jsh.ShardedSimulation._dist_solve = solve
+    try:
+        for n_dev, n_lat in WEAK:
+            sim, state = jtgv.make_tgv(n_lat, h_factor=1.6)
+            n_loc, halo, mcap = _weak_layout(n_dev, n_lat)
+            ss = jsh.ShardedSimulation(
+                sim=sim, mesh=Mesh(np.asarray(jax.devices()[:n_dev]), ("dp",)), n_loc=n_loc,
+                halo=halo, migrate_cap=mcap)
+            ps = ss.prepare(jsh.partition_state(state, sim.domain, n_dev, n_loc))
+            fields0 = _jax_fields(ps)
+            step = jax.jit(ss.make_step(ps))
+            rhs.clear()
+            auxes = []
+            for _ in range(3):
+                ps, aux = step(ps)
+                auxes.append((int(aux.poisson_iters), int(aux.helmholtz_iters)))
+            first = [rhs[d] for d in range(n_dev)]  # written at the first step's solve
+            out[n_dev] = (fields0, _jax_fields(ps), auxes, first)
+    finally:
+        jsh.ShardedSimulation._dist_solve = plain
+    return out
+
+
+def _weak_cases(jax_weak, n_dev):
+    """The port's cases on one layout: three steps of its own, and the first
+    step again with each rank's first Poisson right-hand side taken from
+    JAX's."""
+    n_lat = dict(WEAK)[n_dev]
+    fields0, _, _, first = jax_weak[n_dev]
+    n_loc, halo, mcap = _weak_layout(n_dev, n_lat)
+    case = ("weak", fields0, n_lat, "plain", dict(h_factor=1.6), n_loc, halo, mcap, 3, {})
+    return [case, ("weak_jax_rhs",) + case[1:8] + (1, dict(first_rhs=first))]
+
+
+@pytest.mark.parametrize("n_dev, n_lat", WEAK, ids=[f"{d}-rank-{n}" for d, n in WEAK])
+def test_weak_scaling_layout_matches_jax_sharded_step(jax_weak, one_rank, two_ranks, n_dev,
+                                                     n_lat):
+    """scripts/weak_scaling.py's layout, halo as wide as the slab: after
+    three steps x, v and p lie within 1e-9 of JAX's, the Helmholtz counts
+    are equal at every step and the Poisson counts from step 2.  The first
+    step starts divergence-free, so its Poisson right-hand side is round-off
+    (|b| ~ 1e-16), and the AMG GMRES count follows its last bits: given
+    JAX's own right-hand side, the port's first solve takes JAX's count,
+    and the step's fields stay within 1e-9."""
+    _, jfinal, jaux, first = jax_weak[n_dev]
+    res = one_rank if n_dev == 1 else two_ranks[0]
+    own = [(a["poisson_iters"], a["helmholtz_iters"]) for a in res[0]["weak"][1]]
+    assert [h for _, h in own] == [h for _, h in jaux]
+    assert [p for p, _ in own][1:] == [p for p, _ in jaux][1:]
+    assert max(float(np.abs(b).max()) for b in first) < 1e-14  # round-off
+    assert res[0]["weak_jax_rhs"][1][0]["poisson_iters"] == jaux[0][0]
+    got = interop.gather_slabs([r["weak"][0] for r in res])
+    assert got["valid"].sum() == jfinal["valid"].sum() == n_lat * n_lat
+    g, w = _by_position(got, ("x", "v", "p")), _by_position(jfinal, ("x", "v", "p"))
+    for k in ("x", "v", "p"):
+        np.testing.assert_allclose(g[k], w[k], rtol=0, atol=1e-9, err_msg=k)

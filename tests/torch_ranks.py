@@ -10,14 +10,19 @@ imports no JAX: a spawned rank imports it to find its function.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
 
 from isph_tpu_torch import interop
-from isph_tpu_torch.config import PoissonBoltzmannConfig, SoluteTransportConfig
+from isph_tpu_torch.config import (PoissonBoltzmannConfig, RandomStressConfig,
+                                   SoluteTransportConfig)
 from isph_tpu_torch.models import tgv
 from isph_tpu_torch.parallel.sharded import ShardedSimulation, slab
+
+
+RS_KBT, RS_SEED = 0.01, 7  # the random stress of the "rs" variant
 
 
 def tgv_variant(n: int, variant: str, **kw):
@@ -41,6 +46,8 @@ def tgv_variant(n: int, variant: str, **kw):
         cfg = cfg.replace(solver=dataclasses.replace(cfg.solver, recycle_k=8))
     elif variant in ("ale", "ale_shift"):
         cfg = cfg.replace(backend="mls_ale")
+    elif variant == "rs":
+        cfg = cfg.replace(rs=RandomStressConfig(enabled=True, kbt=RS_KBT, seed=RS_SEED))
     elif variant not in ("plain", "migration", "shift", "amg_cache"):
         raise ValueError(variant)
     return dataclasses.replace(sim, cfg=cfg), state
@@ -61,36 +68,67 @@ def sharded_steps(group, cases):
     ``fields`` stepped ``nsteps`` times.  ``opts``: ``amg_cache`` (bool),
     ``run`` (use ``ShardedSimulation.run`` instead of stepping),
     ``max_neighbors``, ``grow`` (the times to apply
-    ``with_larger_neighbors`` first) and ``local_overflow`` (report this
+    ``with_larger_neighbors`` first), ``local_overflow`` (report this
     rank's own overflow count of the first borders build, before any
-    reduction).  Returns {name: (slab fields, [aux per step], local
-    overflow or None)}."""
+    reduction) and ``first_rhs`` (one right-hand side a rank, on its
+    extended slab: the first Poisson solve takes it instead of its own).
+    Returns {name: (slab fields, [aux per step], local overflow or None)}."""
     out = {}
     for name, fields, n, variant, make_kw, n_loc, halo, mcap, nsteps, opts in cases:
-        sim, _ = tgv_variant(n, variant, **make_kw)
-        if opts.get("max_neighbors"):
-            nb = dataclasses.replace(sim.cfg.neighbor, max_neighbors=opts["max_neighbors"])
-            sim = dataclasses.replace(sim, cfg=sim.cfg.replace(neighbor=nb))
-        ss = ShardedSimulation(sim=sim, group=group, n_loc=n_loc, halo=halo,
-                               migrate_cap=mcap,
-                               amg_cache_enabled=opts.get("amg_cache", False))
-        for _ in range(opts.get("grow", 0)):
-            ss = ss.with_larger_neighbors()
-        st = slab(interop.state_from_numpy(fields, "cpu", torch.float64), group.rank, n_loc)
-        local = None
-        if opts.get("local_overflow"):
-            local = int(ss._borders(ss.prepare(st), *ss._slab_bounds(st.dtype, st.device))[4])
-        auxes = []
-        if opts.get("run"):
-            st, aux = ss.run(st, nsteps)
-            auxes.append(_aux(aux))
-        else:
-            st = ss.prepare(st)
-            for _ in range(nsteps):
-                st, aux = ss.step(st)
-                auxes.append(_aux(aux))
-        out[name] = (interop.state_to_numpy(st), auxes, local)
+        with _first_poisson_rhs(opts.get("first_rhs"), group.rank):
+            out[name] = _sharded_case(group, fields, n, variant, make_kw, n_loc, halo, mcap,
+                                      nsteps, opts)
     return out
+
+
+@contextlib.contextmanager
+def _first_poisson_rhs(rhs, rank):
+    """Within the block, the first solve that takes the AMG (the first
+    step's Poisson) solves for ``rhs[rank]`` instead of its own right-hand
+    side; nothing changes when ``rhs`` is None."""
+    if rhs is None:
+        yield
+        return
+    plain = ShardedSimulation._dist_solve
+    left = [torch.as_tensor(rhs[rank])]
+
+    def solve(self, cfg, A, b, x0, comm, **kw):
+        if kw.get("amg") is not None and left:
+            b = left.pop().to(b.dtype)
+        return plain(self, cfg, A, b, x0, comm, **kw)
+
+    ShardedSimulation._dist_solve = solve
+    try:
+        yield
+    finally:
+        ShardedSimulation._dist_solve = plain
+
+
+def _sharded_case(group, fields, n, variant, make_kw, n_loc, halo, mcap, nsteps, opts):
+    """One case of :func:`sharded_steps` on this rank."""
+    sim, _ = tgv_variant(n, variant, **make_kw)
+    if opts.get("max_neighbors"):
+        nb = dataclasses.replace(sim.cfg.neighbor, max_neighbors=opts["max_neighbors"])
+        sim = dataclasses.replace(sim, cfg=sim.cfg.replace(neighbor=nb))
+    ss = ShardedSimulation(sim=sim, group=group, n_loc=n_loc, halo=halo,
+                           migrate_cap=mcap,
+                           amg_cache_enabled=opts.get("amg_cache", False))
+    for _ in range(opts.get("grow", 0)):
+        ss = ss.with_larger_neighbors()
+    st = slab(interop.state_from_numpy(fields, "cpu", torch.float64), group.rank, n_loc)
+    local = None
+    if opts.get("local_overflow"):
+        local = int(ss._borders(ss.prepare(st), *ss._slab_bounds(st.dtype, st.device))[4])
+    auxes = []
+    if opts.get("run"):
+        st, aux = ss.run(st, nsteps)
+        auxes.append(_aux(aux))
+    else:
+        st = ss.prepare(st)
+        for _ in range(nsteps):
+            st, aux = ss.step(st)
+            auxes.append(_aux(aux))
+    return interop.state_to_numpy(st), auxes, local
 
 
 def ring_halo(group, x0, valid, field, n_loc, H, cut, L):
