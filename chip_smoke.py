@@ -247,7 +247,19 @@ Phases (each raises on failure; the script then exits non-zero):
    QEq H (f64 C = 2), take on the ALE slab list (f64 pressure, int32
    kinds) and the QEq slab's type ids (int32), against their plain
    versions as in phase 3; the group closed, then (c)
-   entry.dryrun_multichip on every card, one NCCL rank each.
+   entry.dryrun_multichip on every card, one NCCL rank each;
+28. the port's bench (isph_tpu_torch/bench.py, ``python -m
+   isph_tpu_torch.bench``) with its --small set, in this process, the
+   launch counters set to 0 around it: bench.py's line with every key of
+   its small set (bench.SMALL_KEYS), the numbers finite and positive, the
+   device named as nvidia-smi names it, ell_spmv and take launched.
+
+Each phase's wall time is logged on a line of its own ("phase N (...): s"),
+and the whole run's before the last lines.  The configurations' makers
+and the measuring helpers (_tgv, _tgv1024, _tgv3, _channel, _edl_flow,
+_transport_box, _pore3d, qeq_lattice, _median_ms, _idle_share, _bound,
+_spmv_bound, ...) live in isph_tpu_torch/bench.py, which times the same
+configurations.
 
 The last lines are the card's name and power limit from nvidia-smi, one
 JSON line describing the kernels (time, launches on the main path, plain
@@ -257,7 +269,8 @@ the pore-scale deck, on the MLS matrices and fields of phase 22, on the
 ILU factors and gathers of phase 24, the QEq matrix, types and
 positions of phase 25, the sharded A_own and strip of phase 26 and the
 extended slabs of phase 27, with their launches on phases 9, 11, 14-16,
-18, 19, 21, 24, 25, 26 and 27),
+18, 19, 21, 24, 25, 26 and 27; every kernel's launches in phase 28 as
+launches_bench),
 and the result line
 {"ok": true, "device": {...}}.  Without a CUDA device it prints no result
 and exits non-zero.
@@ -279,87 +292,20 @@ import time
 import numpy as np
 import torch
 
+from isph_tpu_torch.bench import (  # noqa: F401  (configurations and measuring helpers)
+    CYL, CYL_N, FLOPS_PER_S, HBM_BYTES_PER_S, PORE_DECK, PORE_N, QEQ_K, QEQ_PARAMS, QEQ_SIDE,
+    QEQ_SPACING, TRANSPORT_D0, WALLS_UMIN, _bound, _channel, _edl_flow, _geometry,
+    _idle_share, _median_ms, _poisson_matrix, _pore3d, _pore3d_symmetric, _qeq_geometry,
+    _qeq_setup, _slip_channel, _smi, _solve_times, _spmv_bound, _tgv, _tgv3, _tgv1024,
+    _transport_box, _with_solver, qeq_lattice)
+
 
 def _log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def _smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def _median_ms(fn, reps: int = 30, flush: torch.Tensor | None = None):
-    """(median device ms, host us) of one call.  CUDA events bracket each
-    call; a sleep kernel holds the stream first, so the host queues every
-    call before the device runs any and the events time the device alone,
-    not the Python wrapper.  Host us is the enqueue cost of one call.  With
-    ``flush`` the 50 MB L2 is overwritten before every call (cold caller)."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(100_000_000)  # ~50 ms at the H100's clocks
-    marks = []
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        if flush is not None:
-            flush.zero_()
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        marks.append((s, e))
-    host_us = 1e6 * (time.perf_counter() - t0) / reps
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in marks), host_us
-
-
-def _tgv(dev, n_lat, precond, **neighbor):
-    """TGV-n_lat f32, K = 32, padded to 128, tight lattice cell capacity;
-    ``neighbor`` overrides NeighborConfig fields (the stream window)."""
-    from isph_tpu_torch.models import tgv
-    from isph_tpu_torch.ops.neighbors import lattice_cell_capacity
-
-    sim0, _ = tgv.make_tgv(n_lat, dtype=torch.float32, device=dev)
-    cap = lattice_cell_capacity(sim0.domain, sim0.cfg.cut, 2 * math.pi / n_lat)
-    sim, state = tgv.make_tgv(n_lat, dtype=torch.float32, max_neighbors=32,
-                              pad_multiple=128, cell_capacity=cap, device=dev)
-    cfg = sim.cfg.replace(
-        solver=dataclasses.replace(sim.cfg.solver, precond=precond),
-        neighbor=dataclasses.replace(sim.cfg.neighbor, **neighbor))
-    return dataclasses.replace(sim, cfg=cfg), state
-
-
 def _tgv256(dev):
     return _tgv(dev, 256, "jacobi")
-
-
-def _tgv1024(dev):
-    """bench.py:bench_spmv_streaming's lattice and window, AMG (the default)."""
-    return _tgv(dev, 1024, "amg", stream_window=3072, stream_subcap=64)
-
-
-def _geometry(sim, state):
-    """(neighbor list, pair geometry, computePre) of a state; fails on a
-    neighbor overflow."""
-    nbrs = sim.neighbors(state)
-    if int(nbrs.overflow) != 0:
-        raise RuntimeError(f"neighbor overflow {int(nbrs.overflow)}")
-    geom = sim.geometry(state, nbrs)
-    return nbrs, geom, sim.precompute(state, geom)
-
-
-def _poisson_matrix(sim, state):
-    from isph_tpu_torch.ops import corrected as ops
-    from isph_tpu_torch.state import Kind
-
-    _, geom, pre = _geometry(sim, state)
-    return ops.laplacian_matrix(
-        geom, pre.vfrac, pre.Gc, pre.Lc, state.kind, alpha=-sim.cfg.dt,
-        material=1.0 / state.rho, filt=ops.PairFilter(Kind.FLUID, Kind.FLUID),
-        family=ops.SYMMETRIC)
 
 
 def _spmv_rel_err(yk, yp, diag, vals, idx, x):
@@ -368,30 +314,6 @@ def _spmv_rel_err(yk, yp, diag, vals, idx, x):
     terms = (diag * x).abs() + (vals.abs() * x[..., idx].abs()).sum(-2)
     terms = torch.clamp_min(terms, torch.finfo(terms.dtype).tiny)  # empty padding rows
     return float(((yk - yp).abs() / terms).max()), float((yk - yp).abs().max())
-
-
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
-FLOPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}  # H100 SXM, no tensor cores
-
-
-def _bound(nbytes: float, flops: float = 0.0, dtype=torch.float32):
-    """(least ms the card could take, "bytes" or "operations"): the larger
-    of the bytes over the HBM rate and the operations over the peak rate."""
-    tb = 1e3 * nbytes / HBM_BYTES_PER_S
-    tf = 1e3 * flops / FLOPS_PER_S[dtype]
-    return (tb, "bytes") if tb >= tf else (tf, "operations")
-
-
-def _spmv_bound(nnz, n, ncomp, dtype, col_bytes=4, slot_ends=True):
-    """An SpMV reads each nonzero's value and column once (the diagonal
-    apart; ``col_bytes`` the width of the format's column code: 4 for the
-    int32 index, 2 for band offsets), diag, x and (``slot_ends``) the 2-byte
-    slot ends once, and writes y once; 2 flops a nonzero.  Without slot ends
-    and with 4-byte columns it is the first kernels' bound."""
-    item = torch.empty((), dtype=dtype).element_size()
-    nbytes = ((nnz - n) * (item + col_bytes) + n * item + 2 * ncomp * n * item
-              + (2 * n if slot_ends else 0))
-    return _bound(nbytes, 2.0 * ncomp * nnz, dtype), nbytes
 
 
 def _spmv_tiles():
@@ -988,17 +910,6 @@ def phase_golden(dev):
         raise RuntimeError("TGV-16 f32 golden off by more than 2%")
 
 
-def _tgv3(dev, n_lat):
-    """TGV-n_lat^3 f32 with the reference's 3-D scaling kernel (Quintic,
-    cut = 3h = 4.5 dx, bench.py:391-438), K = 392 slots for its 388
-    neighbors, padded to 128, default AMG."""
-    from isph_tpu_torch.config import KernelType
-    from isph_tpu_torch.models import tgv
-
-    return tgv.make_tgv(n_lat, dim=3, kernel=KernelType.QUINTIC, max_neighbors=392,
-                        dtype=torch.float32, pad_multiple=128, device=dev)
-
-
 TAKE_3D_SHAPES = ("f32 (N,)", "f32 (3,N)", "int32 (N,)", "bool (N,)")
 
 
@@ -1059,15 +970,6 @@ def phase_3d_path(dev):
          f"{int(aux_j.poisson_iters)} iterations (relres {float(aux_j.poisson_relres):.3e}) "
          f"against AMG's {amg_iters}")
     return launches
-
-
-def _channel(dev):
-    """The ny = 1024 Poiseuille channel, f32, shift 0.07, MorrisHolmes
-    walls, default AMG, K = 48, padded to 128."""
-    from isph_tpu_torch.models import channel
-
-    return channel.make_channel(1024, shift=0.07, dtype=torch.float32, pad_multiple=128,
-                                device=dev)
 
 
 def _channel_matrices(sim, state):
@@ -1156,14 +1058,6 @@ EDL_POTENTIAL_NORM_F_JAX_512 = 34.95932689520356
 HENRY_PHI_REL_ERR_JAX_64 = 0.012896379590869126
 GOLDEN_PSI = {16: 1.479161878614346e-02, 32: 3.706069041498665e-03}
 GOLDEN_GRAD = {16: 4.719682089799385e-02, 32: 1.198133743842115e-02}
-
-
-def _edl_flow(dev, dtype=torch.float64):
-    """channel-edl-linear-2d at n = 512: 512 x 524 = 268,288 particles,
-    K = 48, MorrisHolmes walls, linearized PB with eps = 0.02, default AMG."""
-    from isph_tpu_torch.models import decks
-
-    return decks.build_deck("channel-edl-linear-2d", n=512, dtype=dtype, device=dev)
 
 
 def _pb_jacobian(sim, state):
@@ -1319,27 +1213,6 @@ def _pb_forcing(sim, strict):
     return forcing
 
 
-def _idle_share(fn):
-    """Device busy and idle share of ``fn()`` (torch.profiler, CUDA kernel
-    events only; one stream, so kernels do not overlap): (wall s, busy s,
-    kernels).  The profiler's own host cost lengthens the wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # the step's named phases come back as device-side annotation ranges
-    # that span their kernels: left out, as torch's own table leaves them
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)]
-    busy = sum(getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
-               for e in events) / 1e6
-    return wall, busy, sum(e.count for e in events)
-
-
 def phase_edl_path(dev):
     """Three f64 steps of the n = 512 electroosmotic channel through
     Simulation.run; a breakdown and the idle share of its first step; then
@@ -1392,18 +1265,6 @@ def phase_edl_path(dev):
     return launches
 
 
-TRANSPORT_D0 = 0.02
-
-
-def _transport_box(dev):
-    """square-concentration-fix-2d at n = 1024: 1,048,576 particles, f64,
-    K = 48, d0 = 0.02 (tests/test_decks.py's diffusivity)."""
-    from isph_tpu_torch.models import decks
-
-    return decks.build_deck("square-concentration-fix-2d", n=1024, d0=TRANSPORT_D0,
-                            device=dev)
-
-
 def phase_transport(dev):
     """Five f64 steps of the 1M transport box through Simulation.run, held
     to tests/test_decks.py's bars."""
@@ -1439,7 +1300,6 @@ TGV_FUNCS = {  # the TGV deck's analytic solution as the reference XML carries i
 }
 
 
-WALLS_UMIN = 0.2
 
 
 def _rel(a, b):
@@ -1525,12 +1385,6 @@ class _StepRecorder:
 
     def __exit__(self, *exc):
         self._cls.step = self._orig
-
-
-def _slip_channel(dev, **ns_kw):
-    sim, state = _channel(dev)
-    return dataclasses.replace(sim, cfg=sim.cfg.replace(
-        ns=dataclasses.replace(sim.cfg.ns, **ns_kw))), state
 
 
 def phase_walls(dev, tgv_sim, tgv_state, tgv_t):
@@ -1711,25 +1565,6 @@ def phase_walls(dev, tgv_sim, tgv_state, tgv_t):
     return launches
 
 
-# the flagship deck of phases 17-18: two-phase flow through a bead pack at the
-# deck's own size (multiphase-pore-scale-flow-b-3d.lmp: N = 96 across the
-# cylinder)
-PORE_DECK = "multiphase-pore-scale-flow-b-3d"
-PORE_N = 96
-
-
-def _pore3d(dev, **kw):
-    """multiphase-pore-scale-flow-b-3d at N = 96: 703,040 particles, K = 88
-    (Quintic, h = 0.8 dx, cut = 2.4 dx), f64, by default the deck's SI
-    parameters (rho 997.561, nu 8.9087e-7, g 9.8, alpha 0.026, theta 10
-    degrees, kappa_max 1e4, shift 0.07, MorrisHolmes walls on the carved
-    cylinder), its phase injection and ignore band; ``kw`` overrides
-    builder arguments."""
-    from isph_tpu_torch.models import decks
-
-    return decks.build_deck(PORE_DECK, n=PORE_N, device=dev, **kw)
-
-
 # tests/test_decks.py:380-381's gentler regime of the same deck (recorded)
 PORE_GENTLE = dict(g=1.0, rho=1.0, nu=2e-4, alpha=1e-4)
 
@@ -1804,9 +1639,7 @@ def phase_pore3d(dev):
     torch.cuda.empty_cache()
     _pore3d_record(dev, **PORE_GENTLE)
     torch.cuda.empty_cache()
-    sim, state = _pore3d(dev)
-    sim = dataclasses.replace(sim, cfg=sim.cfg.replace(
-        ns=dataclasses.replace(sim.cfg.ns, use_momentum_preserve_operator=False)))
+    sim, state = _pore3d_symmetric(dev)
     cfg = sim.cfg
     solid = state.is_solid & state.valid
     fluid = state.is_fluid & state.valid
@@ -2088,8 +1921,6 @@ def phase_random_stress(dev, tgv_sim, tgv_state):
     if not (bool(torch.isfinite(out.v).all()) and dv > 0.0):
         raise RuntimeError("the random-stress step is not finite or changed nothing")
 
-CYL = "flow-past-cylinder-2d-mls"
-CYL_N = 256
 # the JAX package's f64 vmax after steps 1-3 at n = 256 (on the CPU; both
 # Poisson solves stop at their 750-iteration cap, so the fields agree to
 # about the relres, ~1e-7)
@@ -2336,13 +2167,6 @@ def phase_mls_kernels(dev, flush, sim, state, A3):
     return out
 
 
-QEQ_SPACING = 2.17  # A: 0.098 atoms/A^3, the density of the reference's PETN crystal
-# tests/test_qeq.py's two types; swa, swb and tol of LAMMPS's documented
-# "fix qeq/reax 1 0.0 10.0 1.0e-6 reax/c" (QEqParams' defaults)
-QEQ_PARAMS = dict(chi=(1.0, 5.0), eta=(12.0, 11.0), gamma=(0.8, 1.0), swa=0.0, swb=10.0,
-                  tol=1e-6, maxiter=200)
-QEQ_K = 448  # slots for the ~432 neighbors within 10 A at this density
-QEQ_SIDE = 64  # 262,144 atoms
 # the card's charges are held to the CPU's and to the JAX package's on the
 # n_side = 16 lattice (4,096 atoms) solved to 1e-10: at tol 1e-6 the
 # iterate still carries the round-off of its sum order (1.5e-9 in q between
@@ -2354,23 +2178,6 @@ QEQ_JAX = ((198, 145, 2114.1025234447857, -0.6102050071681332, 1.886824220541240
             -2.0550288118179427),
            (207, 152, 2114.102523438305, -0.6102050072235732, 1.8868242206823025,
             -2.055028811750422))
-
-
-def qeq_lattice(n_side: int, seed: int = 0):
-    """(positions (N, 3), type ids (N,) int32, box length) of a simple-cubic
-    lattice at QEQ_SPACING jittered by up to 0.15 A (tests/test_qeq.py's
-    jitter), two types drawn at random; numpy only, so the JAX package's
-    reference script builds the same atoms."""
-    rng = np.random.default_rng(seed)
-    grid = np.stack(np.meshgrid(*[np.arange(n_side)] * 3, indexing="ij"),
-                    -1).reshape(-1, 3) * QEQ_SPACING
-    grid += rng.uniform(-0.15, 0.15, grid.shape)
-    return grid, rng.integers(0, 2, grid.shape[0]).astype(np.int32), n_side * QEQ_SPACING
-
-
-def _with_solver(sim, **kw):
-    return dataclasses.replace(sim, cfg=sim.cfg.replace(
-        solver=dataclasses.replace(sim.cfg.solver, **kw)))
 
 
 def _timed(fn):
@@ -2520,31 +2327,6 @@ def phase_solver_extras(dev, flush, main_iters, main_state):
         if name != "jacobi" and not bool(res.converged):
             raise RuntimeError("GMRES with Chebyshev did not converge")
     return out
-
-
-def _qeq_setup(n_side, device):
-    """(x (3, N) f64, valid, type ids, domain, cell capacity) of
-    qeq_lattice on ``device``."""
-    from isph_tpu_torch.ops.neighbors import lattice_cell_capacity
-    from isph_tpu_torch.state import Domain
-
-    grid, tid, box = qeq_lattice(n_side)
-    dom = Domain(lo=(0.0,) * 3, hi=(box,) * 3, periodic=(True,) * 3)
-    x = torch.as_tensor(grid.T.copy(), dtype=torch.float64, device=device)
-    valid = torch.ones(grid.shape[0], dtype=torch.bool, device=device)
-    cap = lattice_cell_capacity(dom, QEQ_PARAMS["swb"], QEQ_SPACING)
-    return x, valid, torch.as_tensor(tid, device=device), dom, cap
-
-
-def _qeq_geometry(x, valid, dom, cap):
-    from isph_tpu_torch.ops.kernels import get_kernel
-    from isph_tpu_torch.ops.neighbors import build_neighbor_list, compute_pair_geometry
-
-    cut = QEQ_PARAMS["swb"]
-    nbrs = build_neighbor_list(x, valid, dom, cut, QEQ_K, cap)
-    if int(nbrs.overflow) != 0:
-        raise RuntimeError(f"QEq neighbor overflow {int(nbrs.overflow)}")
-    return nbrs, compute_pair_geometry(x, nbrs, dom, get_kernel("Wendland"), cut / 2.0)
 
 
 def _q_summary(res):
@@ -2853,17 +2635,7 @@ def _sharded_weak(dev, group):
 
 def _event_ms(fn, reps=5):
     """Median ms of ``fn()`` between two CUDA events, after one warm call."""
-    fn()
-    ms = []
-    for _ in range(reps):
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        s.record()
-        fn()
-        e.record()
-        torch.cuda.synchronize()
-        ms.append(s.elapsed_time(e))
-    return statistics.median(ms)
+    return statistics.median(_solve_times(fn, reps))
 
 
 def _sharded_overhead_128(dev, group):
@@ -3113,6 +2885,57 @@ def phase_sharded_rest(dev, flush, cyl, call_s):
     return dict(launches_ale=launches_ale, launches_qeq=launches_qeq, ale=kale, qeq=kqeq)
 
 
+def phase_bench(dev):
+    """Phase 28: the port's bench (isph_tpu_torch/bench.py) with its
+    --small set in this process, the launch counters set to 0 just before
+    and read just after: bench.py's line with every key of its small set,
+    the numbers finite and positive, the device named as nvidia-smi names
+    it, and both kernels of the set launched."""
+    from isph_tpu_torch import bench
+    from isph_tpu_torch.ops import spmv_cuda as sc
+
+    wrappers = (sc.ell_spmv, sc.take, sc.ell_spmv_band, sc.take_band)
+    torch.cuda.synchronize()
+    for w in wrappers:
+        w.launches = 0
+    line = bench.run_benches(small=True, dev=dev)
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in wrappers}
+    _log(f"bench --small: {json.dumps(line)}")
+    _log(f"bench --small: launches {launches}")
+    ex = line["extras"]
+    missing = [k for k in bench.SMALL_KEYS if k not in ex]
+    numbers = {"value": line["value"], "vs_baseline": line["vs_baseline"],
+               **{k: ex[k] for k in bench.SMALL_KEYS if k in ex
+                  and k not in ("tgv2d_best_precond", "device")}}
+    bad = [k for k, v in numbers.items() if not (isinstance(v, (int, float))
+                                                   and math.isfinite(v) and v > 0)]
+    if missing or bad or line["metric"] != "spmv_nnz_per_s" or line["unit"] != "nnz/s":
+        raise RuntimeError(f"the bench's small line: missing {missing}, not finite and "
+                           f"positive {bad}")
+    if ex["tgv2d_best_precond"] not in ("amg", "jacobi") or ex["device"] != _smi():
+        raise RuntimeError(f"the bench's line names {ex['device']!r}, best precond "
+                           f"{ex['tgv2d_best_precond']!r}")
+    if min(launches["ell_spmv"], launches["take"]) <= 0:
+        raise RuntimeError(f"a kernel of the bench's small set never launched: {launches}")
+    return launches
+
+
+def _phase(label, fn, *args, **kw):
+    """``fn(*args, **kw)`` with its wall time logged on a line of its own."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    _log(f"phase {label}: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
+def _flush(dev):
+    """An L2-sized buffer that the kernel sweeps overwrite before a cold call."""
+    torch.cuda.empty_cache()
+    return torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a "
@@ -3120,6 +2943,7 @@ def main() -> int:
         return 2
     from isph_tpu_torch import _build
 
+    t_start = time.perf_counter()
     # phase 1: device
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3144,98 +2968,102 @@ def main() -> int:
              f"spills: {spills or 'none'}")
 
     # phase 3: kernels against their plain versions (L2-sized flush buffer)
-    flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
-    k = phase_kernels(dev, flush)
+    flush = _flush(dev)
+    k = _phase("3 (kernels)", phase_kernels, dev, flush)
     del flush
 
     # phase 4: main path; phase 5: golden
-    launches, tgv_sim, tgv_state, tgv_t, main_iters = phase_main_path(dev)
-    phase_golden(dev)
+    launches, tgv_sim, tgv_state, tgv_t, main_iters = _phase("4 (main path)",
+                                                             phase_main_path, dev)
+    _phase("5 (golden)", phase_golden, dev)
 
     # phase 6: band kernels at 1M; phase 7: the large-N path
-    flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
-    kb = phase_band_kernels(dev, flush)
+    flush = _flush(dev)
+    kb = _phase("6 (band kernels)", phase_band_kernels, dev, flush)
     del flush
     torch.cuda.empty_cache()
-    launches_large, large = phase_large_n(dev)
+    launches_large, large = _phase("7 (large N)", phase_large_n, dev)
 
     # phase 8: 3-D kernels; phase 9: the 3-D path; phase 10: channel
     # kernels; phase 11: the channel path
-    torch.cuda.empty_cache()
-    flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
-    k3 = phase_3d_kernels(dev, flush)
+    flush = _flush(dev)
+    k3 = _phase("8 (3-D kernels)", phase_3d_kernels, dev, flush)
     del flush
     torch.cuda.empty_cache()
-    launches_3d = phase_3d_path(dev)
-    torch.cuda.empty_cache()
-    flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
-    kc = phase_channel_kernels(dev, flush)
+    launches_3d = _phase("9 (3-D path)", phase_3d_path, dev)
+    flush = _flush(dev)
+    kc = _phase("10 (channel kernels)", phase_channel_kernels, dev, flush)
     del flush
     torch.cuda.empty_cache()
-    launches_channel = phase_channel(dev)
+    launches_channel = _phase("11 (channel)", phase_channel, dev)
 
     # phase 12: electrokinetic kernels; phase 13: electrokinetic goldens;
     # phase 14: the electroosmotic channel; phase 15: transport
-    torch.cuda.empty_cache()
-    flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
-    ke = phase_edl_kernels(dev, flush)
+    flush = _flush(dev)
+    ke = _phase("12 (electrokinetic kernels)", phase_edl_kernels, dev, flush)
     del flush
     torch.cuda.empty_cache()
-    phase_edl_golden(dev)
-    launches_edl = phase_edl_path(dev)
+    _phase("13 (electrokinetic goldens)", phase_edl_golden, dev)
+    launches_edl = _phase("14 (electroosmotic channel)", phase_edl_path, dev)
     torch.cuda.empty_cache()
-    launches_transport = phase_transport(dev)
+    launches_transport = _phase("15 (transport)", phase_transport, dev)
 
     # phase 16: walls and entry points
     torch.cuda.empty_cache()
-    launches_walls = phase_walls(dev, tgv_sim, tgv_state, tgv_t)
+    launches_walls = _phase("16 (walls, entry points)", phase_walls, dev, tgv_sim, tgv_state,
+                            tgv_t)
 
     # phase 18: the 3-D multiphase pore-scale deck at its own size; phase 17:
     # the kernels on its step-1 state; phase 19: the droplet, the micelle
     # and the random stress
     torch.cuda.empty_cache()
-    launches_pore3d, pore_sim, pore_state = phase_pore3d(dev)
-    torch.cuda.empty_cache()
-    flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
-    kp = phase_pore3d_kernels(dev, flush, pore_sim, pore_state)
+    launches_pore3d, pore_sim, pore_state = _phase("18 (pore-scale deck)", phase_pore3d, dev)
+    flush = _flush(dev)
+    kp = _phase("17 (pore-scale kernels)", phase_pore3d_kernels, dev, flush, pore_sim,
+                pore_state)
     del flush, pore_sim, pore_state
     torch.cuda.empty_cache()
-    launches_droplet = phase_droplet(dev)
-    phase_micelle(dev)
-    phase_random_stress(dev, tgv_sim, tgv_state)
+    launches_droplet = _phase("19a (droplet)", phase_droplet, dev)
+    _phase("19b (micelle)", phase_micelle, dev)
+    _phase("19c (random stress)", phase_random_stress, dev, tgv_sim, tgv_state)
 
     # phase 20: the n = 32 cylinder golden; phase 21: the cylinder at size;
     # phase 23: the MLS operator decks; phase 22: the kernels on the
     # cylinder's and the 3-D operator deck's matrices
     torch.cuda.empty_cache()
-    phase_cylinder_golden(dev)
-    launches_cyl, cyl_sim, cyl_state, cyl = phase_cylinder(dev)
+    _phase("20 (cylinder golden)", phase_cylinder_golden, dev)
+    launches_cyl, cyl_sim, cyl_state, cyl = _phase("21 (cylinder)", phase_cylinder, dev)
     torch.cuda.empty_cache()
-    A3 = phase_mls_operators(dev)
+    A3 = _phase("23 (MLS operator decks)", phase_mls_operators, dev)
     flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
-    km = phase_mls_kernels(dev, flush, cyl_sim, cyl_state, A3)
+    km = _phase("22 (MLS kernels)", phase_mls_kernels, dev, flush, cyl_sim, cyl_state, A3)
     del flush, A3, cyl_sim, cyl_state
 
     # phase 24: the solver extras on the main path; phase 25: QEq at size
-    torch.cuda.empty_cache()
-    flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
-    kx = phase_solver_extras(dev, flush, main_iters, tgv_state)
-    kq = phase_qeq(dev, flush)
+    flush = _flush(dev)
+    kx = _phase("24 (solver extras)", phase_solver_extras, dev, flush, main_iters, tgv_state)
+    kq = _phase("25 (QEq)", phase_qeq, dev, flush)
 
     # phase 26: the sharded step at world size 1 on NCCL; phase 27: the
     # sharded ALE step, distributed QEq and the multichip entry
     torch.cuda.empty_cache()
-    ks = phase_sharded(dev, flush, large)
+    ks = _phase("26 (sharded)", phase_sharded, dev, flush, large)
     torch.cuda.empty_cache()
-    kr = phase_sharded_rest(dev, flush, cyl, kq["call_s"])
+    kr = _phase("27 (sharded rest)", phase_sharded_rest, dev, flush, cyl, kq["call_s"])
     del flush
+
+    # phase 28: the bench's --small set
+    del tgv_sim, tgv_state
+    torch.cuda.empty_cache()
+    launches_bench = _phase("28 (bench --small)", phase_bench, dev)
+    _log(f"chip_smoke: all phases {time.perf_counter() - t_start:.1f} s")
 
     def row(name, source, replaces, launched, err, t):
         return dict(name=name, route="cuda", source=f"isph_tpu_torch/csrc/{source}",
                     replaces=f"isph_tpu/ops/spmv_pallas.py:{replaces}", launches=launched,
                     max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
                     bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-                    library_ms=t["library_ms"])
+                    library_ms=t["library_ms"], launches_bench=launches_bench[name])
 
     def times(t):
         return {key: t[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}

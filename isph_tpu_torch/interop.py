@@ -8,7 +8,7 @@ No function imports jax: the caller converts JAX arrays to numpy
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -16,7 +16,7 @@ import torch
 from isph_tpu_torch import config as C
 from isph_tpu_torch.ops.ell import ELL
 from isph_tpu_torch.physics.ale import ALEHistory
-from isph_tpu_torch.solvers.amg import AMGCache, DenseTransfer, FactoredTransfer
+from isph_tpu_torch.solvers.amg import AMGCache, DenseTransfer, FactoredTransfer, _stencil_offsets
 from isph_tpu_torch.solvers.krylov import RecycleSpace
 from isph_tpu_torch.state import ParticleState
 
@@ -60,7 +60,10 @@ def _amg_cache(arr: Mapping, device, dtype: torch.dtype) -> Optional[AMGCache]:
     diagonals, the coarse inverse and the grid shapes.  ``aggs`` is not
     read: the transfers carry the aggregates.  A ``coarse_inv`` of zeros is
     the seed of JAX's ``prepare`` (``amg_cache_zeros``), no hierarchy: it
-    maps to None, and the port builds at the state's first solve."""
+    maps to None, and the port builds at the state's first solve.  The
+    static fields that a JAX checkpoint does not hold may be left out: the
+    grid shapes are then read off the coarse ELLs (:func:`_grid_shape`) and
+    a factored transfer's shape off its per-axis one-hots."""
     if not np.asarray(arr["coarse_inv"]).any():
         return None
 
@@ -73,12 +76,44 @@ def _amg_cache(arr: Mapping, device, dtype: torch.dtype) -> Optional[AMGCache]:
     transfers = tuple(
         DenseTransfer(oh=t(tr["oh"])) if "oh" in tr else
         FactoredTransfer(axes_oh=tuple(t(a) for a in tr["axes_oh"]),
-                         shape=tuple(int(n) for n in tr["shape"]))
+                         shape=tuple(int(n) for n in tr.get("shape") or
+                                     (np.shape(a)[0] for a in tr["axes_oh"])))
         for tr in arr["transfers"])
+    shapes = arr.get("grid_shapes")
+    if shapes is None:
+        shapes = [_grid_shape(np.asarray(lv["idx"]), np.asarray(lv["mask"]))
+                  for lv in arr["coarse_levels"]]
     return AMGCache(coarse_levels=levels, transfers=transfers,
                     coarse_dinvs=tuple(t(a) for a in arr["coarse_dinvs"]),
                     coarse_inv=t(arr["coarse_inv"]),
-                    grid_shapes=tuple(tuple(int(n) for n in g) for g in arr["grid_shapes"]))
+                    grid_shapes=tuple(tuple(int(n) for n in g) for g in shapes))
+
+
+def _grid_shape(idx: np.ndarray, mask: np.ndarray) -> Tuple[int, ...]:
+    """The cells per axis of a coarse AMG level, read off its (K, N) ELL:
+    the level is the 3^D-stencil graph of a regular grid (``K = 3^D - 1``,
+    ``amg._grid_ell_structure``), so axis d's count (d >= 1) is the length
+    of the walk from cell 0 along the +e_d slot until it comes back to cell
+    0 (a periodic axis) or the slot is masked (the grid's end); axis 0
+    holds the rest of N."""
+    K, n = idx.shape
+    dim = 1
+    while 3 ** dim - 1 < K:
+        dim += 1
+    if 3 ** dim - 1 != K:
+        raise ValueError(f"{K} slots are no 3^D-stencil of a coarse grid")
+    offs = _stencil_offsets(dim)
+    cells = []
+    for d in range(1, dim):
+        q = int(np.flatnonzero((offs == np.eye(dim, dtype=offs.dtype)[d]).all(axis=1))[0])
+        c, count = 0, 1
+        while mask[q, c] > 0 and idx[q, c] != 0:
+            c, count = int(idx[q, c]), count + 1
+        cells.append(count)
+    n0, rest = divmod(n, int(np.prod(cells)))
+    if rest:
+        raise ValueError(f"{n} coarse cells are no grid with {cells} cells on axes 1-{dim - 1}")
+    return (n0, *cells)
 
 
 def _amg_cache_to_numpy(cache: AMGCache) -> dict:

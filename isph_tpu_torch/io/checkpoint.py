@@ -13,7 +13,12 @@ that has the same fields.  The state's AMG hierarchy cache is saved and
 restored with it (``state/amg_cache/...``: the coarse ELLs with their slot
 formats, the transfers, the inverse diagonals and ``coarse_inv``): the port
 builds a hierarchy at the first solve of a state that has none, so a resume
-without it would leave the uninterrupted run's schedule.  The recycling
+without it would leave the uninterrupted run's schedule.  A cache that the
+JAX package saved (``tree_flatten_with_path`` names: ``coarse_levels/<i>/
+<field>``, ``aggs/<i>``, ``transfers/<i>/...``, ``coarse_dinvs/<i>``,
+``coarse_inv``; no slot formats, no grid shapes) is restored through
+:func:`isph_tpu_torch.interop.state_from_numpy`'s mapping, whatever cache
+the template carries; JAX's zero seed comes back as None.  The recycling
 GMRES's space is saved under ``state/solver_cache/U`` and ``.../C``, the
 keys the JAX package's ``tree_flatten_with_path`` gives its
 ``RecycleSpace``.
@@ -32,6 +37,7 @@ from typing import Dict, Iterator, Tuple
 import numpy as np
 import torch
 
+from isph_tpu_torch.interop import _amg_cache
 from isph_tpu_torch.state import ParticleState
 
 
@@ -85,13 +91,51 @@ def save_checkpoint(path: str, state: ParticleState, **aux_trees) -> None:
     np.savez_compressed(path, **out)
 
 
+def _jax_amg_cache(data, prefix: str):
+    """The JAX package's ``AMGCache`` saved under ``prefix`` as the mapping
+    of its fields that ``interop`` takes, or None when ``prefix`` holds no
+    such cache (``aggs`` is JAX's field; the port's cache has none)."""
+    files = set(data.files)
+    if f"{prefix}/aggs/0" not in files:
+        return None
+
+    def seq(name, fn):
+        out, i = [], 0
+        while any(k == f"{prefix}/{name}/{i}" or k.startswith(f"{prefix}/{name}/{i}/")
+                  for k in files):
+            out.append(fn(f"{prefix}/{name}/{i}"))
+            i += 1
+        return out
+
+    def transfer(key):
+        if f"{key}/oh" in files:
+            return {"oh": data[f"{key}/oh"]}
+        return {"axes_oh": seq(key[len(prefix) + 1:] + "/axes_oh", lambda k: data[k])}
+
+    return dict(
+        coarse_levels=seq("coarse_levels", lambda k: {
+            f: data[f"{k}/{f}"] for f in ("diag", "vals", "idx", "mask")}),
+        aggs=seq("aggs", lambda k: data[k]),
+        transfers=seq("transfers", transfer),
+        coarse_dinvs=seq("coarse_dinvs", lambda k: data[k]),
+        coarse_inv=data[f"{prefix}/coarse_inv"])
+
+
 def load_checkpoint(path: str, template: ParticleState, **aux_templates):
     """Restore into the given templates, whose structure (fields present,
     shapes, dtypes, an AMG cache of the same levels) must match what was
-    saved; the tensors land on the templates' devices.  Returns the state,
-    or (state, {name: tree}) when auxiliary templates are given."""
+    saved; the tensors land on the templates' devices.  A JAX package's AMG
+    cache is rebuilt from its own keys instead (module docstring).  Returns
+    the state, or (state, {name: tree}) when auxiliary templates are
+    given."""
     with np.load(path) as data:
-        state = _rebuild("state", template, data)
+        jax_cache = _jax_amg_cache(data, "state/amg_cache")
+        if jax_cache is None:
+            state = _rebuild("state", template, data)
+        else:
+            state = _rebuild("state", template.replace(amg_cache=None), data)
+            state = state.replace(amg_cache=_amg_cache(jax_cache, template.x.device,
+                                                       template.x.dtype))
         aux = {name: _rebuild(name, tpl, data) for name, tpl in aux_templates.items()}
     if aux:
         return state, aux

@@ -27,6 +27,7 @@ from isph_tpu.solvers import krylov as jkry
 from isph_tpu_torch import interop, native
 from isph_tpu_torch.io import checkpoint, dump
 from isph_tpu_torch.models import decks, tgv
+from isph_tpu_torch.models.driver import Simulation
 from isph_tpu_torch.ops.neighbors import build_neighbor_list, reorder_by
 from isph_tpu_torch.solvers.amg import AMGCache
 from isph_tpu_torch.solvers.krylov import init_recycle
@@ -115,6 +116,107 @@ def test_jax_checkpoint_loads_into_the_port(tmp_path):
     for name, arr in _fields(js).items():
         np.testing.assert_array_equal(getattr(st, name).numpy(), arr, err_msg=name)
         assert getattr(st, name).dtype == getattr(template, name).dtype
+
+
+@pytest.fixture(scope="module")
+def jax_mid_age(tmp_path_factory):
+    """JAX's TGV-16 (f64, default AMG, max age 8) prepared and stepped to
+    step 5, off an age boundary: its checkpoint holds the filled hierarchy
+    of step 0.  Returns the jitted step, the state, the checkpoint's path
+    and the port's simulation of the same config."""
+    jsim, js = jtgv.make_tgv(16)
+    assert jsim.cfg.solver.precond == "amg" and jsim.cfg.solver.precond_max_age == 8
+    step = jax.jit(jsim.step_fn())
+    js = jsim.prepare(js)
+    for _ in range(5):
+        js, _ = step(js)
+    assert np.asarray(js.amg_cache.coarse_inv).any() and int(js.step) % 8 != 0
+    p = str(tmp_path_factory.mktemp("jax_mid_age") / "jax.npz")
+    jckpt.save_checkpoint(p, js)
+    d = jsim.domain
+    sim = Simulation(cfg=interop.config_from_dict(dataclasses.asdict(jsim.cfg)),
+                     domain=Domain(lo=d.lo, hi=d.hi, periodic=d.periodic))
+    return step, js, p, sim
+
+
+@pytest.mark.parametrize("with_port_cache", [False, True], ids=["cold", "port-cache"])
+def test_jax_checkpoint_with_amg_cache_resumes_with_jax_counts(jax_mid_age, with_port_cache):
+    """The checkpoint of a JAX run in mid-age restores JAX's hierarchy into
+    the port (grid shapes read off the coarse ELLs, slot formats built),
+    into a template without a cache or with a port cache of its own; the
+    next two steps take JAX's Helmholtz and Poisson counts, with x, v and p
+    within 1e-10 (absolute; max |p| ~ 0.05).  A template's own cache, or a
+    state without one, would build another hierarchy at step 5."""
+    step, js, p, sim = jax_mid_age
+    template = _state(jtgv.make_tgv(16)[1])
+    if with_port_cache:
+        template, _ = sim.run(template, 1)
+        assert isinstance(template.amg_cache, AMGCache)
+    st = checkpoint.load_checkpoint(p, template)
+    assert isinstance(st.amg_cache, AMGCache)
+    assert st.amg_cache.grid_shapes == js.amg_cache.grid_shapes
+    assert all(lv.slots is not None for lv in st.amg_cache.coarse_levels)
+    want = interop.state_from_numpy({**_fields(js), "amg_cache": dataclasses.asdict(js.amg_cache)},
+                                    "cpu", F64).amg_cache
+    _assert_same_tensors(st.amg_cache, want)
+    for k in range(2):
+        js, jaux = step(js)
+        st, aux = sim.step(st)
+        assert int(aux.helmholtz_iters) == int(jaux.helmholtz_iters), k
+        assert int(aux.poisson_iters) == int(jaux.poisson_iters), k
+        for f in ("x", "v", "p"):
+            np.testing.assert_allclose(getattr(st, f).numpy(), np.asarray(getattr(js, f)),
+                                       rtol=0, atol=1e-10, err_msg=f"{f} after step {k + 6}")
+
+
+def test_jax_zero_seeded_checkpoint_loads_without_a_cache(tmp_path):
+    """JAX's ``prepare`` seeds a zero cache (``amg_cache_zeros``): its
+    checkpoint loads into the port as a state without a hierarchy."""
+    jsim, js = jtgv.make_tgv(16)
+    js = jsim.prepare(js)
+    assert not np.asarray(js.amg_cache.coarse_inv).any()
+    p = str(tmp_path / "seed.npz")
+    jckpt.save_checkpoint(p, js)
+    assert checkpoint.load_checkpoint(p, _state(js)).amg_cache is None
+
+
+def test_jax_checkpoint_with_factored_transfers_loads(tmp_path):
+    """A JAX hierarchy with factored level-0 transfers (one-hot budget 0)
+    saved in a checkpoint: the per-axis one-hots (``transfers/0/axes_oh/
+    <d>``) come back as the port's factored transfer with the grid's shape,
+    every tensor equal to what ``interop`` builds from the cache itself."""
+    from isph_tpu.physics import ns_projection as jns
+    from isph_tpu.solvers import amg as jamg
+
+    jsim, js = jtgv.make_tgv(16)
+    geom = jsim.geometry(js, jsim.neighbors(js))
+    A, _ = jns.poisson_system(js, geom, jsim.precompute(js, geom), jsim.cfg, js.v)
+    cache = jamg.cache_of(jamg.build_amg(A, js.x, jsim.domain, jsim.cfg.cut, onehot_budget=0))
+    assert isinstance(cache.transfers[0], jamg.FactoredTransfer)
+    js = js.replace(amg_cache=cache)
+    p = str(tmp_path / "factored.npz")
+    jckpt.save_checkpoint(p, js)
+    got = checkpoint.load_checkpoint(p, _state(js)).amg_cache
+    want = interop.state_from_numpy({**_fields(js), "amg_cache": dataclasses.asdict(cache)},
+                                    "cpu", F64).amg_cache
+    assert got.transfers[0].shape == cache.transfers[0].shape
+    assert got.grid_shapes == cache.grid_shapes
+    _assert_same_tensors(got, want)
+
+
+@pytest.mark.parametrize("ncell,periodic", [
+    ((7, 5), (True, True)), ((5, 1), (True, False)), ((2, 3), (False, True)),
+    ((1, 4), (False, False)), ((4, 2, 1), (True, True, True)),
+    ((3, 1, 5), (False, True, False)), ((1, 1, 3), (True, False, True))])
+def test_grid_shape_is_read_off_the_coarse_stencil(ncell, periodic):
+    """``interop._grid_shape`` recovers a coarse grid's cells per axis from
+    the ELL of its 3^D stencil, periodic or not, with axes of 1 and 2 cells
+    (where the +1 and -1 neighbors coincide or leave the grid)."""
+    from isph_tpu_torch.solvers.amg import CoarseGrid, _grid_ell_structure
+
+    grid = CoarseGrid(ncell, (1.0,) * len(ncell), periodic, (0.0,) * len(ncell))
+    idx, mask = _grid_ell_structure(grid, "cpu")
+    assert interop._grid_shape(idx.numpy(), mask.numpy()) == ncell
 
 
 def test_checkpoint_refuses_a_mismatched_template(amg_run, tmp_path):
