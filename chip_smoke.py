@@ -26,7 +26,10 @@ Phases (each raises on failure; the script then exits non-zero):
    Jacobi through Simulation.run, one step per call so that each step is
    timed (the same steps as run(state, 3)), with the launch counters reset
    just before and read just after; checks overflow, finiteness, volume,
-   the decaying vmax, and that both kernels ran;
+   the decaying vmax, that the ELL kernels and the compensated dot ran,
+   and that each step's Helmholtz and Poisson counts and vmax bits are
+   the parent commit's on the card (MAIN_PARENT: the kernel keeps the
+   cascade's bits);
 5. golden: the reference's TGV-16 table in f32 through the kernels, within
    2% (the bar tests/test_f32.py holds the JAX package to);
 6. band kernels: on the pressure-Poisson matrix of the 1024^2 Taylor-Green
@@ -252,7 +255,20 @@ Phases (each raises on failure; the script then exits non-zero):
    isph_tpu_torch.bench``) with its --small set, in this process, the
    launch counters set to 0 around it: bench.py's line with every key of
    its small set (bench.SMALL_KEYS), the numbers finite and positive, the
-   device named as nvidia-smi names it, ell_spmv and take launched.
+   device named as nvidia-smi names it, ell_spmv, take and comp_dots
+   launched;
+29. (run after phase 3) the compensated dot kernel (csrc/comp_dot.cu)
+   against the plain cascade of utils/fsum.py run on the same CUDA
+   tensors, bit for bit (the f32 words of every (hi, lo), no tolerance),
+   at N = 16,384, 65,536, 262,144, 1,048,576, 1,318,400 (the sharded 1M
+   slab: three launches), 50,001 and 1, on (C, N) rows with C = 2 and 3
+   and on stacks of 4 pairs (N = 65,536) and 3 pairs (1M); values across
+   12 decades; each timed beside its bound (the inputs read once at the
+   HBM rate), the plain cascade and one library call (torch.dot or
+   torch.linalg.vecdot: a plain f32 sum, other bits).  comp_dots is also
+   counted, and required to launch, on every phase that runs an f32
+   Krylov solve: 4, 5, 7, 9, 11, 14 (its f32 step), 16(b), 19c, 24, 26
+   and 28.
 
 Each phase's wall time is logged on a line of its own ("phase N (...): s"),
 and the whole run's before the last lines.  The configurations' makers
@@ -270,7 +286,8 @@ ILU factors and gathers of phase 24, the QEq matrix, types and
 positions of phase 25, the sharded A_own and strip of phase 26 and the
 extended slabs of phase 27, with their launches on phases 9, 11, 14-16,
 18, 19, 21, 24, 25, 26 and 27; every kernel's launches in phase 28 as
-launches_bench),
+launches_bench; comp_dots with its launches on phases 4, 5, 7, 9, 11,
+14, 16, 19c, 24, 26 and 28 and phase 29's other shapes),
 and the result line
 {"ok": true, "device": {...}}.  Without a CUDA device it prints no result
 and exits non-zero.
@@ -605,6 +622,73 @@ def phase_kernels(dev, flush):
     return dict(spmv_err=spmv_err, spmv=spmv[(torch.float32, 1)], take=take["f32 (N,)"])
 
 
+# phase 29's shapes: (label, pairs, C, N); N = 65,536 is the main path's,
+# 1,318,400 the sharded 1M slab's (three passes), 4 pairs pipelined CG's
+COMP_DOT_SHAPES = (
+    ("N=16384", 1, 1, 16_384), ("N=65536", 1, 1, 65_536), ("N=262144", 1, 1, 262_144),
+    ("N=1048576", 1, 1, 1_048_576), ("N=1318400", 1, 1, 1_318_400), ("N=50001", 1, 1, 50_001),
+    ("N=1", 1, 1, 1), ("C=2 N=65536", 1, 2, 65_536), ("C=3 N=65536", 1, 3, 65_536),
+    ("4 pairs N=65536", 4, 1, 65_536), ("3 pairs N=1048576", 3, 1, 1_048_576))
+COMP_DOT_MAIN = "N=65536"
+
+
+def _dot_field(rng, shape, dev):
+    """f32 values across 12 decades, both signs."""
+    v = rng.standard_normal(shape) * 10.0 ** rng.uniform(-6.0, 6.0, shape)
+    return torch.as_tensor(v.astype(np.float32), device=dev)
+
+
+def _library_dot(pairs):
+    """One PyTorch call of the same sums (other bits: no compensation):
+    torch.dot for a (N,) pair, torch.linalg.vecdot for (C, N) rows; None
+    for a stack of pairs."""
+    if len(pairs) > 1:
+        return None
+    a, b = pairs[0]
+    return (lambda: torch.dot(a, b)) if a.ndim == 1 else (lambda: torch.linalg.vecdot(a, b))
+
+
+def phase_comp_dot(dev, flush):
+    """Phase 29: the compensated dot kernel against the plain cascade on the
+    same CUDA tensors, bit for bit (the f32 words compared, no tolerance),
+    at every shape of COMP_DOT_SHAPES; each timed beside its bound (the
+    inputs read once at the HBM rate), the plain cascade and one library
+    call (torch.dot / vecdot: a plain f32 sum, not the same bits)."""
+    from isph_tpu_torch.ops import comp_dot_cuda as cd
+
+    rng = np.random.default_rng(29)
+    rows = {}
+    for label, npairs, C, n in COMP_DOT_SHAPES:
+        shape = (n,) if C == 1 else (C, n)
+        pairs = [(_dot_field(rng, shape, dev), _dot_field(rng, shape, dev))
+                 for _ in range(npairs)]
+        got, ref = cd.comp_dots(pairs), cd.comp_dots_plain(pairs)
+        torch.cuda.synchronize()
+        if got.shape != ref.shape or not torch.equal(got.view(torch.int32),
+                                                     ref.view(torch.int32)):
+            raise RuntimeError(f"comp_dots: the kernel's (hi, lo) {got.tolist()} are not the "
+                               f"plain cascade's {ref.tolist()} at {label}")
+        err = float((got - ref).abs().max())
+        tk, hk = _median_ms(lambda: cd.comp_dots(pairs))
+        tkc, _ = _median_ms(lambda: cd.comp_dots(pairs), flush=flush)
+        tp, _ = _median_ms(lambda: cd.comp_dots_plain(pairs), reps=10)
+        lib = _library_dot(pairs)
+        tl = None if lib is None else _median_ms(lib, reps=10)[0]
+        nrows = npairs * C
+        nbytes = 8 * nrows * n + 8 * nrows
+        flops = nrows * (n + 8 * (cd.padded_length(n) - 1))
+        bound, by = _bound(nbytes, flops)
+        rows[label] = dict(ms=tk, plain_ms=tp, library_ms=tl, bound_ms=bound, bound_by=by,
+                           err=err)
+        lib_s = "none (a stack)" if tl is None else f"{tl:.4f} ms"
+        _log(f"comp_dot: {label}: bitwise equal to the plain cascade; {len(cd.comp_dot_plan(n))}"
+             f" launches (plan {cd.comp_dot_plan(n)}); kernel={tk:.4f} ms, L2 flushed "
+             f"{tkc:.4f} ms, bound={bound:.4f} ms ({nbytes / 1e6:.3f} MB, {by}), "
+             f"share={bound / tk:.3f}, plain={tp:.4f} ms, library={lib_s}; host enqueue "
+             f"{hk:.1f} us")
+    return rows
+
+
 def _run_steps(tag, sim, state, wrappers, cap_check=True, nsteps=3, each=None,
                step_times=None, step=None):
     """``nsteps`` steps through Simulation.run, one call per step
@@ -665,17 +749,36 @@ def _check_vortex(tag, aux, volume):
         raise RuntimeError("vmax off the decaying vortex by more than 5%")
 
 
+# phase 4's (Helmholtz, Poisson) iterations and vmax bits (float.hex) of
+# each step as the commit before the compensated dot kernel (c62ac79, the
+# eager cascade) gives them on an NVIDIA H100 80GB HBM3, the same in two
+# runs (PERF.md); the kernel keeps the cascade's bits, so they hold after it
+MAIN_PARENT = ((10, 495, "0x1.9688e00000000p-4"), (10, 175, "0x1.9391600000000p-4"),
+               (10, 300, "0x1.909e140000000p-4"))
+
+
 def phase_main_path(dev):
-    """Three 256^2 f32 Jacobi projection steps through Simulation.run."""
+    """Three 256^2 f32 Jacobi projection steps through Simulation.run; the
+    iterations and vmax of each step are MAIN_PARENT's, bit for bit."""
     from isph_tpu_torch.models import tgv
+    from isph_tpu_torch.ops import comp_dot_cuda as cd
     from isph_tpu_torch.ops import spmv_cuda as sc
 
     sim, state = _tgv256(dev)
-    iters = []
-    state, aux, launches = _run_steps("main", sim, state, (sc.ell_spmv, sc.take),
-                                      cap_check=False, each=_record_iters(iters))
+    iters, record = [], []
+
+    def each(k, st, aux):
+        iters.append((int(aux.helmholtz_iters), int(aux.poisson_iters)))
+        record.append((*iters[-1], float(aux.status.vmax).hex()))
+
+    state, aux, launches = _run_steps("main", sim, state, (sc.ell_spmv, sc.take, cd.comp_dots),
+                                      cap_check=False, each=each)
     if min(launches.values()) <= 0:
         raise RuntimeError(f"a kernel of the main path never launched: {launches}")
+    _log(f"main: (helmholtz, poisson, vmax) a step {record}; the parent's {MAIN_PARENT}")
+    if tuple(record) != MAIN_PARENT:
+        raise RuntimeError(f"the main path's counts or vmax bits {record} are not the "
+                           f"parent's {MAIN_PARENT}")
     _check_vortex("main", aux, (2 * math.pi) ** 2)
     err = tgv.compute_error(state.replace(vstar=state.v), float(aux.status.time))
     _log(f"main: L2 error vs exact: pressure={float(err.pressure_l2):.4e} "
@@ -788,15 +891,18 @@ def phase_band_kernels(dev, flush):
 def phase_large_n(dev):
     """Three TGV-1024^2 f32 steps through Simulation.run with AMG on the
     streaming list."""
+    from isph_tpu_torch.ops import comp_dot_cuda as cd
     from isph_tpu_torch.ops import spmv_cuda as sc
 
     sim, state = _tgv1024(dev)
     iters, step_s = [], []
     state, aux, launches = _run_steps(
-        "large", sim, state, (sc.ell_spmv, sc.take, sc.ell_spmv_band, sc.take_band),
+        "large", sim, state,
+        (sc.ell_spmv, sc.take, sc.ell_spmv_band, sc.take_band, cd.comp_dots),
         each=_record_iters(iters), step_times=step_s)
-    if min(launches["ell_spmv_band"], launches["take_band"]) <= 0:
-        raise RuntimeError(f"a band kernel never launched on the large-N path: {launches}")
+    if min(launches["ell_spmv_band"], launches["take_band"], launches["comp_dots"]) <= 0:
+        raise RuntimeError(f"a band kernel or comp_dots never launched on the large-N path: "
+                           f"{launches}")
     _check_vortex("large", aux, (2 * math.pi) ** 2)
     _breakdown_amg("large", sim, state)
     return launches, dict(ke=float(aux.status.kinetic_energy), vmax=float(aux.status.vmax),
@@ -886,20 +992,31 @@ def _breakdown_amg(tag, sim, state, forcing=None):
     return int(res.iters)
 
 
+def _dots_launched(tag, fn):
+    """``fn()`` with comp_dots' counter set to 0 just before and read just
+    after; fails if the f32 solves in it never launched the kernel.
+    Returns (fn's result, the launches)."""
+    from isph_tpu_torch.ops import comp_dot_cuda as cd
+
+    torch.cuda.synchronize()
+    cd.comp_dots.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    launched = cd.comp_dots.launches
+    _log(f"{tag}: comp_dots launches {launched}")
+    if launched <= 0:
+        raise RuntimeError(f"comp_dots never launched on the {tag} path")
+    return out, launched
+
+
 def phase_golden(dev):
-    """tests/test_f32.py's TGV-16 harness through the port on the card."""
+    """tests/test_f32.py's TGV-16 harness through the port on the card;
+    returns comp_dots' launches in its three steps."""
     from isph_tpu_torch.models import tgv
-    from isph_tpu_torch.physics import ns_projection as ns
 
     gp, gv, nsteps = 8.466849370245e-04, 7.500246669496e-04, 3
     sim, state = tgv.make_tgv(16, dtype=torch.float32, device=dev)
-    for step in range(1, nsteps + 1):
-        nbrs = sim.neighbors(state)
-        geom = sim.geometry(state, nbrs)
-        pre = sim.precompute(state, geom)
-        state, info = ns.navier_stokes_step(state, geom, pre, sim.cfg)
-        if step < nsteps:
-            state = ns.advance_time(state, geom, pre, sim.cfg, sim.domain)
+    (state, info), launched = _dots_launched("golden", lambda: _golden_steps(sim, state, nsteps))
     err = tgv.compute_error(state, sim.cfg.dt * nsteps)
     pe = float(err.pressure_l2) / gp - 1.0
     ve = float(err.velocity_l2) / gv - 1.0
@@ -908,6 +1025,22 @@ def phase_golden(dev):
          f"velocity_l2={float(err.velocity_l2):.6e} ({ve:+.4%}) relres={relres:.2e}")
     if abs(pe) > 2e-2 or abs(ve) > 2e-2 or not relres < 5e-5:
         raise RuntimeError("TGV-16 f32 golden off by more than 2%")
+    return launched
+
+
+def _golden_steps(sim, state, nsteps):
+    """The golden harness's steps: errors are read before the last
+    advance_time."""
+    from isph_tpu_torch.physics import ns_projection as ns
+
+    for step in range(1, nsteps + 1):
+        nbrs = sim.neighbors(state)
+        geom = sim.geometry(state, nbrs)
+        pre = sim.precompute(state, geom)
+        state, info = ns.navier_stokes_step(state, geom, pre, sim.cfg)
+        if step < nsteps:
+            state = ns.advance_time(state, geom, pre, sim.cfg, sim.domain)
+    return state, info
 
 
 TAKE_3D_SHAPES = ("f32 (N,)", "f32 (3,N)", "int32 (N,)", "bool (N,)")
@@ -941,6 +1074,7 @@ def phase_3d_kernels(dev, flush):
 
 def phase_3d_path(dev):
     """Three TGV-64^3 f32 Quintic steps through Simulation.run with AMG."""
+    from isph_tpu_torch.ops import comp_dot_cuda as cd
     from isph_tpu_torch.ops import spmv_cuda as sc
 
     sim, state = _tgv3(dev, 64)
@@ -958,7 +1092,8 @@ def phase_3d_path(dev):
          f"overflow {ovf}")
     if cmax != 388 or ovf != 0:
         raise RuntimeError("the 3-D lattice should give 388 neighbors a particle, no overflow")
-    state, aux, launches = _run_steps("3d path", sim, state, (sc.ell_spmv, sc.take))
+    state, aux, launches = _run_steps("3d path", sim, state,
+                                      (sc.ell_spmv, sc.take, cd.comp_dots))
     if min(launches.values()) <= 0:
         raise RuntimeError(f"a kernel of the 3-D path never launched: {launches}")
     _check_vortex("3d path", aux, (2 * math.pi) ** 3)
@@ -1016,6 +1151,7 @@ def phase_channel_kernels(dev, flush):
 def phase_channel(dev):
     """Three steps of the ny = 1024 Poiseuille channel with shifting, f32."""
     from isph_tpu_torch.models import channel
+    from isph_tpu_torch.ops import comp_dot_cuda as cd
     from isph_tpu_torch.ops import spmv_cuda as sc
 
     sim, state = _channel(dev)
@@ -1024,7 +1160,8 @@ def phase_channel(dev):
     _log(f"channel: N={state.n} ({int(state.valid.sum())} particles, {int(solid.sum())} "
          f"wall), walls {sim.cfg.ns.boundary.value}, shift {sim.cfg.shift.shift}, "
          f"dt {sim.cfg.dt:.6g}, precond {sim.cfg.solver.precond}")
-    state, aux, launches = _run_steps("channel", sim, state, (sc.ell_spmv, sc.take))
+    state, aux, launches = _run_steps("channel", sim, state,
+                                      (sc.ell_spmv, sc.take, cd.comp_dots))
     if min(launches.values()) <= 0:
         raise RuntimeError(f"a kernel of the channel path never launched: {launches}")
     moved = float((state.x[:, solid] - x0).abs().max())
@@ -1260,7 +1397,9 @@ def phase_edl_path(dev):
     sim32, state32 = _edl_flow(dev, torch.float32)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _breakdown_amg("edl path f32", sim32, state32, forcing=_pb_forcing(sim32, strict=False))
+    _, launches["comp_dots_f32"] = _dots_launched(
+        "edl path f32", lambda: _breakdown_amg("edl path f32", sim32, state32,
+                                               forcing=_pb_forcing(sim32, strict=False)))
     _log(f"edl path f32: one step (phase by phase) {time.perf_counter() - t0:.4f} s")
     return launches
 
@@ -1394,6 +1533,7 @@ def phase_walls(dev, tgv_sim, tgv_state, tgv_t):
     from isph_tpu_torch.config import BoundaryCond
     from isph_tpu_torch.io import checkpoint, dump
     from isph_tpu_torch.models import error, tgv
+    from isph_tpu_torch.ops import comp_dot_cuda as cd
     from isph_tpu_torch.ops import spmv_cuda as sc
     from isph_tpu_torch.physics import diagnostics as diag
 
@@ -1431,14 +1571,14 @@ def phase_walls(dev, tgv_sim, tgv_state, tgv_t):
          f"{sim.cfg.dt:.6g}; run_adaptive cfl 0.25 dx {dx:.6g} umin {WALLS_UMIN}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for w in (sc.ell_spmv, sc.take):
+    for w in (sc.ell_spmv, sc.take, cd.comp_dots):
         w.launches = 0
     t0 = time.perf_counter()
     with _StepRecorder() as rec:
         state3, aux, dt = sim.run_adaptive(state, 3, cfl=0.25, dx=dx, umin=WALLS_UMIN)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {w.__name__: w.launches for w in (sc.ell_spmv, sc.take)}
+    launches = {w.__name__: w.launches for w in (sc.ell_spmv, sc.take, cd.comp_dots)}
     peak = torch.cuda.max_memory_allocated() / 2**20
     for k, r in enumerate(rec.rows):
         _log(f"walls (b): step {k + 1}: dt {r['dt']:.6g} (dt nu/dx^2 "
@@ -1877,7 +2017,7 @@ def phase_random_stress(dev, tgv_sim, tgv_state):
     state: the tensor symmetric and traceless, the force linear in
     sqrt(kBT), the noise a function of (seed, step) alone; JAX's threefry
     draw on the card against the CPU's, and three f64 TGV-32 steps against
-    JAX's values."""
+    JAX's values.  Returns comp_dots' launches in the f32 step."""
     from isph_tpu_torch.config import RandomStressConfig
     from isph_tpu_torch.physics import fluctuation as fl
 
@@ -1904,8 +2044,7 @@ def phase_random_stress(dev, tgv_sim, tgv_state):
         rs=RandomStressConfig(enabled=True, kbt=1e-6, seed=seed)))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out, aux = sim.run(tgv_state, 1)
-    torch.cuda.synchronize()
+    (out, aux), launched = _dots_launched("random stress", lambda: sim.run(tgv_state, 1))
     step_ms = 1e3 * (time.perf_counter() - t0)
     base, _ = tgv_sim.run(tgv_state, 1)
     dv = float((out.v - base.v).abs().max())
@@ -1920,6 +2059,7 @@ def phase_random_stress(dev, tgv_sim, tgv_state):
         raise RuntimeError("the random stress failed a check")
     if not (bool(torch.isfinite(out.v).all()) and dv > 0.0):
         raise RuntimeError("the random-stress step is not finite or changed nothing")
+    return launched
 
 # the JAX package's f64 vmax after steps 1-3 at n = 256 (on the CPU; both
 # Poisson solves stop at their 750-iteration cap, so the fields agree to
@@ -2233,13 +2373,14 @@ def phase_solver_extras(dev, flush, main_iters, main_state):
     their plain versions; (b) recycling GMRES steps beside phase 4's plain
     run; (c) pipelined CG beside CG; (d) GMRES with Chebyshev on the step-1
     Helmholtz matrix beside Jacobi."""
+    from isph_tpu_torch.ops import comp_dot_cuda as cd
     from isph_tpu_torch.ops import spmv_cuda as sc
     from isph_tpu_torch.physics import ns_projection as ns
     from isph_tpu_torch.solvers.ilu import build_ilu0, row_slots
     from isph_tpu_torch.solvers.krylov import gmres
     from isph_tpu_torch.solvers.precond import chebyshev, jacobi
 
-    wrappers = (sc.ell_spmv, sc.take)
+    wrappers = (sc.ell_spmv, sc.take, cd.comp_dots)
     sim, state0 = _tgv256(dev)
     out = {}
 
@@ -2294,6 +2435,9 @@ def phase_solver_extras(dev, flush, main_iters, main_state):
     state, aux, out["launches_recycle"] = _run_steps(
         "extras recycle", _with_solver(sim, recycle_k=8), state0, wrappers, cap_check=False,
         each=_record_iters(iters))
+    if min(out["launches_recycle"].values()) <= 0:
+        raise RuntimeError(f"a kernel of the recycling path never launched: "
+                           f"{out['launches_recycle']}")
     dp = float((state.p - main_state.p).abs().max() / main_state.p.abs().max())
     _log(f"extras recycle: Poisson iterations a step {[p for _, p in iters]} against phase "
          f"4's {[p for _, p in main_iters]}; p after 3 steps within {dp:.3e} of phase 4's "
@@ -2310,6 +2454,9 @@ def phase_solver_extras(dev, flush, main_iters, main_state):
                                        each=_record_iters(iters))
         runs[method] = (st, iters, launched)
     out["launches_pipelined"] = runs["pipelined_cg"][2]
+    if min(out["launches_pipelined"].values()) <= 0:
+        raise RuntimeError(f"a kernel of the pipelined CG path never launched: "
+                           f"{out['launches_pipelined']}")
     dp = float((runs["pipelined_cg"][0].p - runs["cg"][0].p).abs().max()
                / runs["cg"][0].p.abs().max())
     _log(f"extras pipelined: (Helmholtz, Poisson) iterations {runs['pipelined_cg'][1]} "
@@ -2659,6 +2806,7 @@ def _sharded_overhead_128(dev, group):
 
 def phase_sharded(dev, flush, large):
     """Phase 26: the sharded step at world size 1 on NCCL, in-process."""
+    from isph_tpu_torch.ops import comp_dot_cuda as cd
     from isph_tpu_torch.ops import spmv_cuda as sc
     from isph_tpu_torch.parallel import mesh
 
@@ -2675,7 +2823,8 @@ def phase_sharded(dev, flush, large):
              f"x-faces, cut {sim.cfg.cut:.6f}), local cell capacity "
              f"{ss._local_cell_capacity()}")
         iters, step_s = [], []
-        st, aux, launches = _run_steps("sharded", sim, st, (sc.ell_spmv, sc.take),
+        st, aux, launches = _run_steps("sharded", sim, st,
+                                       (sc.ell_spmv, sc.take, cd.comp_dots),
                                        each=_record_iters(iters), step_times=step_s,
                                        step=ss.step)
         peak = torch.cuda.max_memory_allocated() / 2**20
@@ -2892,9 +3041,10 @@ def phase_bench(dev):
     the numbers finite and positive, the device named as nvidia-smi names
     it, and both kernels of the set launched."""
     from isph_tpu_torch import bench
+    from isph_tpu_torch.ops import comp_dot_cuda as cd
     from isph_tpu_torch.ops import spmv_cuda as sc
 
-    wrappers = (sc.ell_spmv, sc.take, sc.ell_spmv_band, sc.take_band)
+    wrappers = (sc.ell_spmv, sc.take, sc.ell_spmv_band, sc.take_band, cd.comp_dots)
     torch.cuda.synchronize()
     for w in wrappers:
         w.launches = 0
@@ -2916,7 +3066,7 @@ def phase_bench(dev):
     if ex["tgv2d_best_precond"] not in ("amg", "jacobi") or ex["device"] != _smi():
         raise RuntimeError(f"the bench's line names {ex['device']!r}, best precond "
                            f"{ex['tgv2d_best_precond']!r}")
-    if min(launches["ell_spmv"], launches["take"]) <= 0:
+    if min(launches["ell_spmv"], launches["take"], launches["comp_dots"]) <= 0:
         raise RuntimeError(f"a kernel of the bench's small set never launched: {launches}")
     return launches
 
@@ -2970,12 +3120,15 @@ def main() -> int:
     # phase 3: kernels against their plain versions (L2-sized flush buffer)
     flush = _flush(dev)
     k = _phase("3 (kernels)", phase_kernels, dev, flush)
+
+    # phase 29: the compensated dot kernel against the plain cascade
+    kd = _phase("29 (compensated dot)", phase_comp_dot, dev, flush)
     del flush
 
     # phase 4: main path; phase 5: golden
     launches, tgv_sim, tgv_state, tgv_t, main_iters = _phase("4 (main path)",
                                                              phase_main_path, dev)
-    _phase("5 (golden)", phase_golden, dev)
+    golden_dots = _phase("5 (golden)", phase_golden, dev)
 
     # phase 6: band kernels at 1M; phase 7: the large-N path
     flush = _flush(dev)
@@ -3025,7 +3178,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches_droplet = _phase("19a (droplet)", phase_droplet, dev)
     _phase("19b (micelle)", phase_micelle, dev)
-    _phase("19c (random stress)", phase_random_stress, dev, tgv_sim, tgv_state)
+    rs_dots = _phase("19c (random stress)", phase_random_stress, dev, tgv_sim, tgv_state)
 
     # phase 20: the n = 32 cylinder golden; phase 21: the cylinder at size;
     # phase 23: the MLS operator decks; phase 22: the kernels on the
@@ -3132,6 +3285,20 @@ def main() -> int:
         row("ell_spmv_band", "spmv_band.cu", 458, launches_large["ell_spmv_band"],
             kb["spmv_err"], kb["spmv"]),
         row("take_band", "take_band.cu", 635, launches_large["take_band"], 0.0, kb["take"]),
+        dict(name="comp_dots", route="cuda", source="isph_tpu_torch/csrc/comp_dot.cu",
+             replaces="isph_tpu/utils/fsum.py:56", launches=launches["comp_dots"],
+             max_abs_err=max(r["err"] for r in kd.values()), **times(kd[COMP_DOT_MAIN]),
+             launches_bench=launches_bench["comp_dots"],
+             launches_large=launches_large["comp_dots"], launches_3d=launches_3d["comp_dots"],
+             launches_channel=launches_channel["comp_dots"],
+             launches_walls=launches_walls["comp_dots"],
+             launches_ilu=kx["launches_ilu"]["comp_dots"],
+             launches_recycle=kx["launches_recycle"]["comp_dots"],
+             launches_pipelined=kx["launches_pipelined"]["comp_dots"],
+             launches_sharded=ks["launches"]["comp_dots"], launches_golden=golden_dots,
+             launches_edl_f32=launches_edl["comp_dots_f32"], launches_random_stress=rs_dots,
+             **{f"at_{label.replace(' ', '_').replace('=', '')}": times(t)
+                for label, t in kd.items() if label != COMP_DOT_MAIN}),
     ]
     print(_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -27,7 +27,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from isph_tpu_torch.utils.fsum import comp_dot, comp_dot_rows
+from isph_tpu_torch.ops.comp_dot_cuda import comp_dots
 
 
 class KrylovResult(NamedTuple):
@@ -48,14 +48,12 @@ def _psum(s: torch.Tensor, group) -> torch.Tensor:
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor, group=None) -> torch.Tensor:
-    """a . b; in f32 compensated, and under ``group`` the [hi, lo] pair is
-    all-reduced before it is rounded to one number, as JAX psums it."""
+    """a . b; in f32 compensated (``comp_dots``, the cascade's bits), and
+    under ``group`` the [hi, lo] pair is all-reduced before it is rounded to
+    one number, as JAX psums it."""
     if _use_compensated(a.dtype):
-        hi, lo = comp_dot(a, b)
-        if group is not None:
-            hl = group.psum(torch.stack([hi, lo]))
-            return hl[0] + hl[1]
-        return hi + lo
+        hl = _psum(comp_dots([(a.reshape(-1), b.reshape(-1))]), group)
+        return hl[0, 0] + hl[1, 0]
     return _psum(torch.sum(a * b), group)
 
 
@@ -63,10 +61,8 @@ def _fused_dots(pairs, group=None) -> torch.Tensor:
     """Many dots as one stacked (len(pairs),) tensor: one all-reduce of the
     stacked partials (in f32 the hi and lo parts ride the same one)."""
     if _use_compensated(pairs[0][0].dtype):
-        hilo = [comp_dot(p, q) for p, q in pairs]
-        s = _psum(torch.stack([h for h, _ in hilo] + [l for _, l in hilo]), group)
-        k = len(pairs)
-        return s[:k] + s[k:]
+        hl = _psum(comp_dots([(p.reshape(-1), q.reshape(-1)) for p, q in pairs]), group)
+        return hl[0] + hl[1]
     return _psum(torch.stack([torch.sum(p * q) for p, q in pairs]), group)
 
 
@@ -264,10 +260,8 @@ def _rowdots(pairs, group=None) -> torch.Tensor:
     all-reduce under ``group``); compensated in f32, each row with the bits
     of ``comp_dot`` on it."""
     if _use_compensated(pairs[0][0].dtype):
-        hilo = [comp_dot_rows(p, q) for p, q in pairs]
-        s = _psum(torch.stack([h for h, _ in hilo] + [l for _, l in hilo]), group)
-        k = len(pairs)
-        return s[:k] + s[k:]
+        hl = _psum(comp_dots([(p.contiguous(), q.contiguous()) for p, q in pairs]), group)
+        return (hl[0] + hl[1]).reshape(len(pairs), -1)
     return _psum(torch.stack([torch.sum(p * q, dim=-1) for p, q in pairs]), group)
 
 
