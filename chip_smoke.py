@@ -259,16 +259,20 @@ Phases (each raises on failure; the script then exits non-zero):
    launched;
 29. (run after phase 3) the compensated dot kernel (csrc/comp_dot.cu)
    against the plain cascade of utils/fsum.py run on the same CUDA
-   tensors, bit for bit (the f32 words of every (hi, lo), no tolerance),
-   at N = 16,384, 65,536, 262,144, 1,048,576, 1,318,400 (the sharded 1M
-   slab: three launches), 50,001 and 1, on (C, N) rows with C = 2 and 3
-   and on stacks of 4 pairs (N = 65,536) and 3 pairs (1M); values across
-   12 decades; each timed beside its bound (the inputs read once at the
-   HBM rate), the plain cascade and one library call (torch.dot or
-   torch.linalg.vecdot: a plain f32 sum, other bits).  comp_dots is also
-   counted, and required to launch, on every phase that runs an f32
-   Krylov solve: 4, 5, 7, 9, 11, 14 (its f32 step), 16(b), 19c, 24, 26
-   and 28.
+   tensors, bit for bit (the f32 words of every (hi, lo, hi + lo), no
+   tolerance), with one launch a call, at N = 16,384, 65,536, 262,144,
+   1,048,576, 1,318,400 (the sharded 1M slab), 50,001 and 1, on (C, N)
+   rows with C = 2 and 3 and on stacks of 4 pairs (N = 65,536) and 3
+   pairs (1M); values across 12 decades; each timed beside its bound (the
+   inputs read once at the HBM rate), the plain cascade, one library call
+   (torch.dot or torch.linalg.vecdot: a plain f32 sum, other bits) and an
+   empty launch, with the host's enqueue time of a call; one call
+   captured in a CUDA graph at N = 1, 16,384, 65,536 and 1M, C = 3 and 3
+   pairs at 1M, each replayed three times on fresh inputs copied into
+   the captured tensors, bitwise equal to the plain cascade, the ticket
+   counters at 0 after every replay.  comp_dots is also counted, and
+   required to launch, on every phase that runs an f32 Krylov solve: 4,
+   5, 7, 9, 11, 14 (its f32 step), 16(b), 19c, 24, 26 and 28.
 
 Each phase's wall time is logged on a line of its own ("phase N (...): s"),
 and the whole run's before the last lines.  The configurations' makers
@@ -623,13 +627,17 @@ def phase_kernels(dev, flush):
 
 
 # phase 29's shapes: (label, pairs, C, N); N = 65,536 is the main path's,
-# 1,318,400 the sharded 1M slab's (three passes), 4 pairs pipelined CG's
+# 1,318,400 the sharded 1M slab's, 4 pairs pipelined CG's
 COMP_DOT_SHAPES = (
     ("N=16384", 1, 1, 16_384), ("N=65536", 1, 1, 65_536), ("N=262144", 1, 1, 262_144),
     ("N=1048576", 1, 1, 1_048_576), ("N=1318400", 1, 1, 1_318_400), ("N=50001", 1, 1, 50_001),
     ("N=1", 1, 1, 1), ("C=2 N=65536", 1, 2, 65_536), ("C=3 N=65536", 1, 3, 65_536),
     ("4 pairs N=65536", 4, 1, 65_536), ("3 pairs N=1048576", 3, 1, 1_048_576))
 COMP_DOT_MAIN = "N=65536"
+# the shapes a CUDA graph captures: one block, a cluster, grids with a
+# ticket, rows and a stack on a grid
+COMP_DOT_GRAPHED = ("N=1", "N=16384", "N=65536", "N=1048576", "C=3 N=65536",
+                    "3 pairs N=1048576")
 
 
 def _dot_field(rng, shape, dev):
@@ -648,26 +656,74 @@ def _library_dot(pairs):
     return (lambda: torch.dot(a, b)) if a.ndim == 1 else (lambda: torch.linalg.vecdot(a, b))
 
 
+def _bitwise_equal(got, ref):
+    return got.shape == ref.shape and torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+def _comp_dot_graph(cd, label, pairs, rng, dev):
+    """One comp_dots call captured in a CUDA graph and replayed three times,
+    fresh inputs copied into the captured tensors before each replay: every
+    replay gives the plain cascade's bits on its inputs, and the grid's
+    ticket counters are back at 0 after each."""
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        cd.comp_dots(pairs)  # warm up on the side stream, as torch.cuda.graph asks
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = cd.comp_dots(pairs)
+    for k in range(3):
+        for a, b in pairs:
+            a.copy_(_dot_field(rng, tuple(a.shape), dev))
+            b.copy_(_dot_field(rng, tuple(b.shape), dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = cd.comp_dots_plain(pairs)
+        if not _bitwise_equal(out, ref):
+            raise RuntimeError(f"comp_dots: replay {k + 1} of the graph captured at {label} gives "
+                               f"{out.tolist()}, the plain cascade {ref.tolist()}")
+        live = int(cd._COUNTERS[dev.index].count_nonzero())
+        if live:
+            raise RuntimeError(f"comp_dots: {live} ticket counters not 0 after replay {k + 1} "
+                               f"at {label}")
+    del graph
+    _log(f"comp_dot: {label}: a CUDA graph of one call replayed 3 times on fresh inputs, "
+         f"bitwise equal to the plain cascade each time; counters at 0")
+
+
 def phase_comp_dot(dev, flush):
     """Phase 29: the compensated dot kernel against the plain cascade on the
-    same CUDA tensors, bit for bit (the f32 words compared, no tolerance),
-    at every shape of COMP_DOT_SHAPES; each timed beside its bound (the
-    inputs read once at the HBM rate), the plain cascade and one library
-    call (torch.dot / vecdot: a plain f32 sum, not the same bits)."""
+    same CUDA tensors, bit for bit (the f32 words of hi, lo and hi + lo
+    compared, no tolerance), with one launch a call, at every shape of
+    COMP_DOT_SHAPES; each timed beside its bound (the inputs read once at
+    the HBM rate), the plain cascade and one library call (torch.dot /
+    vecdot: a plain f32 sum, not the same bits), with the host's enqueue
+    time of a call; an empty launch's time (torch.cuda._sleep(0)) beside
+    them; a CUDA graph of one call at each COMP_DOT_GRAPHED shape replayed
+    on fresh inputs."""
     from isph_tpu_torch.ops import comp_dot_cuda as cd
 
     rng = np.random.default_rng(29)
-    rows = {}
+    empty, empty_host = _median_ms(lambda: torch.cuda._sleep(0))
+    _log(f"comp_dot: an empty launch (torch.cuda._sleep(0)) {empty:.4f} ms; host enqueue "
+         f"{empty_host:.1f} us")
+    rows, graphed = {}, {}
     for label, npairs, C, n in COMP_DOT_SHAPES:
         shape = (n,) if C == 1 else (C, n)
         pairs = [(_dot_field(rng, shape, dev), _dot_field(rng, shape, dev))
                  for _ in range(npairs)]
-        got, ref = cd.comp_dots(pairs), cd.comp_dots_plain(pairs)
+        cd.comp_dots.launches = 0
+        got = cd.comp_dots(pairs)
+        launched = cd.comp_dots.launches
+        ref = cd.comp_dots_plain(pairs)
         torch.cuda.synchronize()
-        if got.shape != ref.shape or not torch.equal(got.view(torch.int32),
-                                                     ref.view(torch.int32)):
-            raise RuntimeError(f"comp_dots: the kernel's (hi, lo) {got.tolist()} are not the "
-                               f"plain cascade's {ref.tolist()} at {label}")
+        if not _bitwise_equal(got, ref):
+            raise RuntimeError(f"comp_dots: the kernel's (hi, lo, hi + lo) {got.tolist()} are "
+                               f"not the plain cascade's {ref.tolist()} at {label}")
+        if launched != 1:
+            raise RuntimeError(f"comp_dots: {launched} launches a call at {label}, not 1")
         err = float((got - ref).abs().max())
         tk, hk = _median_ms(lambda: cd.comp_dots(pairs))
         tkc, _ = _median_ms(lambda: cd.comp_dots(pairs), flush=flush)
@@ -675,17 +731,21 @@ def phase_comp_dot(dev, flush):
         lib = _library_dot(pairs)
         tl = None if lib is None else _median_ms(lib, reps=10)[0]
         nrows = npairs * C
-        nbytes = 8 * nrows * n + 8 * nrows
-        flops = nrows * (n + 8 * (cd.padded_length(n) - 1))
+        nbytes = 8 * nrows * n + 12 * nrows
+        flops = nrows * (n + 8 * (cd.padded_length(n) - 1) + 1)
         bound, by = _bound(nbytes, flops)
         rows[label] = dict(ms=tk, plain_ms=tp, library_ms=tl, bound_ms=bound, bound_by=by,
-                           err=err)
+                           err=err, host_us=hk)
         lib_s = "none (a stack)" if tl is None else f"{tl:.4f} ms"
-        _log(f"comp_dot: {label}: bitwise equal to the plain cascade; {len(cd.comp_dot_plan(n))}"
-             f" launches (plan {cd.comp_dot_plan(n)}); kernel={tk:.4f} ms, L2 flushed "
+        _log(f"comp_dot: {label}: bitwise equal to the plain cascade; {launched} launch "
+             f"(plan {cd.comp_dot_plan(n, nrows)}); kernel={tk:.4f} ms, L2 flushed "
              f"{tkc:.4f} ms, bound={bound:.4f} ms ({nbytes / 1e6:.3f} MB, {by}), "
              f"share={bound / tk:.3f}, plain={tp:.4f} ms, library={lib_s}; host enqueue "
              f"{hk:.1f} us")
+        if label in COMP_DOT_GRAPHED:
+            graphed[label] = pairs
+    for label, pairs in graphed.items():
+        _comp_dot_graph(cd, label, pairs, rng, dev)
     return rows
 
 

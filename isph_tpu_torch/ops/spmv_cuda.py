@@ -172,7 +172,9 @@ def _require(cond: bool, msg: str) -> None:
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The handle of the current CUDA stream of ``t``'s device (the capture
+    stream under ``torch.cuda.graph``), without building a Stream object."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def _check_spmv(diag, vals, idx, x) -> tuple[int, int, int]:

@@ -47,13 +47,25 @@ def _psum(s: torch.Tensor, group) -> torch.Tensor:
     return s if group is None else group.psum(s)
 
 
+def _merged(pairs, group, col=slice(None)) -> torch.Tensor:
+    """hi + lo of the ``col`` columns of ``comp_dots(pairs)``: the kernel's
+    merged row with ``group=None``; under ``group`` the (hi, lo) rows are
+    all-reduced first and merged after, as JAX psums the [hi, lo] stack."""
+    hl = comp_dots(pairs)
+    if group is None:
+        return hl[2, col]
+    hl = group.psum(hl[:2])
+    return hl[0, col] + hl[1, col]
+
+
+def _flat(t: torch.Tensor) -> torch.Tensor:
+    return t if t.ndim == 1 else t.reshape(-1)
+
+
 def _dot(a: torch.Tensor, b: torch.Tensor, group=None) -> torch.Tensor:
-    """a . b; in f32 compensated (``comp_dots``, the cascade's bits), and
-    under ``group`` the [hi, lo] pair is all-reduced before it is rounded to
-    one number, as JAX psums it."""
+    """a . b; in f32 compensated (``comp_dots``, the cascade's bits)."""
     if _use_compensated(a.dtype):
-        hl = _psum(comp_dots([(a.reshape(-1), b.reshape(-1))]), group)
-        return hl[0, 0] + hl[1, 0]
+        return _merged([(_flat(a), _flat(b))], group, 0)
     return _psum(torch.sum(a * b), group)
 
 
@@ -61,8 +73,7 @@ def _fused_dots(pairs, group=None) -> torch.Tensor:
     """Many dots as one stacked (len(pairs),) tensor: one all-reduce of the
     stacked partials (in f32 the hi and lo parts ride the same one)."""
     if _use_compensated(pairs[0][0].dtype):
-        hl = _psum(comp_dots([(p.reshape(-1), q.reshape(-1)) for p, q in pairs]), group)
-        return hl[0] + hl[1]
+        return _merged([(_flat(p), _flat(q)) for p, q in pairs], group)
     return _psum(torch.stack([torch.sum(p * q) for p, q in pairs]), group)
 
 
@@ -260,8 +271,8 @@ def _rowdots(pairs, group=None) -> torch.Tensor:
     all-reduce under ``group``); compensated in f32, each row with the bits
     of ``comp_dot`` on it."""
     if _use_compensated(pairs[0][0].dtype):
-        hl = _psum(comp_dots([(p.contiguous(), q.contiguous()) for p, q in pairs]), group)
-        return (hl[0] + hl[1]).reshape(len(pairs), -1)
+        return _merged([(p.contiguous(), q.contiguous()) for p, q in pairs],
+                       group).reshape(len(pairs), -1)
     return _psum(torch.stack([torch.sum(p * q, dim=-1) for p, q in pairs]), group)
 
 

@@ -20,9 +20,10 @@ f32 AMG step on the streaming list and the n = 256 MLS/ALE cylinder in f64
 ``bench_poisson``'s Jacobi and AMG solves at 128^2 and 512^2 (the bench's
 Poisson cells), each as ms an iteration.  Every run prints one JSON line a
 row, ``ROW {...}``; the script relays them with the run's label, prints a
-summary (medians of the two runs of each checkout) and the card's name and
-power limit, and writes everything to LOG as well (default
-``comp_dot_ab.log`` in the working directory).
+summary (medians of the two runs of each checkout, each row's iteration
+counts in the four runs) and the card's name and power limit, and writes
+everything to LOG as well (default ``comp_dot_ab.log`` in the working
+directory).  It exits 1 when a row's counts differ between runs.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ ROOT = Path(__file__).resolve().parent.parent
 
 ROWS = ("tgv128_jacobi", "tgv128_amg", "tgv512_jacobi", "tgv512_amg", "tgv1024_amg",
         "cylinder256_f64")
+ITERS = ("helmholtz_iters", "poisson_iters", "iters")  # the counts both checkouts must share
 
 
 def run_one(root: str) -> None:
@@ -108,9 +110,19 @@ def main(argv) -> int:
                     if "step_seconds" in got[0] else ("solve_ms", "ms_per_iter", "iters"))
             med = {k: statistics.median(r[k] for r in got) for k in keys}
             lines.append(f"  {name} {label}: " + ", ".join(f"{k} {v!r}" for k, v in med.items()))
+    differ = []
+    for name in ROWS + ("poisson128_jacobi", "poisson128_amg", "poisson512_jacobi",
+                        "poisson512_amg"):
+        runs = rows[("other", name)] + rows[("this", name)]
+        counts = {json.dumps({k: r[k] for k in ITERS if k in r}) for r in runs}
+        lines.append(f"  {name}: iterations {' / '.join(sorted(counts))}")
+        if len(counts) != 1:
+            differ.append(name)
+    lines.append(f"iterations equal in every run: {not differ}" +
+                 (f" (they differ on {', '.join(differ)})" if differ else ""))
     log.write_text("\n".join(lines) + "\n")
     print("\n".join(lines))
-    return 0
+    return 1 if differ else 0
 
 
 if __name__ == "__main__":

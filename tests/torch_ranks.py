@@ -20,6 +20,7 @@ from isph_tpu_torch.config import (PoissonBoltzmannConfig, RandomStressConfig,
                                    SoluteTransportConfig)
 from isph_tpu_torch.models import tgv
 from isph_tpu_torch.parallel.sharded import ShardedSimulation, slab
+from isph_tpu_torch.solvers import krylov
 
 
 RS_KBT, RS_SEED = 0.01, 7  # the random stress of the "rs" variant
@@ -286,6 +287,16 @@ def qeq_slabs(group, fields, params, box, cutoff, n_loc, halo):
                         exchange=comm.refresh)
     return (res.state.q[:n_loc].numpy(), int(res.s_info.iters), int(res.t_info.iters),
             int(group.psum(ovf)))
+
+
+def merged_dots(group, vecs, rows):
+    """``krylov._dot``, ``_fused_dots`` and ``_rowdots`` under ``group`` on
+    this rank's f32 slab: ``vecs`` (world, 2, N) and ``rows`` (world, 2, C,
+    N), rank r taking entry r of each."""
+    a, b = (torch.as_tensor(v) for v in vecs[group.rank])
+    p, q = (torch.as_tensor(v) for v in rows[group.rank])
+    return (krylov._dot(a, b, group).numpy(), krylov._fused_dots([(a, b), (b, b)], group).numpy(),
+            krylov._rowdots([(p, q), (q, q)], group).numpy())
 
 
 def several(group, calls):
