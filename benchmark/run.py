@@ -1,0 +1,407 @@
+"""One run of one cell of the benchmark of ``isph_tpu_torch``.
+
+    python3 -m benchmark.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
+
+from the root of a checkout.  ``BENCHMARK.json`` names the cell's
+configuration (``benchmark/configs/<config>.json``), its traffic
+(``benchmark/cells/<traffic>.json``) and its per-layer metrics, each read
+by ``benchmark/metrics/<metric>.py``; nothing else in this file knows a
+cell by name.
+
+A run: the inputs from the seed (:mod:`benchmark.inputs`), the port's
+deck built from them (:mod:`benchmark.program`), then one call of the
+driver's host loop (``Simulation.run_until``, under its overflow policy)
+for ``warmup_steps`` steps and the window: ``window_cycles`` whole cycles
+of ``cycle_steps`` steps (``precond_max_age``, so each cycle holds one AMG
+rebuild), the same steps in every run of the cell, with one synchronize at
+each end.  ``--seconds`` only caps the window: it ends early, at a cycle's
+end, once ``CAP_OVER_SECONDS`` times ``--seconds`` have passed (a program
+slowed that far is still measured within its time).  The collector leaves
+the set-up's objects alone in the window (``gc.freeze``).  ``--trace 1``
+profiles the window's second cycle and leaves the rest untraced.  After
+the window the program's state is freed, and the plain reference (:mod:`benchmark.reference`) recomputes a
+sample of the window's steps, drawn from the seed, from the program's
+state before each; the positions, velocity and pressure each step produced
+are held to it.
+
+The last line of standard output is the result: ``correct``, ``attempted``
+(the window's steps), ``failed`` (steps the overflow policy retried, or
+whose status was not finite), ``metrics``, ``device``, with ``--trace 1``
+``breakdown``, and last ``checks``, each number compared beside its limit
+(also the last lines of standard error).  Without a card, or with fewer
+cards than the cell asks for, it prints no result and exits 2; if JAX or
+the JAX package is loaded once the window has closed, it exits 3.
+"""
+
+from __future__ import annotations
+
+import argparse
+import gc
+import importlib.util
+import json
+import math
+import os
+import random
+import sys
+import time
+from pathlib import Path
+
+BENCH = Path(__file__).resolve().parent
+ROOT = BENCH.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "isph_tpu")
+CAP_OVER_SECONDS = 2.0  # a window ends early, at a cycle's end, past this many --seconds
+PHASES = ("neighbors", "geometry", "compute_pre", "helmholtz", "poisson", "correct", "advance")
+
+
+def log(msg: str) -> None:
+    print(f"[bench] {msg}", file=sys.stderr, flush=True)
+
+
+def process_start() -> float:
+    """Wall-clock time at which this process started (Linux /proc), else
+    now."""
+    try:
+        with open("/proc/self/stat") as f:
+            ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+        with open("/proc/stat") as f:
+            btime = next(int(l.split()[1]) for l in f if l.startswith("btime"))
+        return btime + ticks / os.sysconf("SC_CLK_TCK")
+    except (OSError, ValueError, StopIteration, IndexError):
+        return time.time()
+
+
+def cache_dirs(root: Path) -> None:
+    """Keep every kernel and build cache at a fixed path inside the
+    checkout.  The port builds its kernels into ``build/isph_tpu_torch/``
+    of the checkout itself."""
+    base = root / "build" / "benchmark"
+    for var, sub in (("TORCH_EXTENSIONS_DIR", "torch_extensions"),
+                     ("TRITON_CACHE_DIR", "triton"), ("CUDA_CACHE_PATH", "nv_compute")):
+        os.environ[var] = str(base / sub)
+        (base / sub).mkdir(parents=True, exist_ok=True)
+    os.environ["USE_FLAX"] = "0"
+
+
+def forbidden_modules(modules) -> list[str]:
+    """Loaded modules whose top-level name is exactly one of FORBIDDEN
+    (``isph_tpu_torch`` begins with ``isph_tpu`` and is not one)."""
+    return sorted({m for m in modules if m.split(".")[0] in FORBIDDEN})
+
+
+def load_json(path: Path) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def find_cell(bench: dict, name: str, root: Path = ROOT):
+    """(workload entry, configuration, cell) of the cell ``name``."""
+    work = next((w for w in bench["workloads"] if w["name"] == name), None)
+    if work is None:
+        raise KeyError(f"no workload {name!r} in BENCHMARK.json")
+    conf = next(c for c in bench["configs"] if c["name"] == work["config"])
+    config = load_json(root / conf["file"])
+    cell = load_json(root / "benchmark" / "cells" / f"{work['traffic']}.json")
+    if cell["config"] != work["config"]:
+        raise ValueError(f"cell {work['traffic']} is of {cell['config']}, not {work['config']}")
+    return work, config, cell
+
+
+ENDS = (("step_ms", "ms"), ("peak_mib", "MiB"), ("setup_s", "s"))
+
+
+def end_to_end(bench: dict, workload: str) -> list:
+    """(name, unit) of each end-to-end metric this cell reports.  The part
+    of a name before its first dot names the quantity (``step_ms``,
+    ``peak_mib``, ``setup_s``): ``step_ms.device_paced`` is the step time
+    of the cells it lists, held to a bound of its own."""
+    return [(m["name"], m["unit"]) for m in bench["end_to_end"]
+            if workload in m.get("workloads", [workload])]
+
+
+def metric_readers(bench: dict, workload: str, bench_dir: Path = BENCH) -> dict:
+    """name -> reader module of each per-layer metric this cell reports,
+    found by name in ``benchmark/metrics/``."""
+    out = {}
+    for m in bench["per_layer"]:
+        if "workloads" in m and workload not in m["workloads"]:
+            continue
+        path = bench_dir / "metrics" / f"{m['name']}.py"
+        spec = importlib.util.spec_from_file_location(f"benchmark.metrics.{m['name']}", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        out[m["name"]] = (mod, m["unit"])
+    return out
+
+
+def _gap(a, b, scale: float) -> float:
+    return float((a - b).abs().max()) / scale
+
+
+def judge(config: dict, cell: dict, inputs, checked, *, ref_dtype=None, log=log) -> dict:
+    """Recompute each checked step with the plain reference and return the
+    gaps: velocity over Umax, pressure over rho Umax^2, displacement over
+    Umax dt, each the widest over the particles.  ``checked`` holds
+    (step, (x, v, p) before, (x, v, p) after) as (N, D) / (N,) float64.
+    ``ref_dtype`` puts the reference in the program's place in that type
+    (the control)."""
+    import torch
+
+    from benchmark import reference
+
+    dx = inputs.dx
+    deck = reference.Deck(
+        dim=config["dim"], box=inputs.box, n_side=cell["lattice_n"],
+        h=config["h_over_dx"] * dx, dt=config["dt_over_dx"] * dx, nu=config["nu"],
+        rho=config["rho"], theta=config["theta"], kernel=config["kernel"],
+        cut=config["cut_over_h"] * config["h_over_dx"] * dx)
+    umax, rho = config["umax"], config["rho"]
+    out = {}
+    for tag, (k, (x0, v0, p0), after) in zip("abcdefgh", checked):
+        t = time.perf_counter()
+        ref = reference.step(x0, v0, p0, deck)
+        if ref_dtype is not None:
+            got = reference.step(x0, v0, p0, deck, dtype=ref_dtype, maxiter=500)
+            after = (got.x.double(), got.v.double(), got.p.double())
+        x1, v1, p1 = after
+        d_got = reference.min_image(x1 - x0, deck.box)
+        d_ref = reference.min_image(ref.x - x0, deck.box)
+        out[f"vel_gap_{tag}"] = _gap(v1, ref.v, umax)
+        out[f"pres_gap_{tag}"] = _gap(p1, ref.p, rho * umax * umax)
+        out[f"disp_gap_{tag}"] = _gap(d_got, d_ref, umax * deck.dt)
+        log(f"reference of window step {k}: H {ref.helmholtz_iters} iterations (relres "
+            f"{ref.helmholtz_relres:.2e}), P {ref.poisson_iters} (relres "
+            f"{ref.poisson_relres:.2e}), {time.perf_counter() - t:.1f} s")
+        del ref
+    return out
+
+
+def run_cell(config: dict, cell: dict, *, seed: int, seconds: float, trace: bool, device,
+             t_start: float | None = None, readers: dict | None = None,
+             ends=None, control=None) -> dict:
+    """One run of the cell on ``device``; returns the result line's object.
+    ``ends`` lists the cell's end-to-end metrics as (name, unit)
+    (:func:`end_to_end`; the three quantities by default), ``readers`` its
+    per-layer ones.  ``control`` (a dtype) judges the reference computed in
+    that type in the program's place instead of the program's steps."""
+    import torch
+
+    from benchmark import inputs as inp
+    from benchmark import peaks, program
+    from benchmark import trace as tracemod
+    from benchmark import work as workmod
+
+    t_start = time.time() if t_start is None else t_start
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    n_side = cell["lattice_n"]
+    if config.get("lattice_n", n_side) != n_side:
+        raise ValueError(f"cell at n = {n_side}, configuration at {config['lattice_n']}")
+    cycle, warm = cell["cycle_steps"], cell["warmup_steps"]
+    if warm < 1:
+        raise ValueError("a cell warms up for one step or more: its last opens the window")
+    rng = random.Random(int(seed))
+    offsets = [rng.randrange(cycle) for _ in range(cell["checked_steps"])]
+
+    t_import = time.time()
+    inputs = inp.make_inputs(config, n_side, seed, device)
+    n = inputs.x.shape[0]
+    sim, state = program.build(config, cell, inputs, device, start_step=cycle - warm)
+    start_gap = max(float((state.x[:, :n].T.double() - inputs.x.to(state.dtype).double())
+                          .abs().max()),
+                    float((state.v[:, :n].T.double() - inputs.v.to(state.dtype).double())
+                          .abs().max()),
+                    float(state.p[:n].abs().max()))
+    sync()
+    t_built = time.time()
+
+    # The warm-up and the window are one call of the driver's host loop, so
+    # that shapes it grows carry on; ``on_step`` closes the set-up after the
+    # warm-up and opens and closes the window at cycle ends, with the only
+    # two synchronizes.
+    total = warm + cell["window_cycles"] * cycle
+    cap = CAP_OVER_SECONDS * seconds
+    calls = [0]
+    run_ = {"k": -warm, "before": (state.x, state.v, state.p), "calls0": 0}
+    auxes, held, retried, cycle_ends = [], {}, [], []
+    recorder = prof = None
+    if trace:
+        from torch.profiler import ProfilerActivity, profile, schedule
+
+        recorder = workmod.Recorder()
+        recorder.install()
+
+    def open_window():
+        nonlocal prof
+        sync()
+        run_["t_warm"] = time.time()
+        if trace:
+            acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+            prof = profile(activities=acts,
+                           schedule=schedule(wait=cycle - 1, warmup=1, active=cycle, repeat=1))
+            prof.__enter__()
+        gc.collect()
+        gc.freeze()
+        sync()
+        run_["setup_s"] = time.time() - t_start
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        run_["calls0"] = calls[0]
+        run_["t0"] = time.perf_counter()
+
+    def on_step(new, aux):
+        k = run_["k"]
+        run_["k"] = k + 1
+        after = (new.x, new.v, new.p)
+        if k < 0:  # a warm-up step
+            run_["before"] = after
+            if k == -1:
+                open_window()
+            return False
+        auxes.append(aux)
+        if calls[0] - run_["calls0"] > len(auxes) + len(retried):
+            retried.append(k)
+        if prof is not None:
+            prof.step()
+        j = k % cycle
+        for i, o in enumerate(offsets):
+            if o == j and (i > 0 or k < cycle):
+                held[i] = (k, run_["before"], after)
+        run_["before"] = after
+        if j != cycle - 1:
+            return False
+        cycle_ends.append(time.perf_counter() - run_["t0"])
+        if recorder is not None:
+            recorder.active = k // cycle == 0
+        return len(cycle_ends) >= (2 if trace else 1) and cycle_ends[-1] > cap
+
+    state, _ = program.run(sim, state, total, on_step, calls)
+    sync()
+    window_s = time.perf_counter() - run_["t0"]
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    gc.unfreeze()
+    if recorder is not None:
+        recorder.active = False
+        prof.__exit__(None, None, None)
+    t_warm, setup_s = run_["t_warm"], run_["setup_s"]
+    retries = calls[0] - run_["calls0"] - len(auxes)
+    cycles = len(cycle_ends)
+
+    steps = len(auxes)
+    status_ok = [all(bool(torch.isfinite(f).all()) for f in a.status) for a in auxes]
+    iters = [(int(a.helmholtz_iters), int(a.poisson_iters)) for a in auxes]
+    found = forbidden_modules(sys.modules)
+    if found:
+        raise ForbiddenModules(found)
+    card = torch.cuda.get_device_name() if cuda else "cpu"
+    log(f"{card}; {peaks.power_limit() if cuda else 'no card'}")
+    log(f"window: {steps} steps in {cycles} cycles of {cycle}, {window_s:.3f} s; setup "
+        f"{setup_s:.3f} s; peak {peak / 2**20:.1f} MiB")
+    log(f"host clock at each cycle's end (no synchronize), s: "
+        f"{[round(c, 3) for c in cycle_ends]}")
+    log(f"setup: {t_import - t_start:.3f} s to the first input (interpreter, torch, CUDA), "
+        f"{t_built - t_import:.3f} s inputs and state, {t_warm - t_built:.3f} s "
+        f"{warm} warm-up steps (the kernels' build or load in the first)")
+    log(f"iterations (helmholtz, poisson) a step: {iters}")
+    path = "band path" if cell["stream_window"] else "neighbor list"
+    warm_retries = run_["calls0"] - warm
+    log(f"every step stayed on the {path} with its first shapes: "
+        f"{'yes' if retries + warm_retries == 0 else 'no'} ({warm_retries} retries in the "
+        f"warm-up, {retries} in the window, at window steps {retried})")
+    if cycles < cell["window_cycles"]:
+        log(f"the window ended early: {cycles} of {cell['window_cycles']} cycles in "
+            f"{window_s:.3f} s, past {CAP_OVER_SECONDS} x --seconds")
+
+    result_device = {"platform": "gpu" if cuda else "cpu", "kind": card, "count": 1,
+                     "memory_peak_bytes": int(peak)}
+    metrics, breakdown = {}, None
+    if trace:
+        t = tracemod.collect(prof, PHASES, cycle, [
+            {"helmholtz_iters": h, "poisson_iters": p} for h, p in iters[cycle:2 * cycle]],
+            leave_out=workmod.COUNT_RANGE)
+        t.work = {kind: workmod.totals(recorder.calls, kind) for kind in ("spmv", "gather")}
+        t.bandwidth = peaks.hbm_bandwidth(card) if cuda else 0.0
+        recorder.uninstall()
+        result_device.update(busy_s=t.busy_s, window_s=t.span_s)
+        for name, (mod, unit) in (readers or {}).items():
+            value = mod.read(t)
+            if value is not None:
+                metrics[name] = {"value": value, "unit": unit}
+        log(f"traced cycle: {len(t.device_ops)} device ops, busy {t.busy_s:.4f} s of "
+            f"{t.span_s:.4f} s; device-side phase ranges: {sorted(t.device_ranges)}")
+        breakdown = t.breakdown()
+        del t, prof, recorder
+    else:
+        values = {"step_ms": 1e3 * window_s / steps, "peak_mib": peak / 2**20,
+                  "setup_s": setup_s}
+        for name, unit in (ends or ENDS):
+            metrics[name] = {"value": values[name.split(".")[0]], "unit": unit}
+
+    # free the program, keep the checked steps' fields
+    def host(fields):
+        x, v, p = fields
+        return x[:, :n].T.double(), v[:, :n].T.double(), p[:n].double()
+
+    checked = [(k, host(b), host(a)) for _, (k, b, a) in sorted(held.items())]
+    del sim, state, auxes, held, run_
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    gaps = judge(config, cell, inputs, checked, ref_dtype=control)
+    limits = cell["limits"]
+    checks = {"start_gap": (start_gap, 0.0),
+              "nonfinite_steps": (float(status_ok.count(False)), 0.0)}
+    for name, value in gaps.items():
+        checks[name] = (value, limits[name.rsplit("_", 1)[0]])
+    correct = steps > 0 and all(math.isfinite(v) and v <= lim for v, lim in checks.values())
+    out = {"correct": correct, "attempted": steps,
+           "failed": retries + status_ok.count(False), "metrics": metrics,
+           "device": result_device}
+    if breakdown is not None:
+        out["breakdown"] = breakdown
+    out["checks"] = {k: {"value": v, "limit": lim} for k, (v, lim) in checks.items()}
+    return out
+
+
+class ForbiddenModules(RuntimeError):
+    def __init__(self, found):
+        super().__init__(f"modules of JAX or the JAX package are loaded: {found}")
+        self.found = found
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--workload", required=True)
+    ap.add_argument("--seed", type=int, required=True)
+    ap.add_argument("--seconds", type=float, required=True)
+    ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    args = ap.parse_args(argv)
+    t_start = process_start()
+    cache_dirs(ROOT)
+    import torch
+
+    # the host loop's CPU tensor work is small: two intra-op threads, not
+    # one spinning thread a core beside the loop's own
+    torch.set_num_threads(2)
+    bench = load_json(ROOT / "BENCHMARK.json")
+    work, config, cell = find_cell(bench, args.workload)
+    if not torch.cuda.is_available() or torch.cuda.device_count() < work["chips"]:
+        log(f"needs {work['chips']} CUDA device(s); torch sees "
+            f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}: no result")
+        return 2
+    readers = metric_readers(bench, args.workload) if args.trace else None
+    ends = end_to_end(bench, args.workload)
+    try:
+        out = run_cell(config, cell, seed=args.seed, seconds=args.seconds,
+                       trace=bool(args.trace), device="cuda", t_start=t_start,
+                       readers=readers, ends=ends)
+    except ForbiddenModules as err:
+        log(str(err))
+        return 3
+    for name, c in out["checks"].items():
+        log(f"check {name}: {c['value']!r} (limit {c['limit']!r})")
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
