@@ -31,7 +31,7 @@ from isph_tpu_torch.ops.neighbors import (
 from isph_tpu_torch.physics import ale, electrokinetics, fluctuation, multiphase, ns_projection
 from isph_tpu_torch.physics import shift as shift_mod, transport
 from isph_tpu_torch.physics.status import Status, compute_status
-from isph_tpu_torch.utils.profiling import named_scope
+from isph_tpu_torch.utils.profiling import host_read, named_scope
 
 
 class StepAux(NamedTuple):
@@ -165,7 +165,7 @@ class Simulation:
 
         if cfg.rs.enabled:
             with named_scope("random_stress", dev):
-                step = int(state.step) if state.step is not None else 0
+                step = host_read(state.step) if state.step is not None else 0
                 noise = fluctuation.random_stress_noise(cfg.rs.seed, step, state)
                 f = fluctuation.random_stress_force(state, geom, pre, cfg, noise)
             state = state.replace(f=f)
@@ -307,7 +307,7 @@ class Simulation:
             if growths:
                 sim = sim.with_larger_neighbors()
             new_state, aux = sim.step(state)
-            if int(aux.neighbor_overflow) == 0:
+            if host_read(aux.neighbor_overflow) == 0:
                 return sim, new_state, aux
         raise RuntimeError(
             f"step {done}: neighbor/band overflow persists after {growths} shape "
@@ -360,5 +360,5 @@ class Simulation:
             qdt = quantize ** round(math.log(max(dt, 1e-300), quantize))
             sim = dataclasses.replace(sim, cfg=sim.cfg.replace(dt=qdt))
             sim, state, aux = sim._step_regrown(state, done)
-            dt = cfl * dx / max(float(aux.status.vmax), umin)
+            dt = cfl * dx / max(host_read(aux.status.vmax), umin)
         return state, aux, qdt

@@ -26,6 +26,7 @@ from isph_tpu_torch.ops.neighbors import PairGeom
 from isph_tpu_torch.ops.ell import ELL
 from isph_tpu_torch.utils import dense
 from isph_tpu_torch.utils.fsum import sqrt_rn
+from isph_tpu_torch.utils.profiling import span
 from isph_tpu_torch.utils.packed import (
     packed_identity,
     packed_indices,
@@ -160,7 +161,8 @@ def laplacian_correction(geom: PairGeom, vfrac: torch.Tensor, Gc: torch.Tensor) 
     lonely = (geom.mask.sum(dim=0) == 0).to(dtype)
     L = L + torch.eye(dl, dtype=dtype, device=dev)[:, :, None] * lonely[None, None, :]
 
-    rhs = -torch.as_tensor(packed_identity(dim), dtype=dtype, device=dev)
+    with span("host_read"):  # a copy from host memory synchronizes
+        rhs = -torch.as_tensor(packed_identity(dim), dtype=dtype, device=dev)
     rhs = rhs[:, None].expand(dl, geom.n)
     return dense.solve_leading(L, rhs)
 

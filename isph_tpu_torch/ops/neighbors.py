@@ -40,6 +40,7 @@ import torch
 from isph_tpu_torch.state import Domain
 from isph_tpu_torch.ops.kernels import Kernel
 from isph_tpu_torch.utils.fsum import sqrt_rn
+from isph_tpu_torch.utils.profiling import span
 from isph_tpu_torch.ops.spmv_cuda import (LANE, BandSpec, SlotFormat, slot_format, take,
                                           take_band)
 
@@ -188,7 +189,8 @@ def _compact_rows(r0, r1, c, offsets, table, xtab, xw, valid, domain, cutoff,
     C = len(offsets) * table.shape[1]
     # (Q, B) cell of each offset and row; out-of-range cells read the empty
     # park row
-    off = torch.as_tensor(offsets, dtype=i32, device=dev)
+    with span("host_read"):  # a copy from pageable host memory synchronizes
+        off = torch.as_tensor(offsets, dtype=i32, device=dev)
     in_range = torch.ones((len(offsets), B), dtype=torch.bool, device=dev)
     flat = torch.zeros((len(offsets), B), dtype=i32, device=dev)
     for d in range(dim):
@@ -292,12 +294,19 @@ def build_neighbor_list(
     # entries are left out, as jnp's scatter mode="drop" leaves them out
     rank_w = torch.where(real, rank, cap)
     keep = rank_w < cap
-    rows, cols = sorted_cid[keep].long(), rank_w[keep].long()
+
+    def kept(t):
+        """``t[keep]``: a boolean-mask index sizes its output on the host,
+        a host read."""
+        with span("host_read"):
+            return t[keep]
+
+    rows, cols = kept(sorted_cid).long(), kept(rank_w).long()
     table = torch.full((ncells + 1, cap), n, dtype=i32, device=dev)
-    table[rows, cols] = order[keep].to(i32)
+    table[rows, cols] = kept(order).to(i32)
     xtab = torch.full((dim, ncells + 1, cap), math.inf, dtype=xw.dtype, device=dev)
     for d in range(dim):
-        xtab[d][rows, cols] = xw[d][order][keep]
+        xtab[d][rows, cols] = kept(xw[d][order])
     # empty slots at +inf fail every cutoff test
 
     # --- the cell neighborhood's offsets -----------------------------------
@@ -320,13 +329,14 @@ def build_neighbor_list(
     # Quintic)
     C = len(offsets) * cap
     rows = max(1, _BLOCK_BYTES // (_BYTES_PER_CANDIDATE * C))
-    blocks = [_compact_rows(r0, min(n, r0 + rows), c, offsets, table, xtab, xw, valid,
-                            domain, cutoff, ncell, strides, ncells, K, n)
-              for r0 in range(0, n, rows)]
-    if len(blocks) == 1:
-        idx_nk, mask_nk, count = blocks[0]
-    else:
-        idx_nk, mask_nk, count = (torch.cat(parts) for parts in zip(*blocks))
+    with span("neighbors.search"):
+        blocks = [_compact_rows(r0, min(n, r0 + rows), c, offsets, table, xtab, xw, valid,
+                                domain, cutoff, ncell, strides, ncells, K, n)
+                  for r0 in range(0, n, rows)]
+        if len(blocks) == 1:
+            idx_nk, mask_nk, count = blocks[0]
+        else:
+            idx_nk, mask_nk, count = (torch.cat(parts) for parts in zip(*blocks))
     idx = idx_nk.T.contiguous()
     mask = mask_nk.T.contiguous()
     overflow = torch.clamp_min(count.max() - K, 0) + cell_overflow

@@ -38,7 +38,7 @@ from isph_tpu_torch.solvers.krylov import (KrylovResult, RecycleSpace, cg, gmres
                                            gmres_recycled, init_recycle, make_null_projector,
                                            pipelined_cg)
 from isph_tpu_torch.solvers.precond import jacobi
-from isph_tpu_torch.utils.profiling import named_scope
+from isph_tpu_torch.utils.profiling import host_read, named_scope, span
 
 
 def family_of(cfg: SimulationConfig) -> Family:
@@ -83,7 +83,8 @@ def _precond(cfg: SimulationConfig, A: ELL, *, null_vec=None, amg: Optional[Tupl
         # AMG hierarchy (replaces ML, precond_ml.h); the null vector rides
         # into the hierarchy (ML setNullVector parity)
         x_pos, domain, cutoff = amg
-        return build_amg(A, x_pos, domain, cutoff, null_vec=null_vec).apply
+        with span("amg.build"):
+            return build_amg(A, x_pos, domain, cutoff, null_vec=null_vec).apply
     if sc.precond == "ilu" and null_vec is None:
         return ilu0(A)
     if sc.precond in ("jacobi", "amg", "ilu"):
@@ -189,7 +190,8 @@ def helmholtz_system(
     # b = v + (1-theta) w + dt (f/rho + g)
     w = A.matvec(state.v)
     b = state.v + (1.0 - theta) * w
-    g = torch.as_tensor(cfg.ns.g[: state.dim], dtype=dtype, device=state.device)
+    with span("host_read"):  # a copy from host memory synchronizes
+        g = torch.as_tensor(cfg.ns.g[: state.dim], dtype=dtype, device=state.device)
     body = dt * (state.f / state.rho[None, :] + g[:, None])
     fluid = state.is_fluid
     b = torch.where(fluid[None, :], b + body, b)
@@ -372,8 +374,10 @@ def _amg_cached(cfg: SimulationConfig, A: ELL, amg, null_vec, amg_cache, amg_reb
         return None, None
     if amg_rebuild or amg_cache is None:
         x_pos, domain, cutoff = amg
-        amg_cache = cache_of(build_amg(A, x_pos, domain, cutoff, null_vec=null_vec))
-    return amg_from_cache(A, amg_cache, null_vec=null_vec).apply, amg_cache
+        with span("amg.build"):
+            amg_cache = cache_of(build_amg(A, x_pos, domain, cutoff, null_vec=null_vec))
+    with span("amg.refresh"):
+        return amg_from_cache(A, amg_cache, null_vec=null_vec).apply, amg_cache
 
 
 def relax_wall_pressure(
@@ -486,7 +490,7 @@ def amg_rebuild_due(state: ParticleState, cfg: SimulationConfig) -> Optional[boo
         return None
     if state.amg_cache is None or state.step is None:
         return True
-    return int(state.step) % sc.precond_max_age == 0
+    return host_read(state.step) % sc.precond_max_age == 0
 
 
 def navier_stokes_step(

@@ -42,6 +42,7 @@ import torch
 
 from isph_tpu_torch.ops.ell import ELL
 from isph_tpu_torch.state import Domain
+from isph_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,7 +99,14 @@ def _grid_ell_structure(grid: CoarseGrid, device) -> Tuple[torch.Tensor, torch.T
         flat = (cc * strides[:, None]).sum(axis=0)
         idx[q] = np.where(ok, flat, np.arange(n))
         mask[q] = ok
-    return torch.as_tensor(idx, device=device), torch.as_tensor(mask, device=device)
+    return _to_device(idx, device), _to_device(mask, device)
+
+
+def _to_device(a: np.ndarray, device, dtype=None) -> torch.Tensor:
+    """``a`` on ``device``: a copy from pageable host memory, which
+    synchronizes, so it runs inside a ``host_read`` span."""
+    with span("host_read"):
+        return torch.as_tensor(a, dtype=dtype, device=device)
 
 
 def _slot_of_offset(dim: int) -> np.ndarray:
@@ -149,7 +157,7 @@ def _grid_parent(child: CoarseGrid, parent: CoarseGrid, device) -> torch.Tensor:
     coords = np.stack(np.unravel_index(np.arange(child.n), tuple(child.ncell)))
     centers = np.stack(
         [child.lo[d] + (coords[d] + 0.5) * child.csize[d] for d in range(child.dim)])
-    return _bin_to_grid(torch.as_tensor(centers, dtype=torch.float64, device=device), parent)
+    return _bin_to_grid(_to_device(centers, device, torch.float64), parent)
 
 
 def make_onehot(agg: torch.Tensor, nc: int, dtype: torch.dtype) -> torch.Tensor:
@@ -264,7 +272,7 @@ def galerkin_coarse(
     colc = coords_of(fine_x_agg_of_col.to(torch.int64))  # list of (K, N)
 
     # offset per fine entry, wrapped to {-1, 0, 1}
-    slot_lut = torch.as_tensor(_slot_of_offset(dim), device=dev)
+    slot_lut = _to_device(_slot_of_offset(dim), dev)
     flat_off = torch.zeros(fine_x_agg_of_col.shape, dtype=torch.int32, device=dev)
     valid_off = A.mask > 0
     for d in range(dim):
@@ -400,10 +408,19 @@ class AMG:
         tr = self.transfers[l]
         if self._dist(l):
             # owned partial restrictions -> the replicated coarse residual
-            rc = self.group.psum(tr.restrict(r * self.ownedf))
-            x = x + tr.prolong(self._cycle(l + 1, rc)) * self.ownedf
+            with span("amg.transfer"):
+                rc = tr.restrict(r * self.ownedf)
+            xc = self._cycle(l + 1, self.group.psum(rc))
+            with span("amg.transfer"):
+                xf = tr.prolong(xc)
+            x = x + xf * self.ownedf
         else:
-            x = x + tr.prolong(self._cycle(l + 1, tr.restrict(r)))
+            with span("amg.transfer"):
+                rc = tr.restrict(r)
+            xc = self._cycle(l + 1, rc)
+            with span("amg.transfer"):
+                xf = tr.prolong(xc)
+            x = x + xf
         return self._smooth(l, A, x, b, self.npost)
 
     def _dot(self, a, b):
@@ -417,12 +434,13 @@ class AMG:
         row."""
         if r.ndim == 2:
             return torch.stack([self.apply(x) for x in r])
-        nh = self.null_vec
-        if nh is not None:
-            r = r - self._dot(r, nh) * nh
-        x = self._cycle(0, r)
-        if nh is not None:
-            x = x - self._dot(x, nh) * nh
+        with span("amg.vcycle"):
+            nh = self.null_vec
+            if nh is not None:
+                r = r - self._dot(r, nh) * nh
+            x = self._cycle(0, r)
+            if nh is not None:
+                x = x - self._dot(x, nh) * nh
         return x
 
 
@@ -495,7 +513,8 @@ def build_amg(
         sgn_op = torch.where(Acoarse.diag.sum() < 0, -1.0, 1.0).to(dtype)
         Ad = Ad + sgn_op * (scale / ncoarse) * torch.ones((ncoarse, ncoarse), dtype=dtype,
                                                            device=dev)
-    coarse_inv = torch.linalg.inv(Ad)
+    with span("host_read"):  # inv checks its result on the host: a synchronize
+        coarse_inv = torch.linalg.inv(Ad)
 
     return AMG(levels=levels, dinvs=dinvs, transfers=transfers,
                coarse_inv=coarse_inv, null_vec=_normalized(null_vec, group), npre=npre,

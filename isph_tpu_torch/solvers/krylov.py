@@ -12,7 +12,8 @@ P = I - n n^T.
 The loops keep the JAX package's structure so that iteration counts match
 it exactly; their state stays on the device.  The host reads one flag an
 iteration in the CG variants, once per Arnoldi block and once per restart
-in ``gmres``, and once per restart in ``gmres_recycled``.
+in ``gmres``, and once per restart in ``gmres_recycled``, each through
+``host_read``; every iteration runs inside a ``krylov.iter`` span.
 
 Every solver takes ``group`` (a :class:`~isph_tpu_torch.parallel.mesh.Group`,
 JAX's ``axis_name``): the vectors are then one rank's owned-masked slab and
@@ -28,6 +29,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from isph_tpu_torch.ops.comp_dot_cuda import comp_dots
+from isph_tpu_torch.utils.profiling import host_read, span
 
 
 class KrylovResult(NamedTuple):
@@ -99,6 +101,13 @@ def _identity(v):
     return v
 
 
+def _iters(n: int, device) -> torch.Tensor:
+    """The iteration count on ``device``: a copy from the host, which
+    synchronizes, so it runs inside a ``host_read`` span."""
+    with span("host_read"):
+        return torch.tensor(n, dtype=torch.int32, device=device)
+
+
 def cg(
     matvec: Callable,
     b: torch.Tensor,
@@ -128,19 +137,20 @@ def cg(
     rz, rr, bb = d0[0], d0[1], d0[2]
     bnorm = torch.clamp_min(torch.sqrt(bb), 1e-30)
     it = 0
-    while it < maxiter and bool(torch.sqrt(rr) / bnorm > tol):
-        ap = A(p)
-        alpha = rz / _dot(p, ap, group)
-        x = x + alpha * p
-        r = r - alpha * ap
-        z = M(r)
-        d = _fused_dots([(r, z), (r, r)], group)
-        rz_new, rr = d[0], d[1]
-        p = z + (rz_new / rz) * p
-        rz = rz_new
+    while it < maxiter and host_read(torch.sqrt(rr) / bnorm > tol):
+        with span("krylov.iter"):
+            ap = A(p)
+            alpha = rz / _dot(p, ap, group)
+            x = x + alpha * p
+            r = r - alpha * ap
+            z = M(r)
+            d = _fused_dots([(r, z), (r, r)], group)
+            rz_new, rr = d[0], d[1]
+            p = z + (rz_new / rz) * p
+            rz = rz_new
         it += 1
     relres = torch.sqrt(rr) / bnorm
-    return KrylovResult(x=x, iters=torch.tensor(it, dtype=torch.int32, device=b.device),
+    return KrylovResult(x=x, iters=_iters(it, b.device),
                         relres=relres, converged=relres <= tol)
 
 
@@ -217,7 +227,8 @@ def gmres(
             qj, qj1 = c * rj + s * rj1, -s * rj + c * rj1
             hj = c * hcol[j] + s * hcol[j + 1]
             hcol[j] = hj
-            hcol[j + 1] = 0.0
+            with span("host_read"):  # a Python scalar stored on the card synchronizes
+                hcol[j + 1] = 0.0
 
             # running residual |g_{j+1}| = beta |Q_new[j+1, 0]|
             conv = beta * torch.abs(qj1[0]) / bnorm <= tol
@@ -232,9 +243,10 @@ def gmres(
         jdone = 0
         while jdone < m:
             for i in range(block):
-                done = arnoldi(jdone + i, done)
+                with span("krylov.iter"):
+                    done = arnoldi(jdone + i, done)
             jdone += block
-            if bool(done):
+            if host_read(done):
                 break
         g = beta * Q[:, 0]
 
@@ -249,7 +261,7 @@ def gmres(
         return x, jdone
 
     relres = _norm(b - A(x), group) / bnorm
-    going = bool(relres > tol)
+    going = host_read(relres > tol)
     it = 0
     iters = 0
     stalls = 0
@@ -257,12 +269,12 @@ def gmres(
         x, j = cycle(x)
         relres_new = _norm(b - A(x), group) / bnorm
         # one host read per restart for both tests
-        stalled, going = torch.stack([relres_new > 0.9 * relres, relres_new > tol]).tolist()
+        stalled, going = host_read(torch.stack([relres_new > 0.9 * relres, relres_new > tol]))
         stalls = stalls + 1 if stalled else 0
         relres = relres_new
         it += 1
         iters += j
-    return KrylovResult(x=x, iters=torch.tensor(iters, dtype=torch.int32, device=dev),
+    return KrylovResult(x=x, iters=_iters(iters, dev),
                         relres=relres, converged=relres <= tol)
 
 
@@ -307,22 +319,23 @@ def cg_multi(
         return (torch.sqrt(rr) / bnorm > tol) & (its < maxiter)
 
     act = active(rr, its)
-    while bool(act.any()):  # the one host read of an iteration
-        actf = act.to(dtype)[:, None]
-        AP = matvec(P)
-        pap = _rowdots([(P, AP)], group)[0]
-        alpha = (rz / torch.where(pap != 0, pap, 1.0))[:, None] * actf
-        X = X + alpha * P
-        R = R - alpha * AP
-        Z = M(R)
-        d = _rowdots([(R, Z), (R, R)], group)
-        rz_new = torch.where(act, d[0], rz)
-        rr = torch.where(act, d[1], rr)
-        beta = (rz_new / torch.where(rz != 0, rz, 1.0))[:, None] * actf
-        P = torch.where(act[:, None], Z + beta * P, P)
-        rz = rz_new
-        its = its + act.to(torch.int32)
-        act = active(rr, its)
+    while host_read(act.any()):  # the one host read of an iteration
+        with span("krylov.iter"):
+            actf = act.to(dtype)[:, None]
+            AP = matvec(P)
+            pap = _rowdots([(P, AP)], group)[0]
+            alpha = (rz / torch.where(pap != 0, pap, 1.0))[:, None] * actf
+            X = X + alpha * P
+            R = R - alpha * AP
+            Z = M(R)
+            d = _rowdots([(R, Z), (R, R)], group)
+            rz_new = torch.where(act, d[0], rz)
+            rr = torch.where(act, d[1], rr)
+            beta = (rz_new / torch.where(rz != 0, rz, 1.0))[:, None] * actf
+            P = torch.where(act[:, None], Z + beta * P, P)
+            rz = rz_new
+            its = its + act.to(torch.int32)
+            act = active(rr, its)
     relres = torch.sqrt(rr) / bnorm
     return KrylovResult(x=X, iters=its, relres=relres, converged=relres <= tol)
 
@@ -361,25 +374,26 @@ def pipelined_cg(
     alpha = gamma / delta
     z, q, p, s = nn, m, u, w
     it = 0
-    while it < maxiter and bool(torch.sqrt(rr) / bnorm > tol):
-        x = x + alpha * p
-        r = r - alpha * s
-        u = u - alpha * q
-        w = w - alpha * z
-        d = _fused_dots([(r, u), (w, u), (r, r)], group)
-        gamma_new, delta, rr = d[0], d[1], d[2]
-        m = M(w)
-        nn = A(m)
-        beta = gamma_new / gamma
-        alpha = gamma_new / (delta - beta * gamma_new / alpha)
-        p = u + beta * p
-        s = w + beta * s
-        q = m + beta * q
-        z = nn + beta * z
-        gamma = gamma_new
+    while it < maxiter and host_read(torch.sqrt(rr) / bnorm > tol):
+        with span("krylov.iter"):
+            x = x + alpha * p
+            r = r - alpha * s
+            u = u - alpha * q
+            w = w - alpha * z
+            d = _fused_dots([(r, u), (w, u), (r, r)], group)
+            gamma_new, delta, rr = d[0], d[1], d[2]
+            m = M(w)
+            nn = A(m)
+            beta = gamma_new / gamma
+            alpha = gamma_new / (delta - beta * gamma_new / alpha)
+            p = u + beta * p
+            s = w + beta * s
+            q = m + beta * q
+            z = nn + beta * z
+            gamma = gamma_new
         it += 1
     relres = torch.sqrt(rr) / bnorm
-    return KrylovResult(x=x, iters=torch.tensor(it, dtype=torch.int32, device=b.device),
+    return KrylovResult(x=x, iters=_iters(it, b.device),
                         relres=relres, converged=relres <= tol)
 
 
@@ -493,20 +507,21 @@ def gmres_recycled(
         Bm = torch.zeros((k, m), dtype=dtype, device=dev)
         Z = torch.zeros((m, n), dtype=dtype, device=dev)  # M V, kept for the refresh
         for j in range(m):
-            Z[j] = M(V[j])
-            w = A(Z[j])
-            bj = cdot(C, w)
-            w = w - C.T @ bj
-            h1 = cdot(V, w)
-            w = w - V.T @ h1
-            h2 = cdot(V, w)
-            w = w - V.T @ h2
-            h = h1 + h2
-            hw = _norm(w, group)
-            h[j + 1] = hw
-            V[j + 1] = w / torch.clamp_min(hw, 1e-30)
-            H[:, j] = h
-            Bm[:, j] = bj
+            with span("krylov.iter"):
+                Z[j] = M(V[j])
+                w = A(Z[j])
+                bj = cdot(C, w)
+                w = w - C.T @ bj
+                h1 = cdot(V, w)
+                w = w - V.T @ h1
+                h2 = cdot(V, w)
+                w = w - V.T @ h2
+                h = h1 + h2
+                hw = _norm(w, group)
+                h[j + 1] = hw
+                V[j + 1] = w / torch.clamp_min(hw, 1e-30)
+                H[:, j] = h
+                Bm[:, j] = bj
         e1 = torch.zeros((m + 1,), dtype=dtype, device=dev)
         e1[0] = beta
         y = _lstsq(H, e1)
@@ -520,17 +535,17 @@ def gmres_recycled(
     U, C = reform(recycle.U)
     x = x + U.T @ cdot(C, b - A(x))  # outer projection (no-op when U == 0)
     relres = _norm(b - A(x), group) / bnorm
-    going = bool(relres > tol)
+    going = host_read(relres > tol)
     it = 0
     stalls = 0
     while going and it < max_restarts and stalls < 2:
         x, U, C = cycle(x, U, C)
         relres_new = _norm(b - A(x), group) / bnorm
         # one host read per restart for both tests
-        stalled, going = torch.stack([relres_new > 0.9 * relres, relres_new > tol]).tolist()
+        stalled, going = host_read(torch.stack([relres_new > 0.9 * relres, relres_new > tol]))
         stalls = stalls + 1 if stalled else 0
         relres = relres_new
         it += 1
-    return (KrylovResult(x=x, iters=torch.tensor(it * m, dtype=torch.int32, device=dev),
+    return (KrylovResult(x=x, iters=_iters(it * m, dev),
                          relres=relres, converged=relres <= tol),
             RecycleSpace(U=U, C=C))

@@ -26,6 +26,7 @@ import torch
 
 from isph_tpu_torch.solvers.krylov import _norm, gmres
 from isph_tpu_torch.solvers.precond import jacobi
+from isph_tpu_torch.utils.profiling import host_read
 
 
 class NewtonResult(NamedTuple):
@@ -102,6 +103,6 @@ def newton_krylov(
         nupd = _norm(dx, group) / sqrt_n
         lin = lin + res.iters
         it += 1
-        going = not bool((nf <= tol_f) & (nupd <= tol_update))
+        going = not host_read((nf <= tol_f) & (nupd <= tol_update))
     return NewtonResult(x=x, iters=torch.tensor(it, dtype=torch.int32, device=dev),
                         norm_f=nf, converged=nf <= tol_f, linear_iters=lin)

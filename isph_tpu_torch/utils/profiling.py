@@ -9,7 +9,14 @@ FUNCT_ENTER/EXIT call tracer (macrodef.h:26-41):
   range on a CUDA device, so profiler and Nsight traces carry the step's
   phase names (neighbors / compute_pre / helmholtz / poisson / ...).  Both
   are host-side markers: a scope adds no synchronization and no launch.
-- Timers: host wall-clock phase timers with a summarize() table.
+- span(): a sub-phase range (``krylov.iter``, ``amg.vcycle``, ...) that a
+  profiler records as a host operation on the trace's clock.  Unlike a
+  ``record_function`` range it is no user annotation, so the kernels it
+  launches stay in their phase's device-side range; with no profiler
+  recording it costs one context enter and exit.  No NVTX range.
+- host_read(): the step's device-to-host reads, each inside a
+  ``host_read`` span whose host duration is the time the host waited on
+  the card.
 - trace(): ``torch.profiler.profile`` around a block, exported as a Chrome
   trace.
 """
@@ -18,11 +25,10 @@ from __future__ import annotations
 
 import contextlib
 import os
-import time
-from collections import defaultdict
-from typing import Dict, Iterator, Optional
+from typing import Iterator, Optional
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
 
 
 @contextlib.contextmanager
@@ -40,30 +46,17 @@ def named_scope(name: str, device: Optional[torch.device] = None) -> Iterator[No
                 torch.cuda.nvtx.range_pop()
 
 
-class Timers:
-    """Host-side phase timers (Teuchos::TimeMonitor replacement).  CUDA
-    work is asynchronous: synchronize inside the timed region for device
-    time rather than launch time."""
+def span(name: str) -> _RecordFunctionFast:
+    """A sub-phase range: a FUNCTION-scope host operation in a profiler's
+    trace, recorded only while a profiler is on."""
+    return _RecordFunctionFast(name)
 
-    def __init__(self):
-        self._acc: Dict[str, float] = defaultdict(float)
-        self._cnt: Dict[str, int] = defaultdict(int)
 
-    @contextlib.contextmanager
-    def scope(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            with named_scope(name):
-                yield
-        finally:
-            self._acc[name] += time.perf_counter() - t0
-            self._cnt[name] += 1
-
-    def summarize(self) -> str:
-        lines = ["%-40s %10s %8s" % ("timer", "total[s]", "calls")]
-        for name in sorted(self._acc):
-            lines.append("%-40s %10.4f %8d" % (name, self._acc[name], self._cnt[name]))
-        return "\n".join(lines)
+def host_read(t: torch.Tensor):
+    """``t``'s value on the host (bool, int or float for a 0-d tensor, else
+    a list), read inside a ``host_read`` span."""
+    with _RecordFunctionFast("host_read"):
+        return t.item() if t.ndim == 0 else t.tolist()
 
 
 @contextlib.contextmanager

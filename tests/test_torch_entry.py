@@ -2,8 +2,8 @@
 f64: ``Simulation.run_until`` and ``run_adaptive``, ``spatial_sort_order``
 and ``reorder_by``, ``models/error.py`` and ``utils/profiling.py``.
 
-Tolerances: stop steps, dt sequences, permutations and the timer table
-exactly; states within 1e-9 absolute with equal Krylov iteration counts
+Tolerances: stop steps, dt sequences and permutations exactly; states
+within 1e-9 absolute with equal Krylov iteration counts
 (tests/test_torch_step.py's bar); analytic errors within 1e-12 relative.
 """
 
@@ -19,7 +19,6 @@ from isph_tpu.models import driver as jdriver
 from isph_tpu.models import error as jerror
 from isph_tpu.models import tgv as jtgv
 from isph_tpu.ops import neighbors as jnb
-from isph_tpu.utils import profiling as jprof
 
 from isph_tpu_torch import interop
 from isph_tpu_torch.models import driver, error, tgv
@@ -239,19 +238,6 @@ def test_analytic_modifier_matches_jax():
         for f in ("v", "p"):
             np.testing.assert_allclose(getattr(got, f).numpy(), np.asarray(getattr(ref, f)),
                                        rtol=1e-12, atol=1e-15, err_msg=f)
-
-
-def test_timers_summarize_has_jax_format():
-    """Same timers and totals give JAX's table character for character."""
-    t, jt = profiling.Timers(), jprof.Timers()
-    for timers in (t, jt):
-        for name in ("poisson", "helmholtz", "poisson"):
-            with timers.scope(name):
-                pass
-    for timers in (t, jt):
-        timers._acc.update({"poisson": 1.23456, "helmholtz": 0.5})
-    assert t.summarize() == jt.summarize()
-    assert t.summarize().splitlines()[2].split() == ["poisson", "1.2346", "2"]
 
 
 def test_step_phases_appear_in_a_trace(tmp_path):

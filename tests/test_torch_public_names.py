@@ -19,8 +19,9 @@ import pytest
 
 # The TPU gather-plan machinery (ROADMAP North star, "What is not ported":
 # CUDA has a general gather, so the Pallas kernels became ops/spmv_cuda.py),
-# and the zero AMG cache (the port builds its hierarchy at a state's first
-# solve).
+# the zero AMG cache (the port builds its hierarchy at a state's first
+# solve), and the host timer registry (the port times through the
+# profiler's one clock: named phases and sub-phase spans).
 NOT_PORTED = {
     ("isph_tpu.ops", "spmv_pallas"),
     ("isph_tpu.ops.spmv_pallas", None),
@@ -28,6 +29,7 @@ NOT_PORTED = {
     ("isph_tpu.ops.neighbors", "GatherPlan"),
     ("isph_tpu.ops.neighbors", "make_gather_plan"),
     ("isph_tpu.solvers.amg", "amg_cache_zeros"),
+    ("isph_tpu.utils.profiling", "Timers"),
 }
 
 SUBPACKAGES = ("io", "models", "ops", "parallel", "physics", "solvers", "utils")
