@@ -272,7 +272,19 @@ Phases (each raises on failure; the script then exits non-zero):
    the captured tensors, bitwise equal to the plain cascade, the ticket
    counters at 0 after every replay.  comp_dots is also counted, and
    required to launch, on every phase that runs an f32 Krylov solve: 4,
-   5, 7, 9, 11, 14 (its f32 step), 16(b), 19c, 24, 26 and 28.
+   5, 7, 9, 11, 14 (its f32 step), 16(b), 19c, 24, 26 and 28;
+30. (run after phase 29) the AMG transfer kernels (csrc/agg_transfer.cu)
+   at the cells' shapes, f32: the 1M cell's level 0 (12,769 aggregates of
+   ~82 rows of a 1024^2 lattice) and level 1 (1,369 of ~9, the grid
+   parents), 64^3's (64 of 4,096) and the 1M Galerkin build's C = 10
+   rows: restrict the same bits on two calls, one launch each, within
+   1e-5 of the plain version relative to each aggregate's sum of |v|;
+   prolong-add bit for bit the plain version; each timed (warm and with
+   L2 flushed) beside its bound (v and order read, rc written; x and agg
+   read, out written, at the HBM rate), the plain version and the library
+   call (index_add_; index_select and an add), which the port never
+   calls.  Both kernels are also counted, and required to launch, on the
+   AMG phases 7 and 9.
 
 Each phase's wall time is logged on a line of its own ("phase N (...): s"),
 and the whole run's before the last lines.  The configurations' makers
@@ -291,7 +303,9 @@ positions of phase 25, the sharded A_own and strip of phase 26 and the
 extended slabs of phase 27, with their launches on phases 9, 11, 14-16,
 18, 19, 21, 24, 25, 26 and 27; every kernel's launches in phase 28 as
 launches_bench; comp_dots with its launches on phases 4, 5, 7, 9, 11,
-14, 16, 19c, 24, 26 and 28 and phase 29's other shapes),
+14, 16, 19c, 24, 26 and 28 and phase 29's other shapes; the two AMG
+transfer kernels at the 1M cell's level 0 with their launches on phases
+7 and 9 and phase 30's other shapes),
 and the result line
 {"ok": true, "device": {...}}.  Without a CUDA device it prints no result
 and exits non-zero.
@@ -749,6 +763,99 @@ def phase_comp_dot(dev, flush):
     return rows
 
 
+def _lattice_aggs(side, cells, dim, dev):
+    """Aggregates of a side^dim lattice (row-major, as the TGV decks lay
+    it out) binned to a cells^dim grid."""
+    c = torch.arange(side, device=dev) * cells // side
+    grid = torch.meshgrid(*([c] * dim), indexing="ij")
+    return sum(g * cells ** (dim - 1 - d) for d, g in enumerate(grid)).reshape(-1).to(
+        torch.int32)
+
+
+def _agg_transfers(dev):
+    """(label, AMG transfer) at the cells' shapes: the 1M cell's level 0
+    (12,769 aggregates of ~82 rows), its level 1 (1,369 of ~9, the grid
+    parents) and 64^3's (64 of 4,096)."""
+    from isph_tpu_torch.solvers import amg
+
+    g113 = amg.CoarseGrid((113, 113), (2 * math.pi / 113,) * 2, (True, True), (0.0, 0.0))
+    g37 = amg.CoarseGrid((37, 37), (2 * math.pi / 37,) * 2, (True, True), (0.0, 0.0))
+    return ((AGG_MAIN, amg.make_transfer(_lattice_aggs(1024, 113, 2, dev), 113 * 113)),
+            ("1M level 1", amg.make_transfer(amg._grid_parent(g113, g37, dev), 37 * 37)),
+            ("64^3", amg.make_transfer(_lattice_aggs(64, 4, 3, dev), 64)))
+
+
+# phase 30's main row, the 1M cell's level 0, and the f32 restrict's
+# tolerance against the plain version (another summation order)
+AGG_MAIN = "1M level 0"
+AGG_RTOL = 1e-5
+
+
+def phase_agg_transfer(dev, flush):
+    """Phase 30: the AMG transfer kernels at the cells' shapes (module
+    docstring)."""
+    from isph_tpu_torch.ops import agg_transfer_cuda as at
+
+    transfers = _agg_transfers(dev)
+    shapes = (*((label, tr, 1) for label, tr in transfers),
+              ("1M Galerkin C=10", transfers[0][1], 10))
+    gen = torch.Generator(device=dev).manual_seed(30)
+    rows = {}
+    for label, tr, C in shapes:
+        n, nc = tr.agg.shape[0], tr.nc
+        v = torch.randn((C, n) if C > 1 else (n,), generator=gen, device=dev)
+        at.agg_restrict.launches = 0
+        got, again = tr.restrict(v), tr.restrict(v)
+        torch.cuda.synchronize()
+        if at.agg_restrict.launches != 2 or not _bitwise_equal(got, again):
+            raise RuntimeError(f"agg_restrict: not one launch a call with the same bits at "
+                               f"{label}")
+        plain = at.agg_restrict_plain(v, tr.order, tr.start)
+        aggl = tr.agg.long()
+        scale = torch.zeros_like(got).index_add_(-1, aggl, v.abs())
+        err = float(((got - plain).abs() / scale.clamp_min(1e-30)).max())
+        if err > AGG_RTOL:
+            raise RuntimeError(f"agg_restrict: {err:.3e} of an aggregate's sum of |v| from "
+                               f"the plain version at {label}")
+        item = v.element_size()
+        nbytes = C * n * item + 4 * n + 4 * (nc + 1) + C * nc * item
+        bound, by = _bound(nbytes)
+        tk, hk = _median_ms(lambda: tr.restrict(v))
+        tkc, _ = _median_ms(lambda: tr.restrict(v), flush=flush)
+        tp, _ = _median_ms(lambda: at.agg_restrict_plain(v, tr.order, tr.start), reps=10)
+        tl, _ = _median_ms(lambda: torch.zeros_like(got).index_add_(-1, aggl, v), reps=10)
+        rows[f"restrict {label}"] = dict(ms=tk, plain_ms=tp, library_ms=tl, bound_ms=bound,
+                                         bound_by=by, err=err, host_us=hk)
+        _log(f"agg_transfer: restrict {label} (N={n}, nc={nc}, C={C}, group "
+             f"{at.restrict_group(n, nc)}): same bits on two calls, {err:.2e} of the sum of "
+             f"|v| from the plain version; kernel={tk:.4f} ms, L2 flushed {tkc:.4f} ms, "
+             f"bound={bound:.4f} ms ({nbytes / 1e6:.3f} MB, {by}), share={bound / tk:.3f}, "
+             f"plain={tp:.4f} ms, library (zeros + index_add_)={tl:.4f} ms; host enqueue "
+             f"{hk:.1f} us")
+        if C > 1:
+            continue
+        x = torch.randn(n, generator=gen, device=dev)
+        xc = torch.randn(nc, generator=gen, device=dev)
+        at.agg_prolong_add.launches = 0
+        out = tr.prolong_add(x, xc)
+        if at.agg_prolong_add.launches != 1 or not _bitwise_equal(
+                out, at.agg_prolong_add_plain(x, xc, tr.agg)):
+            raise RuntimeError(f"agg_prolong_add: not x + xc[agg] bit for bit at {label}")
+        nbytes = 2 * n * item + 4 * n + nc * item
+        bound, by = _bound(nbytes)
+        tk, hk = _median_ms(lambda: tr.prolong_add(x, xc))
+        tkc, _ = _median_ms(lambda: tr.prolong_add(x, xc), flush=flush)
+        tp, _ = _median_ms(lambda: at.agg_prolong_add_plain(x, xc, tr.agg), reps=10)
+        tl, _ = _median_ms(lambda: x + torch.index_select(xc, 0, aggl), reps=10)
+        rows[f"prolong_add {label}"] = dict(ms=tk, plain_ms=tp, library_ms=tl, bound_ms=bound,
+                                            bound_by=by, err=0.0, host_us=hk)
+        _log(f"agg_transfer: prolong_add {label} (N={n}, nc={nc}): bit for bit x + xc[agg]; "
+             f"kernel={tk:.4f} ms, L2 flushed {tkc:.4f} ms, bound={bound:.4f} ms "
+             f"({nbytes / 1e6:.3f} MB, {by}), share={bound / tk:.3f}, plain={tp:.4f} ms, "
+             f"library (index_select + add)={tl:.4f} ms; host enqueue {hk:.1f} us")
+    return rows
+
+
 def _run_steps(tag, sim, state, wrappers, cap_check=True, nsteps=3, each=None,
                step_times=None, step=None):
     """``nsteps`` steps through Simulation.run, one call per step
@@ -951,6 +1058,7 @@ def phase_band_kernels(dev, flush):
 def phase_large_n(dev):
     """Three TGV-1024^2 f32 steps through Simulation.run with AMG on the
     streaming list."""
+    from isph_tpu_torch.ops import agg_transfer_cuda as at
     from isph_tpu_torch.ops import comp_dot_cuda as cd
     from isph_tpu_torch.ops import spmv_cuda as sc
 
@@ -958,11 +1066,13 @@ def phase_large_n(dev):
     iters, step_s = [], []
     state, aux, launches = _run_steps(
         "large", sim, state,
-        (sc.ell_spmv, sc.take, sc.ell_spmv_band, sc.take_band, cd.comp_dots),
+        (sc.ell_spmv, sc.take, sc.ell_spmv_band, sc.take_band, cd.comp_dots, at.agg_restrict,
+         at.agg_prolong_add),
         each=_record_iters(iters), step_times=step_s)
-    if min(launches["ell_spmv_band"], launches["take_band"], launches["comp_dots"]) <= 0:
-        raise RuntimeError(f"a band kernel or comp_dots never launched on the large-N path: "
-                           f"{launches}")
+    if min(launches["ell_spmv_band"], launches["take_band"], launches["comp_dots"],
+           launches["agg_restrict"], launches["agg_prolong_add"]) <= 0:
+        raise RuntimeError(f"a band kernel, comp_dots or an AMG transfer kernel never "
+                           f"launched on the large-N path: {launches}")
     _check_vortex("large", aux, (2 * math.pi) ** 2)
     _breakdown_amg("large", sim, state)
     return launches, dict(ke=float(aux.status.kinetic_energy), vmax=float(aux.status.vmax),
@@ -1014,8 +1124,9 @@ def _breakdown_amg(tag, sim, state, forcing=None):
     mark("poisson_assembly")
     cache = amg.cache_of(amg.build_amg(A_f, state.x, sim.domain, cfg.cut, null_vec=null))
     mark("amg_build")
-    _log(f"{tag}: AMG coarse grids {cache.grid_shapes}, level-0 transfer "
-         f"{type(cache.transfers[0]).__name__}")
+    _log(f"{tag}: AMG coarse grids {cache.grid_shapes}, aggregates "
+         f"{[tr.nc for tr in cache.transfers]} of "
+         f"{[round(tr.agg.shape[0] / tr.nc, 1) for tr in cache.transfers]} rows")
     M = amg.amg_from_cache(A_f, cache, null_vec=null).apply
     vcycles = []
 
@@ -1134,6 +1245,7 @@ def phase_3d_kernels(dev, flush):
 
 def phase_3d_path(dev):
     """Three TGV-64^3 f32 Quintic steps through Simulation.run with AMG."""
+    from isph_tpu_torch.ops import agg_transfer_cuda as at
     from isph_tpu_torch.ops import comp_dot_cuda as cd
     from isph_tpu_torch.ops import spmv_cuda as sc
 
@@ -1153,7 +1265,8 @@ def phase_3d_path(dev):
     if cmax != 388 or ovf != 0:
         raise RuntimeError("the 3-D lattice should give 388 neighbors a particle, no overflow")
     state, aux, launches = _run_steps("3d path", sim, state,
-                                      (sc.ell_spmv, sc.take, cd.comp_dots))
+                                      (sc.ell_spmv, sc.take, cd.comp_dots, at.agg_restrict,
+                                       at.agg_prolong_add))
     if min(launches.values()) <= 0:
         raise RuntimeError(f"a kernel of the 3-D path never launched: {launches}")
     _check_vortex("3d path", aux, (2 * math.pi) ** 3)
@@ -3183,6 +3296,9 @@ def main() -> int:
 
     # phase 29: the compensated dot kernel against the plain cascade
     kd = _phase("29 (compensated dot)", phase_comp_dot, dev, flush)
+
+    # phase 30: the AMG transfer kernels at the cells' shapes
+    ka = _phase("30 (AMG transfers)", phase_agg_transfer, dev, flush)
     del flush
 
     # phase 4: main path; phase 5: golden
@@ -3360,6 +3476,15 @@ def main() -> int:
              **{f"at_{label.replace(' ', '_').replace('=', '')}": times(t)
                 for label, t in kd.items() if label != COMP_DOT_MAIN}),
     ]
+    for name, op in (("agg_restrict", "restrict"), ("agg_prolong_add", "prolong_add")):
+        kernels.append(dict(
+            name=name, route="cuda", source="isph_tpu_torch/csrc/agg_transfer.cu",
+            replaces="none (XLA's one-hot products, isph_tpu/solvers/amg.py)",
+            launches=launches_large[name], launches_3d=launches_3d[name],
+            max_abs_err=max(r["err"] for k, r in ka.items() if k.startswith(op + " ")),
+            **times(ka[f"{op} {AGG_MAIN}"]),
+            **{f"at_{k[len(op) + 1:].replace(' ', '_').replace('^', '')}": times(r)
+               for k, r in ka.items() if k.startswith(op + " ") and not k.endswith(AGG_MAIN)}))
     print(_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

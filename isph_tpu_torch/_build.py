@@ -142,6 +142,10 @@ def load(path: Path) -> ctypes.CDLL:
     lib.isph_take_band.restype = i32
     lib.isph_comp_dots.argtypes = [vp] * 8 + [i32, i32, i64, vp, i64, vp, i32, vp]
     lib.isph_comp_dots.restype = i32
+    lib.isph_agg_restrict.argtypes = [i32, vp, vp, vp, vp, i64, i32, i32, i32, i32, vp]
+    lib.isph_agg_restrict.restype = i32
+    lib.isph_agg_prolong_add.argtypes = [i32, vp, vp, vp, vp, vp, i64, i32, vp]
+    lib.isph_agg_prolong_add.restype = i32
     lib.isph_smem_optin.argtypes = [i32]
     lib.isph_smem_optin.restype = i32
     return lib

@@ -16,7 +16,7 @@ import torch
 from isph_tpu_torch import config as C
 from isph_tpu_torch.ops.ell import ELL
 from isph_tpu_torch.physics.ale import ALEHistory
-from isph_tpu_torch.solvers.amg import AMGCache, DenseTransfer, FactoredTransfer, _stencil_offsets
+from isph_tpu_torch.solvers.amg import AMGCache, _stencil_offsets, _strides, make_transfer
 from isph_tpu_torch.solvers.krylov import RecycleSpace
 from isph_tpu_torch.state import ParticleState
 
@@ -52,38 +52,50 @@ def _recycle_space(arr, device, dtype: torch.dtype) -> RecycleSpace:
     return RecycleSpace(U=U, C=C)
 
 
+# isph_tpu.solvers.amg.build_amg's default ``onehot_budget``: JAX's level-0
+# transfer is factored per axis when the dense one-hot would exceed it
+_JAX_ONEHOT_BUDGET = 4_000_000
+
+
 def _amg_cache(arr: Mapping, device, dtype: torch.dtype) -> Optional[AMGCache]:
     """The port's ``AMGCache`` from JAX's as a mapping of its fields
     (``dataclasses.asdict`` of the JAX ``AMGCache``): the coarse ELLs, whose
-    slot formats are built here, the transfers (``oh`` of a dense one,
-    ``axes_oh`` and ``shape`` of a factored one), the coarse smoother
-    diagonals, the coarse inverse and the grid shapes.  ``aggs`` is not
-    read: the transfers carry the aggregates.  A ``coarse_inv`` of zeros is
-    the seed of JAX's ``prepare`` (``amg_cache_zeros``), no hierarchy: it
-    maps to None, and the port builds at the state's first solve.  The
-    static fields that a JAX checkpoint does not hold may be left out: the
-    grid shapes are then read off the coarse ELLs (:func:`_grid_shape`) and
-    a factored transfer's shape off its per-axis one-hots."""
+    slot formats are built here, the transfers, the coarse smoother
+    diagonals, the coarse inverse and the grid shapes.  Each transfer's
+    aggregates are read off its one-hots on the host (``oh`` of a dense
+    one: each column's 1; ``axes_oh`` and ``shape`` of a factored one: the
+    sum over axes of each axis's cell times its stride), and the port's
+    :class:`~isph_tpu_torch.solvers.amg.AggTransfer` keeps which form it
+    came in.  ``aggs`` is not read.  A ``coarse_inv`` of zeros is the seed
+    of JAX's ``prepare`` (``amg_cache_zeros``), no hierarchy: it maps to
+    None, and the port builds at the state's first solve.  The static
+    fields that a JAX checkpoint does not hold may be left out: the grid
+    shapes are then read off the coarse ELLs (:func:`_grid_shape`) and a
+    factored transfer's shape off its per-axis one-hots."""
     if not np.asarray(arr["coarse_inv"]).any():
         return None
 
     def t(a, dt=dtype):
         return torch.as_tensor(np.array(a), dtype=dt, device=device)
 
+    def transfer(tr):
+        if "oh" in tr:
+            oh = np.asarray(tr["oh"])
+            return make_transfer(t(oh.argmax(axis=0), torch.int32), oh.shape[0], "oh")
+        axes = [np.asarray(a) for a in tr["axes_oh"]]
+        shape = tuple(int(n) for n in tr.get("shape") or (a.shape[0] for a in axes))
+        agg = sum(int(st) * a.argmax(axis=0) for st, a in zip(_strides(shape), axes))
+        return make_transfer(t(agg, torch.int32), int(np.prod(shape)), "axes_oh")
+
     levels = tuple(ELL(diag=t(lv["diag"]), vals=t(lv["vals"]), mask=t(lv["mask"]),
                        idx=t(lv["idx"], torch.int32))
                    for lv in arr["coarse_levels"])
-    transfers = tuple(
-        DenseTransfer(oh=t(tr["oh"])) if "oh" in tr else
-        FactoredTransfer(axes_oh=tuple(t(a) for a in tr["axes_oh"]),
-                         shape=tuple(int(n) for n in tr.get("shape") or
-                                     (np.shape(a)[0] for a in tr["axes_oh"])))
-        for tr in arr["transfers"])
     shapes = arr.get("grid_shapes")
     if shapes is None:
         shapes = [_grid_shape(np.asarray(lv["idx"]), np.asarray(lv["mask"]))
                   for lv in arr["coarse_levels"]]
-    return AMGCache(coarse_levels=levels, transfers=transfers,
+    return AMGCache(coarse_levels=levels,
+                    transfers=tuple(transfer(tr) for tr in arr["transfers"]),
                     coarse_dinvs=tuple(t(a) for a in arr["coarse_dinvs"]),
                     coarse_inv=t(arr["coarse_inv"]),
                     grid_shapes=tuple(tuple(int(n) for n in g) for g in shapes))
@@ -118,18 +130,35 @@ def _grid_shape(idx: np.ndarray, mask: np.ndarray) -> Tuple[int, ...]:
 
 def _amg_cache_to_numpy(cache: AMGCache) -> dict:
     """What JAX's ``AMGCache`` is built from, as numpy: its fields, with
-    ``aggs`` (each level's aggregate of every row, int32) read off the
-    one-hot transfers, and each ``ELL`` as its four arrays."""
+    ``aggs`` each level's aggregate of every row (int32), each ``ELL`` as
+    its four arrays, and JAX's one-hot transfers formed here on the host
+    from the aggregates, in the coarse levels' float type.  A transfer
+    taken over from JAX keeps its form; one the port built takes the form
+    JAX's ``build_amg`` gives by default (level 0 factored per axis beyond
+    its one-hot budget, every other level dense)."""
     def np_(a):
         return a.detach().cpu().numpy()
+
+    dtype = np_(cache.coarse_inv).dtype
+    n0 = cache.transfers[0].agg.shape[0]
+
+    def onehot(ids, n):
+        return (ids[None, :] == np.arange(n, dtype=ids.dtype)[:, None]).astype(dtype)
+
+    def transfer(l, tr):
+        agg, shape = np_(tr.agg), tuple(cache.grid_shapes[l])
+        form = tr.jax_form or ("axes_oh" if l == 0 and tr.nc * n0 > _JAX_ONEHOT_BUDGET
+                               else "oh")
+        if form == "oh":
+            return {"oh": onehot(agg, tr.nc)}
+        cells = [(agg // int(st)) % nd for st, nd in zip(_strides(shape), shape)]
+        return {"axes_oh": [onehot(c, nd) for c, nd in zip(cells, shape)], "shape": shape}
 
     return dict(
         coarse_levels=[dict(diag=np_(lv.diag), vals=np_(lv.vals), mask=np_(lv.mask),
                             idx=np_(lv.idx).astype(np.int32)) for lv in cache.coarse_levels],
-        aggs=[np_(tr.aggregates()).astype(np.int32) for tr in cache.transfers],
-        transfers=[{"oh": np_(tr.oh)} if isinstance(tr, DenseTransfer) else
-                   {"axes_oh": [np_(a) for a in tr.axes_oh], "shape": tuple(tr.shape)}
-                   for tr in cache.transfers],
+        aggs=[np_(tr.agg).astype(np.int32) for tr in cache.transfers],
+        transfers=[transfer(l, tr) for l, tr in enumerate(cache.transfers)],
         coarse_dinvs=[np_(a) for a in cache.coarse_dinvs],
         coarse_inv=np_(cache.coarse_inv),
         grid_shapes=tuple(tuple(g) for g in cache.grid_shapes))

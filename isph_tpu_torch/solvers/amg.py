@@ -14,9 +14,16 @@ with the JAX package's design:
 - Damped l1-Jacobi smoothing; the coarsest level is a dense inverse.
 
 The V-cycle is a fixed linear operator, so it right-preconditions GMRES.
-Restriction and prolongation are one-hot matrix products (``torch.matmul``;
-the JAX package leaves them to XLA, outside any Pallas kernel); the
-segment sums of the transfer-free Galerkin path are ``index_add_``.
+Restriction and prolongation (:class:`AggTransfer`) are indexed by
+aggregate ids, each one launch of a hand-written kernel on the card
+(``ops/agg_transfer_cuda.py``): a segment sum over the rows sorted by
+aggregate, in an order fixed by the shapes, and a gather fused with the
+V-cycle's x + P xc.  The JAX package's one-hot matrix products (dense, or
+factored per axis beyond its ``onehot_budget``; XLA's, outside any Pallas
+kernel) give the same numbers: the prolongation bit for bit, the
+restriction to round-off.  No one-hot matrix exists in the port's
+hierarchy; ``interop`` forms JAX's on the host at export.  The segment
+sums of the transfer-free Galerkin path are ``index_add_``.
 Fine-level matvecs are ``ELL.matvec`` and so go through the SpMV kernels;
 coarse levels carry no band spec.
 
@@ -40,6 +47,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from isph_tpu_torch.ops.agg_transfer_cuda import agg_prolong_add, agg_restrict
 from isph_tpu_torch.ops.ell import ELL
 from isph_tpu_torch.state import Domain
 from isph_tpu_torch.utils.profiling import span
@@ -160,81 +168,44 @@ def _grid_parent(child: CoarseGrid, parent: CoarseGrid, device) -> torch.Tensor:
     return _bin_to_grid(_to_device(centers, device, torch.float64), parent)
 
 
-def make_onehot(agg: torch.Tensor, nc: int, dtype: torch.dtype) -> torch.Tensor:
-    """Piecewise-constant prolongation as a materialized (nc, N) 0/1 matrix."""
-    cells = torch.arange(nc, dtype=agg.dtype, device=agg.device)
-    return (agg[None, :] == cells[:, None]).to(dtype)
-
-
 @dataclasses.dataclass
-class DenseTransfer:
-    """restrict/prolong via the full (nc, N) one-hot matrix product."""
+class AggTransfer:
+    """Piecewise-constant restriction and prolongation between a level and
+    its aggregates, indexed by aggregate ids (``ops/agg_transfer_cuda.py``):
+    restriction sums each aggregate's rows, prolongation gives every row its
+    aggregate's value.  All three tensors are O(N); no one-hot matrix is
+    formed.  ``jax_form`` is the JAX package's transfer form that a cache
+    taken over from it had ("oh" dense, "axes_oh" factored), which
+    ``interop`` gives back at export; None for a hierarchy the port built."""
 
-    oh: torch.Tensor  # (nc, N)
+    agg: torch.Tensor  # (N,) int32 aggregate of every row
+    order: torch.Tensor  # (N,) int32 rows sorted by aggregate (stable)
+    start: torch.Tensor  # (nc + 1,) int32 first position in ``order`` of each aggregate
+    jax_form: Optional[str] = None
+
+    @property
+    def nc(self) -> int:
+        return self.start.shape[0] - 1
 
     def restrict(self, v: torch.Tensor) -> torch.Tensor:
-        return self.oh @ v
+        """(N,) -> (nc,), (C, N) -> (C, nc): P^T v."""
+        return agg_restrict(v, self.order, self.start)
 
-    def prolong(self, xc: torch.Tensor) -> torch.Tensor:
-        return xc @ self.oh
-
-    def aggregates(self) -> torch.Tensor:
-        """(N,) the aggregate of every fine row (JAX's ``AMG.aggs`` entry)."""
-        return self.oh.argmax(dim=0)
-
-
-@dataclasses.dataclass
-class FactoredTransfer:
-    """Per-axis factored one-hot transfers for a regular coarse grid: the
-    aggregate id is separable (agg = sum_d c_d * stride_d), so in 2-D
-    restriction is rc[a, b] = sum_i Ox[a, i] v[i] Oy[b, i] = (Ox . v) @ Oy^T,
-    with memory O((ncx + ncy) N) instead of O(ncx ncy N).
-
-    Prolongation picks t[a_i, b_i] for every particle.  Each column of a
-    one-hot factor holds exactly one 1, so every sum below has exactly one
-    nonzero term and equals the JAX contraction order bit for bit; the
-    port contracts the coarse axis first so that the (nc_0, N) products
-    stay contiguous."""
-
-    axes_oh: tuple  # per-axis (nc_d, N) 0/1 tensors, axis 0 first
-    shape: tuple  # (ncx, ncy[, ncz])
-
-    def restrict(self, v: torch.Tensor) -> torch.Tensor:
-        ohs = self.axes_oh
-        if len(ohs) == 2:
-            return ((ohs[0] * v[None, :]) @ ohs[1].T).reshape(-1)
-        ox, oy, oz = ohs
-        # one x-layer at a time keeps the intermediate at O(ncy ncz + N)
-        return torch.cat([((oy * (oxa * v)[None, :]) @ oz.T).reshape(-1) for oxa in ox])
-
-    def prolong(self, xc: torch.Tensor) -> torch.Tensor:
-        ohs = self.axes_oh
-        t = xc.reshape(self.shape)
-        if len(ohs) == 2:
-            return ((t @ ohs[1]) * ohs[0]).sum(dim=0)  # (ncx, N) -> (N,)
-        ox, oy, oz = ohs
-        # u[a, b, i] summed over c first, one x-layer at a time
-        out = torch.zeros_like(ox[0])
-        for a in range(self.shape[0]):
-            out = out + ox[a] * ((t[a] @ oz) * oy).sum(dim=0)
-        return out
-
-    def aggregates(self) -> torch.Tensor:
-        """(N,) the aggregate of every fine row, sum_d c_d stride_d (JAX's
-        ``AMG.aggs`` entry)."""
-        return sum(int(st) * oh.argmax(dim=0)
-                   for st, oh in zip(_strides(self.shape), self.axes_oh))
+    def prolong_add(self, x: torch.Tensor, xc: torch.Tensor,
+                    own: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x + P xc, with P xc masked by ``own`` where given."""
+        return agg_prolong_add(x, xc, self.agg, own)
 
 
-def make_transfer(x: torch.Tensor, grid: CoarseGrid, dtype: torch.dtype, budget: int):
-    """Level-0 transfer operator: dense one-hot under ``budget`` entries,
-    else the factored per-axis form."""
-    agg = _bin_to_grid(x, grid)
-    if grid.n * x.shape[-1] <= budget:
-        return agg, DenseTransfer(oh=make_onehot(agg, grid.n, dtype))
-    ohs = tuple(make_onehot(_axis_cells(x, grid, d), grid.ncell[d], dtype)
-                for d in range(x.shape[0]))
-    return agg, FactoredTransfer(axes_oh=ohs, shape=tuple(grid.ncell))
+def make_transfer(agg: torch.Tensor, nc: int, jax_form: Optional[str] = None) -> AggTransfer:
+    """The transfer of the (N,) int32 aggregate ids ``agg`` in [0, nc):
+    ``order`` by a stable sort, ``start`` by a search of the sorted ids (an
+    empty aggregate starts where the next one does)."""
+    ids, order = torch.sort(agg, stable=True)
+    start = torch.searchsorted(ids, torch.arange(nc + 1, dtype=ids.dtype, device=ids.device),
+                               out_int32=True)
+    return AggTransfer(agg=agg.to(torch.int32).contiguous(), order=order.to(torch.int32),
+                       start=start, jax_form=jax_form)
 
 
 def galerkin_coarse(
@@ -247,8 +218,10 @@ def galerkin_coarse(
     agg: (N,) aggregate id of each fine row; fine_x_agg_of_col: (K, N)
     aggregate id of each fine column entry (= agg[A.idx]).  Off-aggregate
     entries land in the stencil slot of their coarse-grid offset;
-    same-aggregate entries land on the coarse diagonal.  With ``transfer``
-    the per-aggregate sums are one-hot products, without it segment sums.
+    same-aggregate entries land on the coarse diagonal.  The per-aggregate
+    sums of all rows are one restriction by ``transfer`` (an
+    :class:`AggTransfer` of ``agg``); without it they are ``index_add_``
+    segment sums, the CPU cross-check against the JAX package's path.
     Under ``group`` each rank passes its owned rows only, and one
     all-reduce of the stacked partial sums makes the coarse operator the
     same on every rank (owned rows partition the global rows)."""
@@ -291,22 +264,15 @@ def galerkin_coarse(
     diag_row = A.diag + torch.where(same, vm, 0.0).sum(dim=0)  # (N,)
     off_rows = [torch.where(off_ok & (slot == s), vm, 0.0).sum(dim=0) for s in range(nslots)]
 
+    rows = torch.stack([diag_row, *off_rows, torch.ones_like(diag_row)])
     if transfer is not None:
-        cdiag = transfer.restrict(diag_row)
-        cvals = torch.stack([transfer.restrict(r) for r in off_rows])
-        touched = transfer.restrict(torch.ones_like(diag_row))
+        sums = transfer.restrict(rows)
     else:
-        aggl = agg.long()
-
-        def segsum(r):
-            return torch.zeros((nc,), dtype=r.dtype, device=dev).index_add_(0, aggl, r)
-
-        cdiag = segsum(diag_row)
-        cvals = torch.stack([segsum(r) for r in off_rows])
-        touched = segsum(torch.ones_like(diag_row))
+        sums = torch.zeros((rows.shape[0], nc), dtype=rows.dtype,
+                           device=dev).index_add_(1, agg.long(), rows)
     if group is not None:
-        parts = group.psum(torch.cat([cdiag[None], cvals, touched[None]]))
-        cdiag, cvals, touched = parts[0], parts[1:-1], parts[-1]
+        sums = group.psum(sums)
+    cdiag, cvals, touched = sums[0], sums[1:-1], sums[-1]
 
     # empty aggregates (zero diag, no entries): pin to identity
     empty = (touched == 0) & (torch.abs(cdiag) == 0)
@@ -350,11 +316,12 @@ def _normalized(null_vec: Optional[torch.Tensor], group=None) -> Optional[torch.
 class AMG:
     """V-cycle preconditioner: apply(r) ~= A^{-1} r.  Everything expensive
     (smoother diagonals, transfers, the coarse inverse) is built once in
-    :func:`build_amg`; an apply is matvecs and matrix products only."""
+    :func:`build_amg`; an apply is matvecs, transfers and one small dense
+    product."""
 
     levels: List[ELL]  # level 0 = fine
     dinvs: List[torch.Tensor]  # damped l1-Jacobi inverse diagonals per level
-    transfers: List[object]  # Dense/FactoredTransfer mapping level l -> l+1
+    transfers: List[AggTransfer]  # level l -> its aggregates, level l + 1
     coarse_inv: torch.Tensor  # dense inverse of the coarsest operator
     grid_shapes: tuple  # grid shapes of levels >= 1: their matvecs are roll stencils
     null_vec: Optional[torch.Tensor] = None  # normalized fine-level null vector
@@ -406,21 +373,15 @@ class AMG:
         x = self._smooth(l, A, None, b, self.npre)
         r = b - self._matvec(l, A, x)
         tr = self.transfers[l]
-        if self._dist(l):
+        own = self.ownedf if self._dist(l) else None
+        with span("amg.transfer"):
+            rc = tr.restrict(r if own is None else r * own)
+        if own is not None:
             # owned partial restrictions -> the replicated coarse residual
-            with span("amg.transfer"):
-                rc = tr.restrict(r * self.ownedf)
-            xc = self._cycle(l + 1, self.group.psum(rc))
-            with span("amg.transfer"):
-                xf = tr.prolong(xc)
-            x = x + xf * self.ownedf
-        else:
-            with span("amg.transfer"):
-                rc = tr.restrict(r)
-            xc = self._cycle(l + 1, rc)
-            with span("amg.transfer"):
-                xf = tr.prolong(xc)
-            x = x + xf
+            rc = self.group.psum(rc)
+        xc = self._cycle(l + 1, rc)
+        with span("amg.transfer"):
+            x = tr.prolong_add(x, xc, own)
         return self._smooth(l, A, x, b, self.npost)
 
     def _dot(self, a, b):
@@ -456,8 +417,6 @@ def build_amg(
     npost: int = 2,
     omega: float = 0.8,
     coarse_reg: float = 1.0e-8,
-    # dense one-hot cutover in entries (nc * N); factored transfers beyond
-    onehot_budget: int = 4_000_000,
     null_vec: Optional[torch.Tensor] = None,
     exchange: Optional[Callable] = None,
     owned: Optional[torch.Tensor] = None,
@@ -476,7 +435,8 @@ def build_amg(
     levels = [A]
     transfers = []
 
-    agg0, tr0 = make_transfer(x, grids[0], dtype, onehot_budget)
+    agg0 = _bin_to_grid(x, grids[0])
+    tr0 = make_transfer(agg0, grids[0].n)
     A_galerkin = A
     if group is not None and owned is not None:
         owned_b = owned > 0
@@ -487,10 +447,10 @@ def build_amg(
     transfers.append(tr0)
     for l in range(1, len(grids)):
         parent = _grid_parent(grids[l - 1], grids[l], dev)
-        oh = DenseTransfer(oh=make_onehot(parent, grids[l].n, dtype))
+        tr = make_transfer(parent, grids[l].n)
         col_agg = parent[levels[-1].idx.long()]
-        levels.append(galerkin_coarse(levels[-1], parent, col_agg, grids[l], transfer=oh))
-        transfers.append(oh)
+        levels.append(galerkin_coarse(levels[-1], parent, col_agg, grids[l], transfer=tr))
+        transfers.append(tr)
 
     dinvs = [_l1_jacobi(lvl, omega) for lvl in levels]
 
@@ -535,7 +495,7 @@ class AMGCache:
     """Reusable (stale-tolerant) pieces of an AMG hierarchy."""
 
     coarse_levels: tuple  # ELL per level >= 1
-    transfers: tuple  # Dense/FactoredTransfer per level
+    transfers: tuple  # AggTransfer per level
     coarse_dinvs: tuple  # l1-Jacobi inverse diagonals for levels >= 1
     coarse_inv: torch.Tensor  # dense inverse of the coarsest operator
     grid_shapes: tuple  # coarse grid shapes

@@ -236,7 +236,12 @@ def test_amg_hierarchy_on_the_3d_lattice():
     assert grids[0].ncell == (2, 2, 2)
     T = tamg.build_amg(A, st.x, sim.domain, sim.cfg.cut, coarsen=1, null_vec=null)
     M = jamg.build_amg(jA, jx, jsim.domain, jsim.cfg.cut, coarsen=1, null_vec=jnull)
-    assert type(T.transfers[0]).__name__ == type(M.transfers[0]).__name__
+    for tr, jagg, jtr in zip(T.transfers, M.aggs, M.transfers):
+        np.testing.assert_array_equal(tr.agg.numpy(), np.asarray(jagg))
+        xc = np.random.default_rng(2).standard_normal(tr.nc)
+        np.testing.assert_array_equal(tr.prolong_add(torch.zeros(tr.agg.shape[0], dtype=F64),
+                                                     torch.as_tensor(xc)).numpy(),
+                                      np.asarray(jtr.prolong(jnp.asarray(xc))))
     assert T.grid_shapes == M.grid_shapes
     for lt, lj in zip(T.levels[1:], M.levels[1:]):
         np.testing.assert_array_equal(lt.idx.numpy(), np.asarray(lj.idx))

@@ -9,7 +9,7 @@ Tolerances: grids, aggregates and stencil structure exact; Galerkin levels
 1e-12 relative to the sum of the fine matrix's |entries|, which bounds the
 terms of every coarse entry (coarse entries are sums of fine ones that
 cancel, down to a 1x1 level that is the whole row sum, so their own
-magnitude is no scale; one-hot products and ``index_add_`` sum in other
+magnitude is no scale; aggregate restrictions and ``index_add_`` sum in other
 orders than XLA's scatter and matmul); smoother diagonals and transfers
 1e-12 relative to the largest magnitude; the coarse inverse and a V-cycle
 1e-10 relative (the inverse amplifies round-off by the coarse operator's
@@ -144,13 +144,21 @@ def test_hierarchy_matches_jax(n):
     _close_rel(T.apply(_t(r)), M.apply(jnp.asarray(r)), 1e-10)
 
 
-@pytest.mark.parametrize("dim", [2, 3, "3-lattice"])
+@pytest.mark.parametrize("dim", [2, 3, "3-lattice", "empty"])
 def test_transfers_dense_and_factored(dim):
-    """onehot_budget=0 forces the factored path (tests/test_amg.py:71-93);
-    both forms equal JAX's, and each other.  3-D on seeded positions in a
-    periodic box, and on the TGV 8^3 lattice of ``make_tgv(dim=3)`` over the
-    2^3 coarse grid of coarsen=1 (the default's is one cell)."""
+    """The port's one transfer, indexed by aggregate ids, against both of
+    JAX's forms, the dense one-hot and the factored one (``onehot_budget``
+    0, tests/test_amg.py:71-93): aggregates exact, restriction of (N,) and
+    (C, N) rows within 1e-12 relative in f64 (another summation order than
+    the one-hot products'), prolongation bit for bit (each one-hot sum has
+    one nonzero term), also added to x as the V-cycle does.  3-D on seeded
+    positions in a periodic box, on the TGV 8^3 lattice of
+    ``make_tgv(dim=3)`` over the 2^3 coarse grid of coarsen=1 (the
+    default's is one cell), and 2-D positions in half a box, whose other
+    half's aggregates are empty: they restrict to 0, as the one-hot rows
+    of zeros did."""
     coarsen = 3
+    rng = np.random.default_rng(0)
     if dim == 2:
         sim, st, _, _, _, (_, _, _, _, jdom) = _system(24)
         cut, x = sim.cfg.cut, st.x.numpy()
@@ -158,37 +166,55 @@ def test_transfers_dense_and_factored(dim):
         jdom = JDomain(lo=(0.0,) * 3, hi=(2 * np.pi,) * 3, periodic=(True,) * 3)
         cut = 2 * np.pi / 8 * 3.0
         x = np.random.default_rng(2).uniform(0.0, 2 * np.pi, size=(3, 512))
-    else:
+    elif dim == "3-lattice":
         sim, st = tgv.make_tgv(8, dim=3, max_neighbors=128, device="cpu")
         d = sim.domain
         jdom = JDomain(lo=d.lo, hi=d.hi, periodic=d.periodic)
         cut, x, coarsen = sim.cfg.cut, st.x.numpy(), 1
+    else:
+        jdom = JDomain(lo=(0.0,) * 2, hi=(2 * np.pi,) * 2, periodic=(True,) * 2)
+        cut = 2 * np.pi / 12
+        x = np.stack([np.random.default_rng(3).uniform(0.0, np.pi, 300),
+                      np.random.default_rng(4).uniform(0.0, 2 * np.pi, 300)])
     jgrid = jamg.make_coarse_grids(jdom, cut, coarsen=coarsen)[0]
     grid = tamg.make_coarse_grids(_port_domain(jdom), cut, coarsen=coarsen)[0]
-    rng = np.random.default_rng(0)
-    v = rng.standard_normal(x.shape[1])
+    agg = tamg._bin_to_grid(_t(x), grid)
+    tr = tamg.make_transfer(agg, grid.n)
+    n = x.shape[1]
+    members = [np.flatnonzero(agg.numpy() == a) for a in range(grid.n)]
+    np.testing.assert_array_equal(tr.order.numpy(), np.concatenate(members))
+    np.testing.assert_array_equal(tr.start.numpy(),
+                                  np.cumsum([0] + [len(m) for m in members]))
+    assert tr.agg.dtype == tr.order.dtype == tr.start.dtype == torch.int32
+    v, x0 = rng.standard_normal(n), rng.standard_normal(n)
+    rows = rng.standard_normal((3, n))
     xc = rng.standard_normal(grid.n)
-    out = {}
-    for name, budget in (("dense", 10**9), ("factored", 0)):
-        agg, tr = tamg.make_transfer(_t(x), grid, F64, budget)
+    rc, rcs = tr.restrict(_t(v)), tr.restrict(_t(rows))
+    xf = tr.prolong_add(torch.zeros(n, dtype=F64), _t(xc))
+    for budget in (10**9, 0):
         jagg, jtr = jamg.make_transfer(jnp.asarray(x), jgrid, jnp.float64, budget)
-        assert type(tr).__name__ == type(jtr).__name__ == (
-            "DenseTransfer" if name == "dense" else "FactoredTransfer")
         np.testing.assert_array_equal(agg.numpy(), np.asarray(jagg))
-        out[name] = (tr.restrict(_t(v)), tr.prolong(_t(xc)))
-        _close_rel(out[name][0], jtr.restrict(jnp.asarray(v)), 1e-12)
-        _close_rel(out[name][1], jtr.prolong(jnp.asarray(xc)), 1e-12)
-    _close_rel(out["factored"][0], out["dense"][0].numpy(), 1e-12)
-    np.testing.assert_array_equal(out["factored"][1].numpy(), out["dense"][1].numpy())
+        _close_rel(rc, jtr.restrict(jnp.asarray(v)), 1e-12)
+        for c in range(rows.shape[0]):
+            _close_rel(rcs[c], jtr.restrict(jnp.asarray(rows[c])), 1e-12)
+        jxf = np.asarray(jtr.prolong(jnp.asarray(xc)))
+        np.testing.assert_array_equal(xf.numpy(), jxf)
+        np.testing.assert_array_equal(tr.prolong_add(_t(x0), _t(xc)).numpy(), x0 + jxf)
+    if dim == "empty":
+        empty = [a for a, m in enumerate(members) if len(m) == 0]
+        assert len(empty) >= grid.n // 2
+        assert not rc[empty].any() and not rcs[:, empty].any()
 
 
 def test_galerkin_segment_sums_match_transfers():
     """The transfer-free Galerkin path (``index_add_`` segment sums) equals
-    the one-hot one, and JAX's scatter-add path."""
+    the one through the aggregate transfer's restriction, and JAX's
+    scatter-add path."""
     sim, st, A, _, _, (jA, _, _, jx, jdom) = _system(24)
     grid = tamg.make_coarse_grids(sim.domain, sim.cfg.cut)[0]
     jgrid = jamg.make_coarse_grids(jdom, sim.cfg.cut)[0]
-    agg, tr = tamg.make_transfer(st.x, grid, F64, 10**9)
+    agg = tamg._bin_to_grid(st.x, grid)
+    tr = tamg.make_transfer(agg, grid.n)
     with_tr = tamg.galerkin_coarse(A, agg, agg[A.idx.long()], grid, transfer=tr)
     seg = tamg.galerkin_coarse(A, agg, agg[A.idx.long()], grid)
     jagg = jamg._bin_to_grid(jx, jgrid)

@@ -152,32 +152,45 @@ def test_zero_seeded_cache_maps_to_none():
 
 
 def test_factored_transfer_round_trips_with_its_aggregates():
-    """A hierarchy built with factored level-0 transfers (one-hot budget
-    0) crosses to numpy with each level's aggregates read off its
-    transfers: the builder's own binning and grid parents, as the dense
-    hierarchy gives them, and it comes back unchanged."""
+    """JAX's hierarchies with factored (one-hot budget 0) and dense level-0
+    transfers cross into the port as aggregate transfers, each level's
+    aggregates those of JAX's ``aggs``, and back to numpy with JAX's
+    ``oh`` / ``axes_oh`` and ``shape`` bit for bit.  A hierarchy the port
+    built exports JAX's default form: JAX's own build's one-hots, and the
+    binning and grid parents of ``build_amg`` as ``aggs``."""
+    from isph_tpu.state import Domain as JDomain
     from isph_tpu_torch.models import tgv
     from isph_tpu_torch.physics import ns_projection as ns
 
     sim, st = tgv.make_tgv(16, device="cpu")
     geom = sim.geometry(st, sim.neighbors(st))
     A, _ = ns.poisson_system(st, geom, sim.precompute(st, geom), sim.cfg, st.v)
-    caches = {b: amg.cache_of(amg.build_amg(A, st.x, sim.domain, sim.cfg.cut, onehot_budget=b))
-              for b in (0, 4_000_000)}
-    assert isinstance(caches[0].transfers[0], amg.FactoredTransfer)
-    assert isinstance(caches[4_000_000].transfers[0], amg.DenseTransfer)
-    d, dense = (interop.state_to_numpy(st.replace(amg_cache=c))["amg_cache"]
-                for c in caches.values())
+    jA = JELL(diag=jnp.asarray(A.diag.numpy()), vals=jnp.asarray(A.vals.numpy()),
+              idx=jnp.asarray(A.idx.numpy()), mask=jnp.asarray(A.mask.numpy()))
+    d = sim.domain
+    jdom = JDomain(lo=d.lo, hi=d.hi, periodic=d.periodic)
+    fields = interop.state_to_numpy(st)
+    jcaches = {b: dataclasses.asdict(jamg.cache_of(jamg.build_amg(
+        jA, jnp.asarray(st.x.numpy()), jdom, sim.cfg.cut, onehot_budget=b)))
+        for b in (0, 4_000_000)}
+    assert "axes_oh" in jcaches[0]["transfers"][0] and "oh" in jcaches[4_000_000]["transfers"][0]
+    for want in jcaches.values():
+        got = interop.state_from_numpy({**fields, "amg_cache": want}, "cpu", F64).amg_cache
+        assert len(got.transfers) == len(want["aggs"])
+        for tr, a in zip(got.transfers, want["aggs"]):
+            np.testing.assert_array_equal(tr.agg.numpy(), np.asarray(a))
+        back = interop.state_to_numpy(st.replace(amg_cache=got))["amg_cache"]
+        assert back["grid_shapes"] == want["grid_shapes"]
+        assert back["transfers"][0].get("shape") == want["transfers"][0].get("shape")
+        for a, b in zip(_leaves(back), _leaves(jax.tree.map(np.asarray, want))):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+    own = amg.cache_of(amg.build_amg(A, st.x, sim.domain, sim.cfg.cut))
+    out = interop.state_to_numpy(st.replace(amg_cache=own))["amg_cache"]
     grids = amg.make_coarse_grids(sim.domain, sim.cfg.cut)
-    np.testing.assert_array_equal(d["aggs"][0], amg._bin_to_grid(st.x, grids[0]).numpy())
-    assert len(d["aggs"]) == len(grids)
-    for a, b in zip(d["aggs"], dense["aggs"]):
-        assert a.dtype == np.int32
-        np.testing.assert_array_equal(a, b)
-    back = interop.state_from_numpy({**interop.state_to_numpy(st), "amg_cache": d}, "cpu",
-                                    F64).amg_cache
-    assert isinstance(back.transfers[0], amg.FactoredTransfer)
-    assert back.grid_shapes == caches[0].grid_shapes
-    for a, b in zip(_leaves(interop.state_to_numpy(st.replace(amg_cache=back))["amg_cache"]),
-                    _leaves(d)):
-        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(out["aggs"][0], amg._bin_to_grid(st.x, grids[0]).numpy())
+    for l in range(1, len(grids)):
+        np.testing.assert_array_equal(out["aggs"][l],
+                                      amg._grid_parent(grids[l - 1], grids[l], "cpu").numpy())
+    for a, b in zip(out["transfers"], jcaches[4_000_000]["transfers"]):
+        np.testing.assert_array_equal(a["oh"], np.asarray(b["oh"]))

@@ -183,8 +183,9 @@ def test_jax_zero_seeded_checkpoint_loads_without_a_cache(tmp_path):
 def test_jax_checkpoint_with_factored_transfers_loads(tmp_path):
     """A JAX hierarchy with factored level-0 transfers (one-hot budget 0)
     saved in a checkpoint: the per-axis one-hots (``transfers/0/axes_oh/
-    <d>``) come back as the port's factored transfer with the grid's shape,
-    every tensor equal to what ``interop`` builds from the cache itself."""
+    <d>``) come back as the port's aggregate transfer, JAX's aggregates
+    read off them and its factored form kept, every tensor equal to what
+    ``interop`` builds from the cache itself."""
     from isph_tpu.physics import ns_projection as jns
     from isph_tpu.solvers import amg as jamg
 
@@ -199,7 +200,9 @@ def test_jax_checkpoint_with_factored_transfers_loads(tmp_path):
     got = checkpoint.load_checkpoint(p, _state(js)).amg_cache
     want = interop.state_from_numpy({**_fields(js), "amg_cache": dataclasses.asdict(cache)},
                                     "cpu", F64).amg_cache
-    assert got.transfers[0].shape == cache.transfers[0].shape
+    assert got.transfers[0].jax_form == want.transfers[0].jax_form == "axes_oh"
+    for tr, a in zip(got.transfers, cache.aggs):
+        np.testing.assert_array_equal(tr.agg.numpy(), np.asarray(a))
     assert got.grid_shapes == cache.grid_shapes
     _assert_same_tensors(got, want)
 

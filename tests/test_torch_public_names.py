@@ -20,8 +20,10 @@ import pytest
 # The TPU gather-plan machinery (ROADMAP North star, "What is not ported":
 # CUDA has a general gather, so the Pallas kernels became ops/spmv_cuda.py),
 # the zero AMG cache (the port builds its hierarchy at a state's first
-# solve), and the host timer registry (the port times through the
-# profiler's one clock: named phases and sub-phase spans).
+# solve), the host timer registry (the port times through the profiler's
+# one clock: named phases and sub-phase spans), and the one-hot AMG
+# transfers (the port's ``AggTransfer`` is indexed by aggregate ids; the
+# one-hots are formed only in ``interop`` at export).
 NOT_PORTED = {
     ("isph_tpu.ops", "spmv_pallas"),
     ("isph_tpu.ops.spmv_pallas", None),
@@ -30,6 +32,9 @@ NOT_PORTED = {
     ("isph_tpu.ops.neighbors", "make_gather_plan"),
     ("isph_tpu.solvers.amg", "amg_cache_zeros"),
     ("isph_tpu.utils.profiling", "Timers"),
+    ("isph_tpu.solvers.amg", "DenseTransfer"),
+    ("isph_tpu.solvers.amg", "FactoredTransfer"),
+    ("isph_tpu.solvers.amg", "make_onehot"),
 }
 
 SUBPACKAGES = ("io", "models", "ops", "parallel", "physics", "solvers", "utils")
