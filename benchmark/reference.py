@@ -1,4 +1,5 @@
-"""Plain PyTorch reference of one step of the benchmark's decks.
+"""Plain PyTorch reference of one step of the Taylor-Green decks (the deck
+module ``benchmark/decks/tgv.py`` judges with it).
 
 One implicit incompressible SPH step of the corrected-kernel scheme on a
 periodic, all-fluid box (the upstream IMPLICIT-SPH PairISPH::compute with

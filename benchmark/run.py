@@ -5,24 +5,27 @@
 from the root of a checkout.  ``BENCHMARK.json`` names the cell's
 configuration (``benchmark/configs/<config>.json``), its traffic
 (``benchmark/cells/<traffic>.json``) and its per-layer metrics, each read
-by ``benchmark/metrics/<metric>.py``; nothing else in this file knows a
-cell by name.
+by ``benchmark/metrics/<metric>.py``.  The configuration names its deck
+module (``"deck_module"``: ``benchmark/decks/<deck_module>.py``), which
+makes the inputs from the seed, builds the port's program from them, says
+what a run holds of each checked step, names the step's phases and judges
+the held steps by its plain reference.  Nothing else in this file knows a
+cell or a deck by name: a new one is new files and entries.
 
-A run: the inputs from the seed (:mod:`benchmark.inputs`), the port's
-deck built from them (:mod:`benchmark.program`), then one call of the
-driver's host loop (``Simulation.run_until``, under its overflow policy)
-for ``warmup_steps`` steps and the window: ``window_cycles`` whole cycles
-of ``cycle_steps`` steps (``precond_max_age``, so each cycle holds one AMG
+A run: the deck's inputs and program, then one call of the driver's host
+loop (``Simulation.run_until``, under its overflow policy) for
+``warmup_steps`` steps and the window: ``window_cycles`` whole cycles of
+``cycle_steps`` steps (``precond_max_age``, so each cycle holds one AMG
 rebuild), the same steps in every run of the cell, with one synchronize at
 each end.  ``--seconds`` only caps the window: it ends early, at a cycle's
 end, once ``CAP_OVER_SECONDS`` times ``--seconds`` have passed (a program
 slowed that far is still measured within its time).  The collector leaves
 the set-up's objects alone in the window (``gc.freeze``).  ``--trace 1``
 profiles the window's second cycle and leaves the rest untraced.  After
-the window the program's state is freed, and the plain reference (:mod:`benchmark.reference`) recomputes a
-sample of the window's steps, drawn from the seed, from the program's
-state before each; the positions, velocity and pressure each step produced
-are held to it.
+the window the program's state is freed, and the deck's judge recomputes a
+sample of the window's steps, drawn from the seed, from what the run held
+of the program's state before each, and holds what each step produced to
+its plain reference.
 
 The last line of standard output is the result: ``correct``, ``attempted``
 (the window's steps), ``failed`` (steps the overflow policy retried, or
@@ -50,7 +53,6 @@ BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "isph_tpu")
 CAP_OVER_SECONDS = 2.0  # a window ends early, at a cycle's end, past this many --seconds
-PHASES = ("neighbors", "geometry", "compute_pre", "helmholtz", "poisson", "correct", "advance")
 
 
 def log(msg: str) -> None:
@@ -93,17 +95,37 @@ def load_json(path: Path) -> dict:
         return json.load(f)
 
 
+def _load(path: Path, name: str):
+    """The module of the file ``path``, loaded by its path under ``name``
+    (entered in ``sys.modules`` as it runs, where a dataclass looks its
+    module up)."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def load_deck(name: str, bench_dir: Path = BENCH):
+    """The deck module ``benchmark/decks/<name>.py``."""
+    return _load(bench_dir / "decks" / f"{name}.py", f"benchmark.decks.{name}")
+
+
 def find_cell(bench: dict, name: str, root: Path = ROOT):
-    """(workload entry, configuration, cell) of the cell ``name``."""
+    """(workload entry, configuration, cell, deck module) of the cell
+    ``name``."""
     work = next((w for w in bench["workloads"] if w["name"] == name), None)
     if work is None:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json")
     conf = next(c for c in bench["configs"] if c["name"] == work["config"])
     config = load_json(root / conf["file"])
+    if "deck_module" not in config:
+        raise ValueError(f"{conf['file']} names no \"deck_module\" (its deck: "
+                         f"benchmark/decks/<deck_module>.py)")
     cell = load_json(root / "benchmark" / "cells" / f"{work['traffic']}.json")
     if cell["config"] != work["config"]:
         raise ValueError(f"cell {work['traffic']} is of {cell['config']}, not {work['config']}")
-    return work, config, cell
+    return work, config, cell, load_deck(config["deck_module"], root / "benchmark")
 
 
 ENDS = (("step_ms", "ms"), ("peak_mib", "MiB"), ("setup_s", "s"))
@@ -125,67 +147,22 @@ def metric_readers(bench: dict, workload: str, bench_dir: Path = BENCH) -> dict:
     for m in bench["per_layer"]:
         if "workloads" in m and workload not in m["workloads"]:
             continue
-        path = bench_dir / "metrics" / f"{m['name']}.py"
-        spec = importlib.util.spec_from_file_location(f"benchmark.metrics.{m['name']}", path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
+        mod = _load(bench_dir / "metrics" / f"{m['name']}.py", f"benchmark.metrics.{m['name']}")
         out[m["name"]] = (mod, m["unit"])
     return out
 
 
-def _gap(a, b, scale: float) -> float:
-    return float((a - b).abs().max()) / scale
-
-
-def judge(config: dict, cell: dict, inputs, checked, *, ref_dtype=None, log=log) -> dict:
-    """Recompute each checked step with the plain reference and return the
-    gaps: velocity over Umax, pressure over rho Umax^2, displacement over
-    Umax dt, each the widest over the particles.  ``checked`` holds
-    (step, (x, v, p) before, (x, v, p) after) as (N, D) / (N,) float64.
-    ``ref_dtype`` puts the reference in the program's place in that type
-    (the control)."""
-    import torch
-
-    from benchmark import reference
-
-    dx = inputs.dx
-    deck = reference.Deck(
-        dim=config["dim"], box=inputs.box, n_side=cell["lattice_n"],
-        h=config["h_over_dx"] * dx, dt=config["dt_over_dx"] * dx, nu=config["nu"],
-        rho=config["rho"], theta=config["theta"], kernel=config["kernel"],
-        cut=config["cut_over_h"] * config["h_over_dx"] * dx)
-    umax, rho = config["umax"], config["rho"]
-    out = {}
-    for tag, (k, (x0, v0, p0), after) in zip("abcdefgh", checked):
-        t = time.perf_counter()
-        ref = reference.step(x0, v0, p0, deck)
-        if ref_dtype is not None:
-            got = reference.step(x0, v0, p0, deck, dtype=ref_dtype, maxiter=500)
-            after = (got.x.double(), got.v.double(), got.p.double())
-        x1, v1, p1 = after
-        d_got = reference.min_image(x1 - x0, deck.box)
-        d_ref = reference.min_image(ref.x - x0, deck.box)
-        out[f"vel_gap_{tag}"] = _gap(v1, ref.v, umax)
-        out[f"pres_gap_{tag}"] = _gap(p1, ref.p, rho * umax * umax)
-        out[f"disp_gap_{tag}"] = _gap(d_got, d_ref, umax * deck.dt)
-        log(f"reference of window step {k}: H {ref.helmholtz_iters} iterations (relres "
-            f"{ref.helmholtz_relres:.2e}), P {ref.poisson_iters} (relres "
-            f"{ref.poisson_relres:.2e}), {time.perf_counter() - t:.1f} s")
-        del ref
-    return out
-
-
-def run_cell(config: dict, cell: dict, *, seed: int, seconds: float, trace: bool, device,
-             t_start: float | None = None, readers: dict | None = None,
+def run_cell(deck, config: dict, cell: dict, *, seed: int, seconds: float, trace: bool,
+             device, t_start: float | None = None, readers: dict | None = None,
              ends=None, control=None) -> dict:
-    """One run of the cell on ``device``; returns the result line's object.
-    ``ends`` lists the cell's end-to-end metrics as (name, unit)
-    (:func:`end_to_end`; the three quantities by default), ``readers`` its
-    per-layer ones.  ``control`` (a dtype) judges the reference computed in
-    that type in the program's place instead of the program's steps."""
+    """One run of the cell of ``deck`` (its module, :func:`load_deck`) on
+    ``device``; returns the result line's object.  ``ends`` lists the cell's
+    end-to-end metrics as (name, unit) (:func:`end_to_end`; the three
+    quantities by default), ``readers`` its per-layer ones.  ``control`` (a
+    dtype) judges the reference computed in that type in the program's place
+    instead of the program's steps."""
     import torch
 
-    from benchmark import inputs as inp
     from benchmark import peaks, program
     from benchmark import trace as tracemod
     from benchmark import work as workmod
@@ -193,9 +170,6 @@ def run_cell(config: dict, cell: dict, *, seed: int, seconds: float, trace: bool
     t_start = time.time() if t_start is None else t_start
     cuda = torch.device(device).type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    n_side = cell["lattice_n"]
-    if config.get("lattice_n", n_side) != n_side:
-        raise ValueError(f"cell at n = {n_side}, configuration at {config['lattice_n']}")
     cycle, warm = cell["cycle_steps"], cell["warmup_steps"]
     if warm < 1:
         raise ValueError("a cell warms up for one step or more: its last opens the window")
@@ -203,14 +177,9 @@ def run_cell(config: dict, cell: dict, *, seed: int, seconds: float, trace: bool
     offsets = [rng.randrange(cycle) for _ in range(cell["checked_steps"])]
 
     t_import = time.time()
-    inputs = inp.make_inputs(config, n_side, seed, device)
-    n = inputs.x.shape[0]
-    sim, state = program.build(config, cell, inputs, device, start_step=cycle - warm)
-    start_gap = max(float((state.x[:, :n].T.double() - inputs.x.to(state.dtype).double())
-                          .abs().max()),
-                    float((state.v[:, :n].T.double() - inputs.v.to(state.dtype).double())
-                          .abs().max()),
-                    float(state.p[:n].abs().max()))
+    inputs = deck.make_inputs(config, cell, seed, device)
+    sim, state = deck.build(config, cell, inputs, device, start_step=cycle - warm)
+    start_gap = deck.start_gap(state, inputs)
     sync()
     t_built = time.time()
 
@@ -221,7 +190,7 @@ def run_cell(config: dict, cell: dict, *, seed: int, seconds: float, trace: bool
     total = warm + cell["window_cycles"] * cycle
     cap = CAP_OVER_SECONDS * seconds
     calls = [0]
-    run_ = {"k": -warm, "before": (state.x, state.v, state.p), "calls0": 0}
+    run_ = {"k": -warm, "before": deck.held(state), "calls0": 0}
     auxes, held, retried, cycle_ends = [], {}, [], []
     recorder = prof = None
     if trace:
@@ -251,7 +220,7 @@ def run_cell(config: dict, cell: dict, *, seed: int, seconds: float, trace: bool
     def on_step(new, aux):
         k = run_["k"]
         run_["k"] = k + 1
-        after = (new.x, new.v, new.p)
+        after = deck.held(new)
         if k < 0:  # a warm-up step
             run_["before"] = after
             if k == -1:
@@ -302,7 +271,7 @@ def run_cell(config: dict, cell: dict, *, seed: int, seconds: float, trace: bool
         f"{t_built - t_import:.3f} s inputs and state, {t_warm - t_built:.3f} s "
         f"{warm} warm-up steps (the kernels' build or load in the first)")
     log(f"iterations (helmholtz, poisson) a step: {iters}")
-    path = "band path" if cell["stream_window"] else "neighbor list"
+    path = deck.describe(cell)
     warm_retries = run_["calls0"] - warm
     log(f"every step stayed on the {path} with its first shapes: "
         f"{'yes' if retries + warm_retries == 0 else 'no'} ({warm_retries} retries in the "
@@ -315,7 +284,7 @@ def run_cell(config: dict, cell: dict, *, seed: int, seconds: float, trace: bool
                      "memory_peak_bytes": int(peak)}
     metrics, breakdown = {}, None
     if trace:
-        t = tracemod.collect(prof, PHASES, cycle, [
+        t = tracemod.collect(prof, deck.PHASES, cycle, [
             {"helmholtz_iters": h, "poisson_iters": p} for h, p in iters[cycle:2 * cycle]],
             leave_out=workmod.COUNT_RANGE)
         t.work = {kind: workmod.totals(recorder.calls, kind) for kind in ("spmv", "gather")}
@@ -336,17 +305,13 @@ def run_cell(config: dict, cell: dict, *, seed: int, seconds: float, trace: bool
         for name, unit in (ends or ENDS):
             metrics[name] = {"value": values[name.split(".")[0]], "unit": unit}
 
-    # free the program, keep the checked steps' fields
-    def host(fields):
-        x, v, p = fields
-        return x[:, :n].T.double(), v[:, :n].T.double(), p[:n].double()
-
-    checked = [(k, host(b), host(a)) for _, (k, b, a) in sorted(held.items())]
+    # free the program, keep what the deck holds of the checked steps
+    checked = [entry for _, entry in sorted(held.items())]
     del sim, state, auxes, held, run_
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    gaps = judge(config, cell, inputs, checked, ref_dtype=control)
+    gaps = deck.judge(config, cell, inputs, checked, ref_dtype=control, log=log)
     limits = cell["limits"]
     checks = {"start_gap": (start_gap, 0.0),
               "nonfinite_steps": (float(status_ok.count(False)), 0.0)}
@@ -383,7 +348,7 @@ def main(argv=None) -> int:
     # one spinning thread a core beside the loop's own
     torch.set_num_threads(2)
     bench = load_json(ROOT / "BENCHMARK.json")
-    work, config, cell = find_cell(bench, args.workload)
+    work, config, cell, deck = find_cell(bench, args.workload)
     if not torch.cuda.is_available() or torch.cuda.device_count() < work["chips"]:
         log(f"needs {work['chips']} CUDA device(s); torch sees "
             f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}: no result")
@@ -391,7 +356,7 @@ def main(argv=None) -> int:
     readers = metric_readers(bench, args.workload) if args.trace else None
     ends = end_to_end(bench, args.workload)
     try:
-        out = run_cell(config, cell, seed=args.seed, seconds=args.seconds,
+        out = run_cell(deck, config, cell, seed=args.seed, seconds=args.seconds,
                        trace=bool(args.trace), device="cuda", t_start=t_start,
                        readers=readers, ends=ends)
     except ForbiddenModules as err:

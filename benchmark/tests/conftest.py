@@ -19,13 +19,15 @@ def pytest_configure(config):
 
 
 def load_cell(name: str, **override):
-    """(configuration, cell) of a cell of BENCHMARK.json, the cell's
-    fields overridden (a smaller lattice for the CPU)."""
+    """(deck module, configuration, cell) of a cell of ``benchmark/cells/``,
+    the cell's fields overridden (a smaller lattice for the CPU)."""
+    from benchmark import run
+
     cell = json.loads((ROOT / "benchmark" / "cells" / f"{name}.json").read_text())
     config = json.loads((ROOT / "benchmark" / "configs" / f"{cell['config']}.json").read_text())
     config.pop("lattice_n", None)
     cell.update(override)
-    return config, cell
+    return run.load_deck(config["deck_module"]), config, cell
 
 
 @pytest.fixture

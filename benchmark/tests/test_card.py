@@ -14,10 +14,10 @@ from benchmark.tests.conftest import ROOT, load_cell
 def test_small_traced_run_on_the_card(name, n):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    config, cell = load_cell(name, lattice_n=n, stream_window=2048 if name.endswith("amg")
+    deck, config, cell = load_cell(name, lattice_n=n, stream_window=2048 if name.endswith("amg")
                              and "2d" in name else 0)
     bench = run.load_json(ROOT / "BENCHMARK.json")
-    out = run.run_cell(config, cell, seed=3, seconds=0.1, trace=True, device="cuda",
+    out = run.run_cell(deck, config, cell, seed=3, seconds=0.1, trace=True, device="cuda",
                        readers=run.metric_readers(bench, name))
     assert out["correct"], out["checks"]
     assert set(out["metrics"]) == set(run.metric_readers(bench, name))

@@ -6,19 +6,17 @@ the card at the cells' own sizes, PERF.md gives the readings)."""
 import pytest
 import torch
 
-from benchmark import inputs as inp
-from benchmark.run import judge
 from benchmark.tests.conftest import load_cell
 
 
 @pytest.mark.parametrize("name,n", [("tgv2d-512-jacobi", 32), ("tgv2d-1024-amg", 32),
                                     ("tgv3d-64-amg", 12)])
 def test_bfloat16_control_fails_the_limits(name, n, cpu_threads):
-    config, cell = load_cell(name, lattice_n=n)
-    inputs = inp.make_inputs(config, n, 5, "cpu")
-    # the start as the program holds it, in float32
-    state = tuple(t.float().double() for t in (inputs.x, inputs.v, inputs.p))
-    gaps = judge(config, cell, inputs, [(0, state, None)], ref_dtype=torch.bfloat16,
-                 log=lambda s: None)
+    deck, config, cell = load_cell(name, lattice_n=n)
+    inputs = deck.make_inputs(config, cell, 5, "cpu")
+    # the start as the program holds it, in float32, (D, N) and (N,)
+    state = (inputs.x.float().T, inputs.v.float().T, inputs.p.float())
+    gaps = deck.judge(config, cell, inputs, [(0, state, None)], ref_dtype=torch.bfloat16,
+                      log=lambda s: None)
     failed = [k for k, v in gaps.items() if not v <= cell["limits"][k.rsplit("_", 1)[0]]]
     assert failed, gaps

@@ -43,10 +43,10 @@ def _altered(orig, limit):
 def test_fault_is_caught(fault, monkeypatch, cpu_threads):
     from isph_tpu_torch.models.driver import Simulation
 
-    config, cell = load_cell("tgv2d-512-jacobi", lattice_n=16)
+    deck, config, cell = load_cell("tgv2d-512-jacobi", lattice_n=16)
     if fault is not None:
         args = (cell["limits"]["pres_gap"],) if fault is _altered else ()
         monkeypatch.setattr(Simulation, "step", fault(Simulation.step, *args))
-    out = run.run_cell(config, cell, seed=77, seconds=0.1, trace=False, device="cpu")
+    out = run.run_cell(deck, config, cell, seed=77, seconds=0.1, trace=False, device="cpu")
     assert out["correct"] is (fault is None), out["checks"]
     assert out["attempted"] == cell["cycle_steps"]

@@ -3,16 +3,15 @@ other inputs of the same sizes; seeds past 32 bits work."""
 
 import torch
 
-from benchmark import inputs as inp
 from benchmark.tests.conftest import load_cell
 
 
 def test_seed_determinism():
-    config, _ = load_cell("tgv3d-64-amg")
+    deck, config, cell = load_cell("tgv3d-64-amg", lattice_n=6)
     seed = 2**31 + 12345
-    a = inp.make_inputs(config, 6, seed, "cpu")
-    b = inp.make_inputs(config, 6, seed, "cpu")
-    c = inp.make_inputs(config, 6, seed + 1, "cpu")
+    a = deck.make_inputs(config, cell, seed, "cpu")
+    b = deck.make_inputs(config, cell, seed, "cpu")
+    c = deck.make_inputs(config, cell, seed + 1, "cpu")
     for f in ("x", "v", "p"):
         assert torch.equal(getattr(a, f), getattr(b, f))
         assert getattr(a, f).shape == getattr(c, f).shape

@@ -21,6 +21,7 @@ def test_forbidden_names_compared_whole():
 
 def test_harness_and_port_load_no_jax():
     code = ("import sys, torch; from benchmark import run, reference, program, work, trace; "
+            "run.load_deck('tgv'); "
             "import isph_tpu_torch.models.driver, isph_tpu_torch.ops.ell; "
             "print(run.forbidden_modules(sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -29,8 +30,9 @@ def test_harness_and_port_load_no_jax():
 
 
 def test_a_run_with_jax_loaded_gives_no_result(monkeypatch, cpu_threads):
-    config, cell = load_cell("tgv2d-512-jacobi", lattice_n=8, cycle_steps=2, warmup_steps=1)
+    deck, config, cell = load_cell("tgv2d-512-jacobi", lattice_n=8, cycle_steps=2,
+                                   warmup_steps=1)
     monkeypatch.setitem(sys.modules, "jax", types.ModuleType("jax"))
     with pytest.raises(run.ForbiddenModules) as err:
-        run.run_cell(config, cell, seed=1, seconds=0.1, trace=False, device="cpu")
+        run.run_cell(deck, config, cell, seed=1, seconds=0.1, trace=False, device="cpu")
     assert err.value.found == ["jax"]

@@ -7,10 +7,8 @@ at 1e-12 to 5e-11; the limit 1e-9 is two decades under the f32 program's
 import pytest
 import torch
 
-from benchmark import inputs as inp
 from benchmark import program
 from benchmark import reference as ref
-from benchmark.run import judge
 from benchmark.tests.conftest import load_cell
 
 CASES = [("tgv2d-512-jacobi", 16), ("tgv2d-1024-amg", 24), ("tgv3d-64-amg", 10)]
@@ -18,27 +16,25 @@ CASES = [("tgv2d-512-jacobi", 16), ("tgv2d-1024-amg", 24), ("tgv3d-64-amg", 10)]
 
 @pytest.mark.parametrize("name,n", CASES)
 def test_reference_follows_the_port_in_f64(name, n, cpu_threads):
-    config, cell = load_cell(name, lattice_n=n, stream_window=0)
+    deck, config, cell = load_cell(name, lattice_n=n, stream_window=0)
     config = dict(config, dtype="float64", solver=dict(config["solver"], tol=1e-13))
-    inputs = inp.make_inputs(config, n, 11, "cpu")
-    sim, state = program.build(config, cell, inputs, "cpu", start_step=6)
-    m = inputs.x.shape[0]
+    inputs = deck.make_inputs(config, cell, 11, "cpu")
+    sim, state = deck.build(config, cell, inputs, "cpu", start_step=6)
     kept = []
     calls = [0]
-    program.run(sim, state, 3, lambda s, aux: kept.append(
-        (s.x[:, :m].T.double(), s.v[:, :m].T.double(), s.p[:m].double())) is not None, calls)
+    program.run(sim, state, 3, lambda s, aux: kept.append(deck.held(s)) is not None, calls)
     before, after = kept[1], kept[2]
     assert (len(kept), calls[0]) == (3, 3)  # no step retried
-    gaps = judge(config, cell, inputs, [(2, before, after)], log=lambda s: None)
+    gaps = deck.judge(config, cell, inputs, [(2, before, after)], log=lambda s: None)
     assert max(gaps.values()) < 1e-9, gaps
 
 
 def test_neighbor_list_is_every_pair_inside_the_cut():
     """Against all pairs by brute force on a jittered 2-D lattice whose
     cells number fewer than three a side (each cell listed once)."""
-    config, _ = load_cell("tgv2d-512-jacobi")
     for n in (8, 13):
-        inputs = inp.make_inputs(config, n, 3, "cpu")
+        deck, config, cell = load_cell("tgv2d-512-jacobi", lattice_n=n)
+        inputs = deck.make_inputs(config, cell, 3, "cpu")
         cut = 3.0 * inputs.dx
         J, live = ref.neighbor_list(inputs.x, inputs.box, cut)
         d = ref.min_image(inputs.x[:, None, :] - inputs.x[None, :, :], inputs.box)

@@ -9,9 +9,11 @@ import pytest
 import torch
 
 from benchmark import spans, trace
-from benchmark.run import PHASES, load_json, metric_readers
+from benchmark.run import load_deck, load_json, metric_readers
 from benchmark.tests.conftest import ROOT
 from benchmark.tests.test_trace import CPU, CUDA, Ev
+
+PHASES = load_deck("tgv").PHASES
 
 NEW = ("host_reads_per_step", "host_wait_ms", "krylov_launches_per_iter", "vcycle_us",
        "amg_transfer_ms", "amg_setup_ms", "neighbor_search_ms")
@@ -157,13 +159,12 @@ def test_pairing_matches_the_correlation_ids_on_the_card():
         pytest.skip("needs a CUDA device")
     from torch.profiler import ProfilerActivity, profile
 
-    from benchmark import inputs, program
     from benchmark.tests.conftest import load_cell
 
     for name, n, window in (("tgv2d-1024-amg", 256, 2048), ("tgv3d-64-amg", 24, 0)):
-        config, cell = load_cell(name, lattice_n=n, stream_window=window)
-        sim, st = program.build(config, cell, inputs.make_inputs(config, n, 7, "cuda"), "cuda",
-                                start_step=cell["cycle_steps"] - 1)
+        deck, config, cell = load_cell(name, lattice_n=n, stream_window=window)
+        sim, st = deck.build(config, cell, deck.make_inputs(config, cell, 7, "cuda"), "cuda",
+                             start_step=cell["cycle_steps"] - 1)
         st, _ = sim.step(sim.prepare(st))
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

@@ -5,8 +5,10 @@ import types
 import torch
 
 from benchmark import trace
-from benchmark.run import PHASES, metric_readers, load_json
+from benchmark.run import load_deck, load_json, metric_readers
 from benchmark.tests.conftest import ROOT
+
+PHASES = load_deck("tgv").PHASES
 
 CUDA, CPU = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
 
