@@ -284,7 +284,22 @@ Phases (each raises on failure; the script then exits non-zero):
    read, out written, at the HBM rate), the plain version and the library
    call (index_add_; index_select and an add), which the port never
    calls.  Both kernels are also counted, and required to launch, on the
-   AMG phases 7 and 9.
+   AMG phases 7 and 9;
+31. (run after phase 30) the neighbor search kernel
+   (csrc/neighbor_search.cu) against the plain blocked search
+   (ops/neighbors.py:search_blocked) on the same CUDA tensors, idx, mask,
+   count and overflow exactly, with the plan's tile and with tiles that
+   split every union, one launch each, and through build_neighbor_list:
+   the 64^3 jittered Quintic lattice (K = 408, cap 40, subdiv 2), the 1M
+   band list (K = 32, window 3072), K = 16 below the counts, 10% invalid
+   particles, a clamped-axis slab, an 8^3 lattice with two cells a
+   periodic axis and a 32^3 Quintic lattice in f64; first a probe that
+   PyTorch still divides a CUDA tensor by a Python float as a product
+   with the reciprocal (the kernel's rsq follows it); at 64^3 and 1M the
+   kernel timed beside its bound (inputs read and outputs written once at
+   the HBM rate), the plain version and the whole build, with each one's
+   peak memory.  The kernel is also counted, and required to launch, on
+   phases 4, 7 and 9.
 
 Each phase's wall time is logged on a line of its own ("phase N (...): s"),
 and the whole run's before the last lines.  The configurations' makers
@@ -305,7 +320,8 @@ extended slabs of phase 27, with their launches on phases 9, 11, 14-16,
 launches_bench; comp_dots with its launches on phases 4, 5, 7, 9, 11,
 14, 16, 19c, 24, 26 and 28 and phase 29's other shapes; the two AMG
 transfer kernels at the 1M cell's level 0 with their launches on phases
-7 and 9 and phase 30's other shapes),
+7 and 9 and phase 30's other shapes; the neighbor search at 64^3 and 1M
+with its launches on phases 4, 7 and 9),
 and the result line
 {"ok": true, "device": {...}}.  Without a CUDA device it prints no result
 and exits non-zero.
@@ -856,6 +872,144 @@ def phase_agg_transfer(dev, flush):
     return rows
 
 
+def _search_cases(dev):
+    """(label, x, valid, domain, cutoff, K, cell capacity, subdiv, stream
+    window) of phase 31: the benchmark cells' lists, then the paths the
+    kernel takes besides them."""
+    from isph_tpu_torch.config import KernelType
+    from isph_tpu_torch.models import tgv
+    from isph_tpu_torch.state import Domain
+
+    rng = np.random.default_rng(31)
+
+    def jitter(x, dx, frac):
+        return x + torch.as_tensor(rng.uniform(-frac * dx, frac * dx, tuple(x.shape)),
+                                   dtype=x.dtype, device=dev)
+
+    def lattice(side, dim, dtype, frac=0.1):
+        dx = 2 * math.pi / side
+        g = np.stack(np.meshgrid(*[(np.arange(side) + 0.5) * dx] * dim, indexing="ij"), 0)
+        x = jitter(torch.as_tensor(g.reshape(dim, -1), dtype=dtype, device=dev), dx, frac)
+        return x, torch.ones(x.shape[1], dtype=torch.bool, device=dev), dx
+
+    def box(dim, periodic=(True, True, True)):
+        return Domain((0.0,) * dim, (2 * math.pi,) * dim, tuple(periodic[:dim]))
+
+    sim, st = tgv.make_tgv(64, dim=3, kernel=KernelType.QUINTIC, max_neighbors=408,
+                           dtype=torch.float32, device=dev)
+    nb = sim.cfg.neighbor
+    yield ("64^3 Quintic", jitter(st.x, 2 * math.pi / 64, 0.01), st.valid, sim.domain,
+           sim.cfg.cut, nb.max_neighbors, nb.cell_capacity, nb.cell_subdiv, 0)
+    del st
+    sim, st = _tgv1024(dev)
+    nb = sim.cfg.neighbor
+    yield ("1M band", jitter(st.x, 2 * math.pi / 1024, 0.01), st.valid, sim.domain,
+           sim.cfg.cut, nb.max_neighbors, nb.cell_capacity, nb.cell_subdiv, nb.stream_window)
+    del st
+    dx = 2 * math.pi / 256
+    x, valid, _ = lattice(256, 2, torch.float32)
+    yield "K = 16 below the counts", x, valid, box(2), 3 * dx, 16, 24, 1, 0
+    valid = torch.as_tensor(rng.uniform(size=x.shape[1]) > 0.1, device=dev)
+    yield "10% invalid", x, valid, box(2), 3 * dx, 32, 24, 1, 0
+    xs = torch.stack([x[0] * 0.8 + 0.1, x[1]])
+    yield ("clamped-axis slab", xs, torch.ones_like(valid), box(2, (False, True)), 3 * dx,
+           48, 24, 1, 0)
+    x, valid, dx = lattice(8, 3, torch.float32)
+    yield "8^3, two cells a periodic axis", x, valid, box(3), 3 * dx, 128, 128, 1, 0
+    x, valid, dx = lattice(32, 3, torch.float64, 0.01)
+    yield "32^3 Quintic f64", x, valid, box(3), 4.5 * dx, 408, 40, 2, 0
+
+
+def _division_probe(dev):
+    """How PyTorch rounds a CUDA tensor divided by a Python float: the
+    minimum image's r / L, against r times the reciprocal rounded in f32 and
+    against the correctly rounded quotient."""
+    L = 2 * math.pi
+    gen = torch.Generator(device=dev).manual_seed(3)
+    r = (torch.rand(1 << 24, generator=gen, device=dev) * 2 - 1) * L
+    q = r / L
+    inv = float(np.float32(1.0) / np.float32(L))
+    by_inv = int((q != r * inv).sum())
+    exact = int((q != (r.double() / float(np.float32(L))).float()).sum())
+    _log(f"neighbor search: a CUDA f32 tensor / L (2 pi) differs from r * f32(1 / f32(L)) in "
+         f"{by_inv} of {r.numel()} values, from the correctly rounded quotient in {exact}")
+    return by_inv
+
+
+def phase_neighbor_search(dev):
+    """Phase 31: the neighbor search kernel against the plain blocked search
+    on the same CUDA tensors (module docstring)."""
+    from isph_tpu_torch.ops import neighbor_search_cuda as nsc
+    from isph_tpu_torch.ops import neighbors as tnb
+
+    if _division_probe(dev) != 0:
+        raise RuntimeError("PyTorch no longer divides a CUDA tensor by a Python float as a "
+                           "product with the reciprocal: the search kernel's rsq would differ")
+    rows = {}
+    for label, x, valid, dom, cut, K, cap, subdiv, window in _search_cases(dev):
+        bins = tnb.bin_particles(x, valid, dom, cut, cap, subdiv)
+        plain = tnb.search_blocked(bins, valid, dom, cut, K)
+        n, Q = x.shape[1], len(bins.offsets)
+        tile = nsc.search_plan(n, bins.ncells, Q, cap, x.shape[0], x.dtype)
+
+        def overflow(t):
+            ovf = torch.clamp_min(t[2].max() - K, 0) + bins.cell_overflow
+            return int(ovf + tnb.band_check(t[0], window, 64)[0]) if window else int(ovf)
+
+        # the plan's tile, then tiles that split every union
+        for force in (None, max(32, tile // 8)):
+            before = nsc.neighbor_search.launches
+            got = tnb.search_kernel(bins, dom, cut, K, tile=force)
+            torch.cuda.synchronize()
+            if nsc.neighbor_search.launches != before + 1:
+                raise RuntimeError(f"neighbor search: not one launch at {label}")
+            same = [torch.equal(g, p) for g, p in zip(got, plain)]
+            if not all(same) or overflow(got) != overflow(plain):
+                raise RuntimeError(f"neighbor search: the kernel (tile {force or tile}) differs "
+                                   f"from the plain version at {label}: idx/mask/count equal "
+                                   f"{same}, overflow {overflow(got)} against "
+                                   f"{overflow(plain)}")
+            del got
+        before = nsc.neighbor_search.launches
+        nl = tnb.build_neighbor_list(x, valid, dom, cut, K, cap, cell_subdiv=subdiv,
+                                     stream_window=window)
+        if nsc.neighbor_search.launches != before + 1 or not torch.equal(nl.idx, plain[0]):
+            raise RuntimeError(f"neighbor search: build_neighbor_list did not launch the "
+                               f"kernel or differs at {label}")
+        count = plain[2][valid]
+        _log(f"neighbor search: {label} (N={n}, K={K}, cap {cap}, subdiv {subdiv}, {Q} cells "
+             f"a neighborhood, {bins.ncells} cells, tile {tile}): idx, mask, "
+             f"count and overflow ({overflow(plain)}; cells past capacity "
+             f"{int(bins.cell_overflow)}) equal the plain version's, also in tiles of "
+             f"{max(32, tile // 8)}; counts {int(count.min())}-{int(count.max())}, "
+             f"{int((~valid).sum())} parked")
+        if window or label.startswith("64^3"):
+            item = x.element_size()
+            nbytes = (x.numel() * item + bins.table.numel() * 4 + 4 * n
+                      + 4 * (bins.ncells + 1) + K * n * 5 + 4 * n)
+            bound, by = _bound(nbytes)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            tk, hk = _median_ms(lambda: tnb.search_kernel(bins, dom, cut, K))
+            peak_k = torch.cuda.max_memory_allocated() - base
+            torch.cuda.reset_peak_memory_stats()
+            tp, _ = _median_ms(lambda: tnb.search_blocked(bins, valid, dom, cut, K), reps=3)
+            peak_p = torch.cuda.max_memory_allocated() - base
+            tb, _ = _median_ms(lambda: tnb.build_neighbor_list(
+                x, valid, dom, cut, K, cap, cell_subdiv=subdiv, stream_window=window), reps=10)
+            rows[label] = dict(ms=tk, plain_ms=tp, library_ms=None, bound_ms=bound,
+                               bound_by=by, build_ms=tb, host_us=hk)
+            _log(f"neighbor search: {label}: kernel={tk:.4f} ms, bound={bound:.4f} ms "
+                 f"({nbytes / 1e6:.1f} MB, {by}), share={bound / tk:.4f}, plain={tp:.2f} ms; "
+                 f"peak above the inputs: kernel {peak_k / 2**20:.1f} MiB, plain "
+                 f"{peak_p / 2**20:.1f} MiB; build_neighbor_list {tb:.3f} ms; host enqueue "
+                 f"{hk:.1f} us")
+        del plain, nl, bins
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _run_steps(tag, sim, state, wrappers, cap_check=True, nsteps=3, each=None,
                step_times=None, step=None):
     """``nsteps`` steps through Simulation.run, one call per step
@@ -929,6 +1083,7 @@ def phase_main_path(dev):
     iterations and vmax of each step are MAIN_PARENT's, bit for bit."""
     from isph_tpu_torch.models import tgv
     from isph_tpu_torch.ops import comp_dot_cuda as cd
+    from isph_tpu_torch.ops import neighbor_search_cuda as nsc
     from isph_tpu_torch.ops import spmv_cuda as sc
 
     sim, state = _tgv256(dev)
@@ -938,7 +1093,8 @@ def phase_main_path(dev):
         iters.append((int(aux.helmholtz_iters), int(aux.poisson_iters)))
         record.append((*iters[-1], float(aux.status.vmax).hex()))
 
-    state, aux, launches = _run_steps("main", sim, state, (sc.ell_spmv, sc.take, cd.comp_dots),
+    state, aux, launches = _run_steps("main", sim, state, (sc.ell_spmv, sc.take, cd.comp_dots,
+                                                           nsc.neighbor_search),
                                       cap_check=False, each=each)
     if min(launches.values()) <= 0:
         raise RuntimeError(f"a kernel of the main path never launched: {launches}")
@@ -1060,6 +1216,7 @@ def phase_large_n(dev):
     streaming list."""
     from isph_tpu_torch.ops import agg_transfer_cuda as at
     from isph_tpu_torch.ops import comp_dot_cuda as cd
+    from isph_tpu_torch.ops import neighbor_search_cuda as nsc
     from isph_tpu_torch.ops import spmv_cuda as sc
 
     sim, state = _tgv1024(dev)
@@ -1067,12 +1224,13 @@ def phase_large_n(dev):
     state, aux, launches = _run_steps(
         "large", sim, state,
         (sc.ell_spmv, sc.take, sc.ell_spmv_band, sc.take_band, cd.comp_dots, at.agg_restrict,
-         at.agg_prolong_add),
+         at.agg_prolong_add, nsc.neighbor_search),
         each=_record_iters(iters), step_times=step_s)
     if min(launches["ell_spmv_band"], launches["take_band"], launches["comp_dots"],
-           launches["agg_restrict"], launches["agg_prolong_add"]) <= 0:
-        raise RuntimeError(f"a band kernel, comp_dots or an AMG transfer kernel never "
-                           f"launched on the large-N path: {launches}")
+           launches["agg_restrict"], launches["agg_prolong_add"],
+           launches["neighbor_search"]) <= 0:
+        raise RuntimeError(f"a band kernel, comp_dots, an AMG transfer kernel or the neighbor "
+                           f"search never launched on the large-N path: {launches}")
     _check_vortex("large", aux, (2 * math.pi) ** 2)
     _breakdown_amg("large", sim, state)
     return launches, dict(ke=float(aux.status.kinetic_energy), vmax=float(aux.status.vmax),
@@ -1247,6 +1405,7 @@ def phase_3d_path(dev):
     """Three TGV-64^3 f32 Quintic steps through Simulation.run with AMG."""
     from isph_tpu_torch.ops import agg_transfer_cuda as at
     from isph_tpu_torch.ops import comp_dot_cuda as cd
+    from isph_tpu_torch.ops import neighbor_search_cuda as nsc
     from isph_tpu_torch.ops import spmv_cuda as sc
 
     sim, state = _tgv3(dev, 64)
@@ -1266,7 +1425,7 @@ def phase_3d_path(dev):
         raise RuntimeError("the 3-D lattice should give 388 neighbors a particle, no overflow")
     state, aux, launches = _run_steps("3d path", sim, state,
                                       (sc.ell_spmv, sc.take, cd.comp_dots, at.agg_restrict,
-                                       at.agg_prolong_add))
+                                       at.agg_prolong_add, nsc.neighbor_search))
     if min(launches.values()) <= 0:
         raise RuntimeError(f"a kernel of the 3-D path never launched: {launches}")
     _check_vortex("3d path", aux, (2 * math.pi) ** 3)
@@ -3301,6 +3460,10 @@ def main() -> int:
     ka = _phase("30 (AMG transfers)", phase_agg_transfer, dev, flush)
     del flush
 
+    # phase 31: the neighbor search kernel against the plain blocked search
+    kn = _phase("31 (neighbor search)", phase_neighbor_search, dev)
+    torch.cuda.empty_cache()
+
     # phase 4: main path; phase 5: golden
     launches, tgv_sim, tgv_state, tgv_t, main_iters = _phase("4 (main path)",
                                                              phase_main_path, dev)
@@ -3485,6 +3648,12 @@ def main() -> int:
             **times(ka[f"{op} {AGG_MAIN}"]),
             **{f"at_{k[len(op) + 1:].replace(' ', '_').replace('^', '')}": times(r)
                for k, r in ka.items() if k.startswith(op + " ") and not k.endswith(AGG_MAIN)}))
+    kernels.append(dict(
+        name="neighbor_search", route="cuda", source="isph_tpu_torch/csrc/neighbor_search.cu",
+        replaces="none (XLA's search, isph_tpu/ops/neighbors.py)",
+        launches=launches["neighbor_search"], launches_large=launches_large["neighbor_search"],
+        launches_3d=launches_3d["neighbor_search"], max_abs_err=0.0,
+        **times(kn["64^3 Quintic"]), at_1M=times(kn["1M band"])))
     print(_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

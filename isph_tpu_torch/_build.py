@@ -146,6 +146,10 @@ def load(path: Path) -> ctypes.CDLL:
     lib.isph_agg_restrict.restype = i32
     lib.isph_agg_prolong_add.argtypes = [i32, vp, vp, vp, vp, vp, i64, i32, vp]
     lib.isph_agg_prolong_add.restype = i32
+    ip, dp = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_double)
+    lib.isph_neighbor_search.argtypes = ([i32, i32] + [vp] * 7 + [i32] * 4 + [ip] * 4
+                                         + [dp, dp, ctypes.c_double] + [i32] * 2 + [vp])
+    lib.isph_neighbor_search.restype = i32
     lib.isph_smem_optin.argtypes = [i32]
     lib.isph_smem_optin.restype = i32
     return lib

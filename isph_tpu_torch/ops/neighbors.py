@@ -6,7 +6,10 @@ overflow is detected (``overflow``) and handled by the host with a larger K.
 Search = bin by cell (stable sort + bucket table), gather the 3^D cell
 neighborhood's candidates, mask by cutoff, compact the K smallest column
 indices per row with ``torch.topk``.  Periodic boundaries use the minimum
-image on the displacement.
+image on the displacement.  That is the plain version (:func:`search_blocked`),
+which CPU tensors run; on CUDA tensors the candidate search after the binning
+is one launch of the search kernel (``ops/neighbor_search_cuda.py``), which
+gives the plain version's bits.
 
 The result equals the JAX package's exactly (idx, mask, count, overflow):
 the sort is stable as ``jnp.argsort``, out-of-range bucket writes are left
@@ -39,6 +42,7 @@ import torch
 
 from isph_tpu_torch.state import Domain
 from isph_tpu_torch.ops.kernels import Kernel
+from isph_tpu_torch.ops.neighbor_search_cuda import neighbor_search
 from isph_tpu_torch.utils.fsum import sqrt_rn
 from isph_tpu_torch.utils.profiling import span
 from isph_tpu_torch.ops.spmv_cuda import (LANE, BandSpec, SlotFormat, slot_format, take,
@@ -164,13 +168,12 @@ def band_check(idx: torch.Tensor, window: int, subcap: int) -> Tuple[torch.Tenso
     return ovf.to(torch.int32), BandSpec(window=window, rows=sub * LANE)
 
 
-# working-set bytes of a row block (candidates of all its rows) and what
-# one candidate holds across the block's arrays at once, rounded up: the
-# column (int32), its D positions and rsq, the minimum-image temporaries
-# and the cutoff test (37 bytes measured at TGV-64^3 f32 on the H100).  At
-# TGV-64^3 Quintic (C = 5,000) that is eight blocks of 35,791 rows; blocks
-# of 32,768 rows built faster than larger ones there, with a 6 GiB peak
-# (PERF.md)
+# working-set bytes of a row block of the plain search (candidates of all
+# its rows) and what one candidate holds across the block's arrays at once,
+# rounded up: the column (int32), its D positions and rsq, the
+# minimum-image temporaries and the cutoff test (37 bytes measured at
+# TGV-64^3 f32 on the H100, when the card ran this search).  At TGV-64^3
+# Quintic (C = 5,000) that is eight blocks of 35,791 rows
 _BLOCK_BYTES = 1 << 33
 _BYTES_PER_CANDIDATE = 48
 
@@ -243,33 +246,42 @@ def _compact_rows(r0, r1, c, offsets, table, xtab, xw, valid, domain, cutoff,
     return torch.where(mask_nk, idx_nk, pad[:, None]), mask_nk, count
 
 
-def build_neighbor_list(
-    x: torch.Tensor,
-    valid: torch.Tensor,
-    domain: Domain,
-    cutoff: float,
-    max_neighbors: int,
-    cell_capacity: int = 32,
-    cell_subdiv: int = 1,
-    stream_window: int = 0,
-    stream_subcap: int = 64,
-) -> NeighborList:
-    """Cell-list neighbor search with static shapes.  x is (D, N).  With
-    ``stream_window`` > 0 the list is a streaming one: the band check's
-    count joins ``overflow`` and the list carries its :class:`BandSpec`.
-    The candidate search runs as many rows at a time as fit
-    ``_BLOCK_BYTES`` of working set."""
+@dataclasses.dataclass
+class CellBins:
+    """The binning of a build: particles in cells of at least cutoff/subdiv,
+    each cell's first ``cap`` particles in the bucket table."""
+
+    xw: torch.Tensor  # (D, N) wrapped positions
+    c: list  # D x (N,) int32 cell coordinate of every particle
+    ncell: Tuple[int, ...]  # cells an axis; cell ids run with the last axis fastest
+    strides: list
+    ncells: int
+    order: torch.Tensor  # (N,) int64, particles sorted by cell id (stable), parked last
+    starts: torch.Tensor  # (ncells + 1,) int64, each cell's first position in order
+    table: torch.Tensor  # (ncells + 1, cap) int32, sentinel N, the park row last
+    cell_overflow: torch.Tensor  # () particles past cap in the fullest real cell
+    axis_offsets: Tuple[Tuple[int, int], ...]  # (first, count) cell offsets an axis
+
+    @property
+    def offsets(self) -> np.ndarray:
+        """(Q, D) every offset of the cell neighborhood, the first axis slowest."""
+        axes = [np.arange(lo, lo + cnt) for lo, cnt in self.axis_offsets]
+        return np.array(np.meshgrid(*axes, indexing="ij")).reshape(len(axes), -1).T
+
+
+def bin_particles(x: torch.Tensor, valid: torch.Tensor, domain: Domain, cutoff: float,
+                  cell_capacity: int = 32, cell_subdiv: int = 1) -> CellBins:
+    """Bin (D, N) positions: stable sort by cell id (invalid particles parked
+    in cell ``ncells``), bucket table, and the cell neighborhood's offsets."""
     dim, n = x.shape
     dev = x.device
     i32 = torch.int32
-    K = max_neighbors
     cap = cell_capacity
     ncell, csize = _cell_grid(domain, cutoff, cell_subdiv)
     ncells = int(np.prod(ncell))
 
     xw = domain.wrap(x)
 
-    # --- bin particles -----------------------------------------------------
     c = []
     for d in range(dim):
         cd = torch.floor((xw[d] - domain.lo[d]) / csize[d]).to(i32)
@@ -294,57 +306,95 @@ def build_neighbor_list(
     # entries are left out, as jnp's scatter mode="drop" leaves them out
     rank_w = torch.where(real, rank, cap)
     keep = rank_w < cap
-
-    def kept(t):
-        """``t[keep]``: a boolean-mask index sizes its output on the host,
-        a host read."""
-        with span("host_read"):
-            return t[keep]
-
-    rows, cols = kept(sorted_cid).long(), kept(rank_w).long()
+    rows, cols = _kept(sorted_cid, keep).long(), _kept(rank_w, keep).long()
     table = torch.full((ncells + 1, cap), n, dtype=i32, device=dev)
-    table[rows, cols] = kept(order).to(i32)
-    xtab = torch.full((dim, ncells + 1, cap), math.inf, dtype=xw.dtype, device=dev)
-    for d in range(dim):
-        xtab[d][rows, cols] = kept(xw[d][order])
-    # empty slots at +inf fail every cutoff test
+    table[rows, cols] = _kept(order, keep).to(i32)
 
-    # --- the cell neighborhood's offsets -----------------------------------
     # periodic axes with too few cells sweep each cell exactly once (offsets
     # wrapping onto the same cell would list its particles twice)
-    axis_offs = []
+    axis_offsets = []
     for d in range(dim):
         reach = int(math.ceil(cutoff / csize[d] - 1e-9))
         if domain.periodic[d] and ncell[d] <= 2 * reach:
-            base = -(ncell[d] // 2)
-            axis_offs.append(np.arange(base, base + ncell[d]))
+            axis_offsets.append((-(ncell[d] // 2), ncell[d]))
         else:
-            axis_offs.append(np.arange(-reach, reach + 1))
-    offsets = np.array(np.meshgrid(*axis_offs, indexing="ij")).reshape(dim, -1).T
+            axis_offsets.append((-reach, 2 * reach + 1))
+    return CellBins(xw=xw, c=c, ncell=ncell, strides=strides, ncells=ncells, order=order,
+                    starts=starts, table=table, cell_overflow=cell_overflow,
+                    axis_offsets=tuple(axis_offsets))
 
-    # --- candidates, cutoff mask and top_k, one block of rows at a time ------
-    # each row's result depends only on its own candidates, so the blocks
-    # give the unblocked result exactly; the (rows, C) working set of a
-    # block stays under _BLOCK_BYTES however wide C is (C = 5,000 at 3-D
-    # Quintic)
-    C = len(offsets) * cap
+
+def _kept(t: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """``t[keep]``: a boolean-mask index sizes its output on the host, a
+    host read."""
+    with span("host_read"):
+        return t[keep]
+
+
+def search_blocked(bins: CellBins, valid: torch.Tensor, domain: Domain, cutoff: float,
+                   K: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of the candidate search: (idx (K, N) int32, mask
+    (K, N) bool, count (N,) int32) from the binning, as many rows at a time
+    as fit ``_BLOCK_BYTES`` of working set.  Each row's result depends only
+    on its own candidates, so the blocks give the unblocked result exactly;
+    a block's (rows, C) working set stays under ``_BLOCK_BYTES`` however
+    wide C is (C = 5,000 at 3-D Quintic)."""
+    xw, table = bins.xw, bins.table
+    n = xw.shape[1]
+    # the table's positions; empty slots at +inf fail every cutoff test
+    xtab = torch.where(table < n, xw[:, table.clamp_max(n - 1).long()], math.inf)
+    offsets = bins.offsets
+    C = len(offsets) * table.shape[1]
     rows = max(1, _BLOCK_BYTES // (_BYTES_PER_CANDIDATE * C))
+    blocks = [_compact_rows(r0, min(n, r0 + rows), bins.c, offsets, table, xtab, xw, valid,
+                            domain, cutoff, bins.ncell, bins.strides, bins.ncells, K, n)
+              for r0 in range(0, n, rows)]
+    if len(blocks) == 1:
+        idx_nk, mask_nk, count = blocks[0]
+    else:
+        idx_nk, mask_nk, count = (torch.cat(parts) for parts in zip(*blocks))
+    return idx_nk.T.contiguous(), mask_nk.T.contiguous(), count
+
+
+def search_kernel(bins: CellBins, domain: Domain, cutoff: float, K: int,
+                  tile: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The candidate search through the kernel (``ops/neighbor_search_cuda``):
+    the plain version's (idx, mask, count) in one launch."""
+    i32 = torch.int32
+    return neighbor_search(bins.xw, bins.table, bins.order.to(i32), bins.starts.to(i32),
+                           bins.ncell, bins.axis_offsets, domain, cutoff, K, tile=tile)
+
+
+def build_neighbor_list(
+    x: torch.Tensor,
+    valid: torch.Tensor,
+    domain: Domain,
+    cutoff: float,
+    max_neighbors: int,
+    cell_capacity: int = 32,
+    cell_subdiv: int = 1,
+    stream_window: int = 0,
+    stream_subcap: int = 64,
+) -> NeighborList:
+    """Cell-list neighbor search with static shapes.  x is (D, N).  With
+    ``stream_window`` > 0 the list is a streaming one: the band check's
+    count joins ``overflow`` and the list carries its :class:`BandSpec`.
+    The candidate search runs the kernel on CUDA tensors and the plain
+    version (:func:`search_blocked`) on CPU tensors."""
+    K = max_neighbors
+    bins = bin_particles(x, valid, domain, cutoff, cell_capacity, cell_subdiv)
     with span("neighbors.search"):
-        blocks = [_compact_rows(r0, min(n, r0 + rows), c, offsets, table, xtab, xw, valid,
-                                domain, cutoff, ncell, strides, ncells, K, n)
-                  for r0 in range(0, n, rows)]
-        if len(blocks) == 1:
-            idx_nk, mask_nk, count = blocks[0]
+        if x.device.type == "cpu":
+            idx, mask, count = search_blocked(bins, valid, domain, cutoff, K)
         else:
-            idx_nk, mask_nk, count = (torch.cat(parts) for parts in zip(*blocks))
-    idx = idx_nk.T.contiguous()
-    mask = mask_nk.T.contiguous()
-    overflow = torch.clamp_min(count.max() - K, 0) + cell_overflow
+            idx, mask, count = search_kernel(bins, domain, cutoff, K)
+    overflow = torch.clamp_min(count.max() - K, 0) + bins.cell_overflow
     band = None
     if stream_window:
         band_ovf, band = band_check(idx, stream_window, stream_subcap)
         overflow = overflow + band_ovf
-    return NeighborList(idx=idx, mask=mask, count=count, overflow=overflow.to(i32),
+    return NeighborList(idx=idx, mask=mask, count=count, overflow=overflow.to(torch.int32),
                         band=band, slots=slot_format(idx, mask, band))
 
 
