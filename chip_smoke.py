@@ -5,6 +5,12 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py
 
+It checks the port on the card and times its kernels, not its steps
+(phase 28 checks the port's bench, which times bench.py's own small
+cells).  The configurations' steps are measured only by the benchmark,
+``python3 -m benchmark.run``, and their phases by the step's named_scope
+ranges and spans in its ``--trace 1`` runs.
+
 Phases (each raises on failure; the script then exits non-zero):
 
 1. device: require a CUDA device, turn TF32 off for matmuls and cuDNN;
@@ -23,9 +29,9 @@ Phases (each raises on failure; the script then exits non-zero):
    time the card's HBM rate allows for the bytes of its format, and log
    the bytes the SpMV streams;
 4. main path: three 256^2 Taylor-Green projection steps in f32 with
-   Jacobi through Simulation.run, one step per call so that each step is
-   timed (the same steps as run(state, 3)), with the launch counters reset
-   just before and read just after; checks overflow, finiteness, volume,
+   Jacobi through Simulation.run, one step per call (the same steps as
+   run(state, 3)), with the launch counters reset just before and read
+   just after; checks overflow, finiteness, volume,
    the decaying vmax, that the ELL kernels and the compensated dot ran,
    and that each step's Helmholtz and Poisson counts and vmax bits are
    the parent commit's on the card (MAIN_PARENT: the kernel keeps the
@@ -44,8 +50,7 @@ Phases (each raises on failure; the script then exits non-zero):
 7. large-N path: three 1024^2 f32 steps through Simulation.run with the
    default AMG preconditioner (max age 8) on the streaming neighbor list;
    checks overflow, the Poisson iteration cap, volume, the decaying vmax,
-   and that both band kernels ran; prints the peak device memory and one
-   synchronized breakdown with the AMG build and the V-cycles apart;
+   and that both band kernels ran; logs the peak device memory;
 8. 3-D kernels: on the pressure-Poisson matrices of the Quintic (cut = 3h,
    K = 392) 3-D Taylor-Green lattices at 64^3 (262,144 particles, ~102M
    nonzeros) and 24^3 (the reference's per-rank scaling size), the SpMV
@@ -57,9 +62,9 @@ Phases (each raises on failure; the script then exits non-zero):
 9. 3-D path: three TGV-64^3 f32 Quintic steps through Simulation.run with
    the default AMG; checks overflow, the 388 neighbors a particle, the
    Poisson iteration cap, finiteness, volume, the decaying vmax and that
-   both kernels ran; prints the neighbor build's own peak, the step's peak
-   device memory, one synchronized breakdown and the Poisson iterations of
-   one more step with Jacobi beside AMG's;
+   both kernels ran; logs the neighbor build's own peak, the steps' peak
+   device memory and the Poisson iterations of a fourth Simulation.step
+   with AMG beside the same step with Jacobi;
 10. channel kernels: on the matrices of the ny = 1024 Poiseuille channel
    (424,064 particles padded, K = 48: the one-row SpMV path), the SpMV
    against its plain version as in phase 3 on the pressure-Poisson matrix
@@ -72,7 +77,7 @@ Phases (each raises on failure; the script then exits non-zero):
    in f32 with the default AMG; checks overflow, that the walls neither
    move nor gain velocity, finiteness, the velocity error against the
    transient profile (5%, tests/test_channel.py's bar), and that both
-   kernels ran; prints one synchronized breakdown with the shift apart;
+   kernels ran;
 12. electrokinetic kernels: on the Poisson-Boltzmann Jacobian of the
    electroosmotic channel of phase 14 (K = 48, N = 268,288), the SpMV in
    f64 C = 1 and take in f64 and int32 (N,) against their plain versions
@@ -83,7 +88,7 @@ Phases (each raises on failure; the script then exits non-zero):
    the channel-EDL potential (nonlinear PB, kappa = 10, MorrisHolmes
    mirror) at n = 32 within 5% of the reference's table and at n = 256
    (13,936 particles) below the JAX package's own error at n = 128, with
-   its Newton iterations, NormF and solve time; at n = 512 (53,448
+   its Newton iterations and NormF; at n = 512 (53,448
    particles) the reference's Newton does not converge (JAX's stops at
    its cap of 100 too), and the script logs the same numbers; applied-efield-potential-2d
    at n = 64: its error against the Henry field within 1e-6 relative of
@@ -92,13 +97,11 @@ Phases (each raises on failure; the script then exits non-zero):
 14. electroosmotic channel: three f64 steps of channel-edl-linear-2d at
    n = 512 (268,288 particles, linearized PB, eps = 0.02, default AMG)
    through Simulation.run; checks overflow, finiteness, fixed walls, the
-   flow in -x and that both kernels ran; one synchronized breakdown of
-   the first step with the PB Newton solve (held to NormF <= 1e-8), the
-   force, Helmholtz and the Poisson V-cycles apart; the idle share of the
-   first step, profiled (torch.profiler, kernel events); then one f32 step
-   of the same deck,
-   whose Newton runs to its cap (the absolute stopping test lies below f32
-   round-off);
+   flow in -x and that both kernels ran; the PB Newton solve of the first
+   step (solve_poisson_boltzmann on the start state) held to NormF <= tol_f
+   (1e-8); then one f32 step of the same deck through Simulation.run, in
+   which comp_dots must launch (its Newton runs to its cap: the absolute
+   stopping test lies below f32 round-off);
 15. transport: five f64 steps of square-concentration-fix-2d at n = 1024
    (1,048,576 particles, d0 = 0.02) through Simulation.run, held to
    tests/test_decks.py's bars (L2 error against the heat kernel < 0.06,
@@ -112,9 +115,8 @@ Phases (each raises on failure; the script then exits non-zero):
    (MorrisHolmes mirrors, shift 0.07) through Simulation.run_adaptive
    (cfl 0.25, dx = 1/1024): no overflow, the block GMRES converged each
    step, finite fields, fixed walls, mean fluid vx > 0, both kernels ran;
-   logs the dt sequence, each step's iterations and time, the launches,
-   the peak memory and a synchronized breakdown with the block Helmholtz
-   apart; (d) a checkpoint after step 2 restored into the step-1 state
+   logs the dt sequence, each step's iterations, the launches and the peak
+   memory; (d) a checkpoint after step 2 restored into the step-1 state
    bit for bit (AMG cache included), one more step from both within 1e-6
    (bit-equality logged); (e) one dump frame through io/dump.py and the
    native writer, read back equal, both times logged; (f) the wall
@@ -144,9 +146,7 @@ Phases (each raises on failure; the script then exits non-zero):
    put, that the injected phase grows from 0, that the CSF force and
    curvature vanish in the ignore band where the color gradient does not,
    and that csf_force on the card equals the same function on a CPU copy
-   of the step-1 state and geometry within 1e-12; one synchronized
-   breakdown with the surface tension apart, the idle share of a profiled
-   step, the peak memory;
+   of the step-1 state and geometry within 1e-12; the peak memory;
 19. the other new paths: three f64 steps of square-droplet-2d at n = 256
    (262,144 particles, K = 80, pairwise Tartakovsky-Meakin; the drop's
    anisotropy stays within 1.5x its start); isph-micelle at its deck size
@@ -154,7 +154,7 @@ Phases (each raises on failure; the script then exits non-zero):
    0.8 dx the fluid does, and two runs agree bit for bit); the random
    stress for one step on phase 4's state (the tensor symmetric and
    traceless, the force linear in sqrt(kBT), the noise a function of
-   (seed, step) alone, the step's time beside its draw's); JAX's threefry
+   (seed, step) alone); JAX's threefry
    stream (utils/threefry.py) on the card against the CPU's for a
    (2, 2, 65536) and a (3, 3, 703,040) draw: the 32- and 64-bit words
    bitwise, the f32 and f64 normals within 2 ulp, each draw timed; three
@@ -169,10 +169,9 @@ Phases (each raises on failure; the script then exits non-zero):
    across, K = 48, f64), three steps through Simulation.run, each Poisson
    relres < 1e-6 and vmax within 1e-5 relative of the JAX package's (its
    Jacobi GMRES(50) stops at the 750-iteration cap in both packages); the
-   median step, iterations, peak memory, a breakdown by the step's named
-   phases (utils/profiling.named_scope bracketed by synchronizes) and the
-   idle share of a profiled step; then one step at n = 512 (262,144
-   particles), its iterations and relres logged;
+   iterations, the peak memory and a fourth step without overflow and
+   finite; then one step at n = 512 (262,144 particles), its iterations
+   and relres logged;
 22. MLS kernels (run after phase 23): ell_spmv in f64 C = 1 on phase 21's
    ALE Poisson matrix (N = 65,536, K = 48) and on the 3-D MLS Laplacian of
    poisson-operator-3d at n = 64 (N = 262,144, K = 360, 94.4M slots), take
@@ -189,13 +188,13 @@ Phases (each raises on failure; the script then exits non-zero):
    three steps with precond "ilu" (ILU(0) GMRES on the Helmholtz solves,
    the singular Poisson on its Jacobi fallback), their iterations beside
    phase 4's (at 256^2, where dt nu/dx^2 ~ 6, ILU(0) GMRES stalls short of
-   the tolerance); the ILU build time on the step-1 Helmholtz matrix; the
-   step-1 ILU solve on the card against the port on the CPU on the same
-   f32 matrix (factors within 1e-6, iterations equal, relres within 5e-3
-   relative, x within 3e-5 of max |x|); the factorization's take through
-   the flat (K, N) index of every slot exact against take_plain, and its
-   L and U sweep SpMVs (zero diagonal, f32 C = 1 and 2) against their
-   plain versions as in phase 3, with bounds, plain and library times; (b)
+   the tolerance); the step-1 ILU solve on the card against the port on
+   the CPU on the same f32 matrix (factors within 1e-6, iterations equal,
+   relres within 5e-3 relative, x within 3e-5 of max |x|); the
+   factorization's take through the flat (K, N) index of every slot exact
+   against take_plain, and its L and U sweep SpMVs (zero diagonal, f32
+   C = 1 and 2) against their plain versions as in phase 3, with bounds,
+   plain and library times; (b)
    three steps with recycle_k = 8, p within 1e-4 of max |p| of phase 4's;
    (c) three steps of pipelined CG beside three of CG, both Jacobi, p
    within 3e-4; (d) GMRES with chebyshev(degree=3) on the step-1 Helmholtz
@@ -205,8 +204,8 @@ Phases (each raises on failure; the script then exits non-zero):
    two types, K = 448, cutoff 10 A and tol 1e-6 (LAMMPS's documented
    fix qeq/reax 1 0.0 10.0 1.0e-6); six solve_qeq calls on fixed
    positions, each converged and neutral, the sixth in no more iterations
-   than the first, with the neighbor build's and the solves' peaks, the
-   launches and the idle share of a profiled call; the SpMV on H (f64
+   than the first, with the neighbor build's and the solves' peaks and the
+   launches; the SpMV on H (f64
    C = 2) and take on the type ids (int32) and positions (f64 (3, N))
    against their plain versions as in phase 3; the 4,096-atom lattice solved to 1e-10 on the card, its
    charges within 1e-10 of the port's on the CPU and of the JAX package's
@@ -217,18 +216,14 @@ Phases (each raises on failure; the script then exits non-zero):
    choose_n_loc and the halo sized to the cut layer of the slab faces (+25%,
    logged), the AMG cache on as phase 7's driver caches: KE and vmax within
    1e-4 relative of phase 7's, nfluid exact, no overflow, both kernels
-   ran; the median step, sharded_overhead_ratio_1m (over phase 7's median),
-   the iterations beside phase 7's, the V-cycles of one more step, the idle
-   share of a profiled step, the peak memory; (d) the kernels of the
-   overlapped matvec at (a)'s shapes: the SpMV of A_own (the slab's Poisson
-   matrix, halo-column values zeroed; f32 and f64 C = 1) and the (K, 2H)
-   boundary-strip take (f32, f64 at (N,) and (2, N)) against their plain
-   versions as in phase 3; (b) TGV-256^2 f64 h_factor 1.6 Jacobi from a
+   ran; the iterations beside phase 7's, the peak memory; (d) the kernels
+   of the overlapped matvec at (a)'s shapes: the SpMV of A_own (the slab's
+   Poisson matrix, halo-column values zeroed; f32 and f64 C = 1) and the
+   (K, 2H) boundary-strip take (f32, f64 at (N,) and (2, N)) against
+   their plain versions as in phase 3; (b) TGV-256^2 f64 h_factor 1.6 Jacobi from a
    common first step (its Poisson right-hand side is round-off), three
    sharded steps against the one-device steps: iterations equal, fields
-   within 1e-9 after matching by position; (c) bench.py's
-   bench_sharded_overhead cell (TGV-128^2 f32 Jacobi, K = 32, halo 640):
-   sharded_overhead_ratio, both steps timed with CUDA events; (e)
+   within 1e-9 after matching by position; (e)
    scripts/weak_scaling.py's world-size-1 layout (TGV-32 f64, h_factor
    1.6, n_loc = halo = 1536): three steps against JAX's sharded step
    (WEAK_JAX), Helmholtz counts equal, Poisson counts from step 2 (step
@@ -240,12 +235,11 @@ Phases (each raises on failure; the script then exits non-zero):
    through ShardedSimulation.step (n_loc from choose_n_loc, the halo the
    cut layer + 25%), each Poisson relres < 1e-6 and vmax within 1e-5 of
    JAX's, no overflow, both kernels ran; the iterations beside phase 21's,
-   sharded_overhead_ratio_ale (the median step over phase 21's), the peak
-   memory, the idle share and collectives of a profiled step; (b) phase
+   the peak memory and the collectives of a fourth step; (b) phase
    25's 262,144-atom QEq lattice as one slab (n_loc = N): solve_qeq with
    the halo refresh and the group against the one-device solve on the
    same atoms at 1e-10 (q within 1e-10, s/t iterations equal), then two
-   calls at 1e-6 timed beside phase 25's;
+   calls at 1e-6 with their collectives;
    (d) ell_spmv on the extended slabs' ALE Poisson matrix (f64 C = 1) and
    QEq H (f64 C = 2), take on the ALE slab list (f64 pressure, int32
    kinds) and the QEq slab's type ids (int32), against their plain
@@ -304,9 +298,8 @@ Phases (each raises on failure; the script then exits non-zero):
 Each phase's wall time is logged on a line of its own ("phase N (...): s"),
 and the whole run's before the last lines.  The configurations' makers
 and the measuring helpers (_tgv, _tgv1024, _tgv3, _channel, _edl_flow,
-_transport_box, _pore3d, qeq_lattice, _median_ms, _idle_share, _bound,
-_spmv_bound, ...) live in isph_tpu_torch/bench.py, which times the same
-configurations.
+_transport_box, _pore3d, _qeq_setup, _median_ms, _bound, _spmv_bound, ...)
+live in isph_tpu_torch/bench.py.
 
 The last lines are the card's name and power limit from nvidia-smi, one
 JSON line describing the kernels (time, launches on the main path, plain
@@ -335,7 +328,6 @@ import math
 import os
 import re
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -344,11 +336,10 @@ import numpy as np
 import torch
 
 from isph_tpu_torch.bench import (  # noqa: F401  (configurations and measuring helpers)
-    CYL, CYL_N, FLOPS_PER_S, HBM_BYTES_PER_S, PORE_DECK, PORE_N, QEQ_K, QEQ_PARAMS, QEQ_SIDE,
-    QEQ_SPACING, TRANSPORT_D0, WALLS_UMIN, _bound, _channel, _edl_flow, _geometry,
-    _idle_share, _median_ms, _poisson_matrix, _pore3d, _pore3d_symmetric, _qeq_geometry,
-    _qeq_setup, _slip_channel, _smi, _solve_times, _spmv_bound, _tgv, _tgv3, _tgv1024,
-    _transport_box, _with_solver, qeq_lattice)
+    CYL, CYL_N, PORE_DECK, PORE_N, QEQ_K, QEQ_PARAMS, QEQ_SIDE, TRANSPORT_D0, WALLS_UMIN, _bound,
+    _channel, _edl_flow, _geometry, _median_ms, _poisson_matrix, _pore3d, _pore3d_symmetric,
+    _qeq_geometry, _qeq_setup, _slip_channel, _smi, _solve_times, _spmv_bound, _tgv, _tgv3,
+    _tgv1024, _transport_box, _with_solver, qeq_lattice)
 
 
 def _log(msg: str) -> None:
@@ -1010,30 +1001,23 @@ def phase_neighbor_search(dev):
     return rows
 
 
-def _run_steps(tag, sim, state, wrappers, cap_check=True, nsteps=3, each=None,
-               step_times=None, step=None):
-    """``nsteps`` steps through Simulation.run, one call per step
-    (run(state, nsteps) in timed pieces), or through ``step(state)`` where
-    given, the wrappers' launch counters set to 0 just before and read just
-    after.  Fails on a neighbor overflow, a non-finite status and, with
+def _run_steps(tag, sim, state, wrappers, cap_check=True, nsteps=3, each=None, step=None):
+    """``nsteps`` steps through Simulation.run, one call per step (the same
+    steps as run(state, nsteps)), or through ``step(state)`` where given,
+    the wrappers' launch counters set to 0 just before and read just after.
+    Fails on a neighbor overflow, a non-finite status and, with
     ``cap_check``, a Poisson solve at the iteration cap.  ``each(k, state,
-    aux)`` sees every step's result; ``step_times``, a list, receives each
-    step's seconds."""
+    aux)`` sees every step's result."""
     if step is None:
         step = lambda s: sim.run(s, 1)  # noqa: E731
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers:
         w.launches = 0
-    step_s = []
     for k in range(nsteps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         state, aux = step(state)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        _log(f"{tag}: step {k + 1}: {step_s[-1]:.4f} s helmholtz_iters="
-             f"{int(aux.helmholtz_iters)} poisson_iters={int(aux.poisson_iters)} "
+        _log(f"{tag}: step {k + 1}: helmholtz_iters={int(aux.helmholtz_iters)} "
+             f"poisson_iters={int(aux.poisson_iters)} "
              f"poisson_relres={float(aux.poisson_relres):.3e} "
              f"overflow={int(aux.neighbor_overflow)}")
         if int(aux.neighbor_overflow) != 0:
@@ -1043,12 +1027,7 @@ def _run_steps(tag, sim, state, wrappers, cap_check=True, nsteps=3, each=None,
         if each is not None:
             each(k, state, aux)
     launches = {w.__name__: w.launches for w in wrappers}
-    _log(f"{tag}: launches {launches}")
-    if step_times is not None:
-        step_times.extend(step_s)
-    step_med = statistics.median(step_s[1:])
-    _log(f"{tag}: step time (median of steps 2-{nsteps}) {step_med:.4f} s, "
-         f"{state.n / step_med:.0f} particle-steps/s; peak memory "
+    _log(f"{tag}: launches {launches}; peak memory "
          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     if not all(bool(torch.isfinite(t).all()) for t in aux.status):
         raise RuntimeError(f"non-finite status {aux.status}")
@@ -1106,7 +1085,6 @@ def phase_main_path(dev):
     err = tgv.compute_error(state.replace(vstar=state.v), float(aux.status.time))
     _log(f"main: L2 error vs exact: pressure={float(err.pressure_l2):.4e} "
          f"velocity={float(err.velocity_l2):.4e}")
-    _breakdown(sim, state)
     return launches, sim, state, float(aux.status.time), iters
 
 
@@ -1117,39 +1095,6 @@ def _record_iters(out):
         out.append((int(aux.helmholtz_iters), int(aux.poisson_iters)))
 
     return each
-
-
-def _breakdown(sim, state):
-    """One more step, phase by phase with a synchronize after each (host
-    clock; adds the syncs' cost, so it is a breakdown, not a step time)."""
-    from isph_tpu_torch.physics import ns_projection as ns
-
-    marks = []
-
-    def mark(name):
-        torch.cuda.synchronize()
-        marks.append((name, time.perf_counter()))
-
-    mark("start")
-    nbrs = sim.neighbors(state)
-    mark("neighbors")
-    geom = sim.geometry(state, nbrs)
-    mark("geometry")
-    pre = sim.precompute(state, geom)
-    mark("compute_pre")
-    state = state.replace(f=torch.zeros_like(state.v))
-    vstar, hinfo = ns.solve_helmholtz(state, geom, pre, sim.cfg)
-    mark("helmholtz")
-    dp, pinfo, _, _ = ns.solve_poisson(state, geom, pre, sim.cfg, vstar)
-    mark("poisson")
-    dp = ns.zero_mean_pressure(dp, state)
-    vstar = ns.correct_velocity(state, geom, pre, sim.cfg, vstar, dp)
-    state = state.replace(vstar=vstar, dp=dp, p=ns.correct_pressure(state, sim.cfg, dp))
-    ns.advance_time(state, geom, pre, sim.cfg, sim.domain)
-    mark("correct+advance")
-    parts = ", ".join(f"{b[0]}={1e3 * (b[1] - a[1]):.2f} ms" for a, b in zip(marks, marks[1:]))
-    _log(f"breakdown: {parts}; helmholtz_iters={int(hinfo.iters.sum())} "
-         f"poisson_iters={int(pinfo.iters)}")
 
 
 def phase_band_kernels(dev, flush):
@@ -1220,105 +1165,20 @@ def phase_large_n(dev):
     from isph_tpu_torch.ops import spmv_cuda as sc
 
     sim, state = _tgv1024(dev)
-    iters, step_s = [], []
+    iters = []
     state, aux, launches = _run_steps(
         "large", sim, state,
         (sc.ell_spmv, sc.take, sc.ell_spmv_band, sc.take_band, cd.comp_dots, at.agg_restrict,
          at.agg_prolong_add, nsc.neighbor_search),
-        each=_record_iters(iters), step_times=step_s)
+        each=_record_iters(iters))
     if min(launches["ell_spmv_band"], launches["take_band"], launches["comp_dots"],
            launches["agg_restrict"], launches["agg_prolong_add"],
            launches["neighbor_search"]) <= 0:
         raise RuntimeError(f"a band kernel, comp_dots, an AMG transfer kernel or the neighbor "
                            f"search never launched on the large-N path: {launches}")
     _check_vortex("large", aux, (2 * math.pi) ** 2)
-    _breakdown_amg("large", sim, state)
     return launches, dict(ke=float(aux.status.kinetic_energy), vmax=float(aux.status.vmax),
-                          nfluid=float(aux.status.nfluid), iters=iters,
-                          median_s=statistics.median(step_s[1:]))
-
-
-def _breakdown_amg(tag, sim, state, forcing=None):
-    """One more step, phase by phase with a synchronize after each (host
-    clock), with the AMG build, the V-cycles and the shift as their own
-    entries (each V-cycle bracketed by synchronizes, so GMRES's own work is
-    the Poisson solve's time less the V-cycles').  ``forcing(state, geom,
-    pre, mark)`` runs the scalar-field solves after the force clear, marking
-    its own phases, and returns (state, a note for the log)."""
-    from isph_tpu_torch.physics import block_helmholtz
-    from isph_tpu_torch.physics import ns_projection as ns
-    from isph_tpu_torch.physics import shift
-    from isph_tpu_torch.solvers import amg
-
-    marks = []
-
-    def mark(name):
-        torch.cuda.synchronize()
-        marks.append((name, time.perf_counter()))
-
-    cfg = sim.cfg
-    mark("start")
-    nbrs = sim.neighbors(state)
-    mark("neighbors")
-    geom = sim.geometry(state, nbrs)
-    mark("geometry")
-    pre = sim.precompute(state, geom)
-    mark("compute_pre")
-    state = state.replace(f=torch.zeros_like(state.v))
-    note = ""
-    if forcing is not None:
-        state, note = forcing(state, geom, pre, mark)
-    if cfg.ns.is_block_helmholtz_enabled:
-        vstar, hinfo = block_helmholtz.solve_block_helmholtz(state, geom, pre, cfg)
-        mark("block_helmholtz")
-    else:
-        vstar, hinfo = ns.solve_helmholtz(state, geom, pre, cfg)
-        mark("helmholtz")
-    A, b = ns.poisson_system(state, geom, pre, cfg, vstar)
-    fluid = state.is_fluid & state.valid
-    A_f = A.zero_rows(~fluid).with_diag(torch.where(fluid, A.diag, torch.ones_like(A.diag)))
-    b_f = torch.where(fluid, b, 0.0)
-    null = fluid.to(state.dtype)
-    mark("poisson_assembly")
-    cache = amg.cache_of(amg.build_amg(A_f, state.x, sim.domain, cfg.cut, null_vec=null))
-    mark("amg_build")
-    _log(f"{tag}: AMG coarse grids {cache.grid_shapes}, aggregates "
-         f"{[tr.nc for tr in cache.transfers]} of "
-         f"{[round(tr.agg.shape[0] / tr.nc, 1) for tr in cache.transfers]} rows")
-    M = amg.amg_from_cache(A_f, cache, null_vec=null).apply
-    vcycles = []
-
-    def timed_M(r):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = M(r)
-        torch.cuda.synchronize()
-        vcycles.append(time.perf_counter() - t0)
-        return out
-
-    res, _ = ns._solve(cfg, A_f, b_f, torch.zeros_like(b_f), null_vec=null, M_override=timed_M)
-    mark("poisson_gmres")
-    dp = ns.zero_mean_pressure(ns.relax_wall_pressure(A, b, res.x, state, pre), state)
-    vstar = ns.correct_velocity(state, geom, pre, cfg, vstar, dp)
-    state = state.replace(vstar=vstar, dp=dp, p=ns.correct_pressure(state, cfg, dp))
-    state = ns.advance_time(state, geom, pre, cfg, sim.domain)
-    mark("correct+advance")
-    if cfg.shift.enabled:
-        geom2 = sim.geometry(state, sim.neighbors(state))
-        pre2 = sim.precompute(state, geom2)
-        dr = shift.compute_shift_vectors(state, geom2, cfg)
-        shift.apply_shift(state, geom2, pre2, cfg, dr, sim.domain)
-        mark("shift")
-    parts = {b_[0]: 1e3 * (b_[1] - a[1]) for a, b_ in zip(marks, marks[1:])}
-    vc = 1e3 * sum(vcycles)
-    parts["poisson_gmres"] -= vc
-    parts = {**parts, "v_cycles": vc}
-    total = sum(parts.values())
-    _log(f"breakdown ({tag}): " + ", ".join(
-        f"{k}={v:.2f} ms ({100 * v / total:.1f}%)" for k, v in parts.items())
-        + f"; {len(vcycles)} V-cycles, {vc / max(len(vcycles), 1):.3f} ms each; "
-        f"helmholtz_iters={int(hinfo.iters.sum())} poisson_iters={int(res.iters)}{note}")
-    return int(res.iters)
+                          nfluid=float(aux.status.nfluid), iters=iters)
 
 
 def _dots_launched(tag, fn):
@@ -1429,13 +1289,11 @@ def phase_3d_path(dev):
     if min(launches.values()) <= 0:
         raise RuntimeError(f"a kernel of the 3-D path never launched: {launches}")
     _check_vortex("3d path", aux, (2 * math.pi) ** 3)
-    amg_iters = _breakdown_amg("3d path", sim, state)
-    jacobi = dataclasses.replace(sim, cfg=sim.cfg.replace(
-        solver=dataclasses.replace(sim.cfg.solver, precond="jacobi")))
-    _, aux_j = jacobi.step(state)
-    _log(f"3d path: the same step's Poisson solve with Jacobi: "
-         f"{int(aux_j.poisson_iters)} iterations (relres {float(aux_j.poisson_relres):.3e}) "
-         f"against AMG's {amg_iters}")
+    _, aux_a = sim.step(state)
+    _, aux_j = _with_solver(sim, precond="jacobi").step(state)
+    _log(f"3d path: step 4's Poisson solve with Jacobi: {int(aux_j.poisson_iters)} "
+         f"iterations (relres {float(aux_j.poisson_relres):.3e}) against AMG's "
+         f"{int(aux_a.poisson_iters)} (relres {float(aux_a.poisson_relres):.3e})")
     return launches
 
 
@@ -1511,7 +1369,6 @@ def phase_channel(dev):
         raise RuntimeError("the channel walls moved or gained velocity")
     if not rel < 0.05:
         raise RuntimeError("channel velocity off the transient Poiseuille profile by 5% or more")
-    _breakdown_amg("channel", sim, state)
     return launches
 
 # the JAX package's own f64 values on the CPU (isph_tpu, the same decks),
@@ -1561,8 +1418,7 @@ def phase_edl_kernels(dev, flush):
 def _channel_edl_potential(dev, n, converge=True):
     """The channel-EDL potential deck (nonlinear PB, kappa = 10) solved with
     the MorrisHolmes mirror (safe 0): (relative psi error, Newton result,
-    solve seconds, particles).  With ``converge`` a Newton that does not
-    converge fails."""
+    particles).  With ``converge`` a Newton that does not converge fails."""
     from isph_tpu_torch.models import edl
     from isph_tpu_torch.ops import corrected as ops
     from isph_tpu_torch.physics import electrokinetics as ek
@@ -1572,16 +1428,12 @@ def _channel_edl_potential(dev, n, converge=True):
     cfg = sim.cfg
     mirror = ops.morris_holmes_mirror(geom, state.kind, pre.pnd, pre.vfrac, cfg.cut, cfg.h,
                                       safe=0.0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     psi, _, info = ek.solve_poisson_boltzmann(state, geom, pre, cfg, mirror=mirror)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
     err, norm = edl.psi_error(state, psi)
     if converge and not bool(info.converged):
         raise RuntimeError(f"channel-EDL n={n}: Newton did not converge "
                            f"(NormF {float(info.norm_f):.3e})")
-    return float(err / norm), info, secs, int(state.valid.sum())
+    return float(err / norm), info, int(state.valid.sum())
 
 
 def phase_edl_golden(dev):
@@ -1616,19 +1468,18 @@ def phase_edl_golden(dev):
         if not (bool(info.converged) and abs(pe) < 1e-6 and abs(ge) < 1e-6):
             raise RuntimeError(f"PB harmonic N={n} off its golden by 1e-6 or more")
 
-    rel, info, secs, npart = _channel_edl_potential(dev, 32)
+    rel, info, npart = _channel_edl_potential(dev, 32)
     _log(f"edl golden: channel-EDL n=32 ({npart} particles): relative psi error {rel:.6e} "
          f"(table 4.210116e-02, {rel / 4.210116123449621e-02 - 1.0:+.3%}); Newton "
          f"{int(info.iters)}, NormF {float(info.norm_f):.3e}")
     if not abs(rel / 4.210116123449621e-02 - 1.0) < 0.05:
         raise RuntimeError("channel-EDL n=32 off the table by 5% or more")
     for n in (256, 512):
-        rel, info, secs, npart = _channel_edl_potential(dev, n, converge=n == 256)
+        rel, info, npart = _channel_edl_potential(dev, n, converge=n == 256)
         _log(f"edl golden: channel-EDL n={n} ({npart} particles): relative psi error "
              f"{rel:.6e} (JAX f64 at n=128: {EDL_POTENTIAL_REL_ERR_JAX_128:.6e}, at n=256: "
              f"{EDL_POTENTIAL_REL_ERR_JAX_256:.6e}); Newton {int(info.iters)} iterations, "
-             f"{int(info.linear_iters)} GMRES, NormF {float(info.norm_f):.3e}; solve "
-             f"{secs:.4f} s")
+             f"{int(info.linear_iters)} GMRES, NormF {float(info.norm_f):.3e}")
         if bool(info.converged) and not rel < EDL_POTENTIAL_REL_ERR_JAX_128:
             raise RuntimeError(f"channel-EDL n={n} no more accurate than JAX's n=128")
         if not bool(info.converged):
@@ -1658,37 +1509,14 @@ def phase_edl_golden(dev):
             raise RuntimeError("Henry field error off JAX's by 1e-6 relative or more")
 
 
-def _pb_forcing(sim, strict):
-    """The breakdown's scalar-field phases: the PB Newton solve and the
-    electrostatic force; with ``strict`` a Newton that did not converge to
-    NormF <= tol_f fails."""
-    from isph_tpu_torch.physics import electrokinetics as ek
-
-    cfg = sim.cfg
-
-    def forcing(state, geom, pre, mark):
-        psi, psigrad, info = ek.solve_poisson_boltzmann(state, geom, pre, cfg)
-        mark("pb_newton")
-        state = state.replace(psi=psi, psigrad=psigrad)
-        state = state.replace(f=ek.electrostatic_force(state, cfg, psigrad))
-        mark("force")
-        nf = float(info.norm_f)
-        if strict and not (bool(info.converged) and nf <= cfg.newton.tol_f):
-            raise RuntimeError(f"PB Newton did not converge: NormF {nf:.3e} after "
-                               f"{int(info.iters)} iterations")
-        return state, (f"; Newton {int(info.iters)} iterations, {int(info.linear_iters)} "
-                       f"GMRES, NormF {nf:.3e}")
-
-    return forcing
-
-
 def phase_edl_path(dev):
     """Three f64 steps of the n = 512 electroosmotic channel through
-    Simulation.run; a breakdown and the idle share of its first step; then
-    one f32 step.  (The deck's transverse velocities grow from step to
-    step in both packages; from the fourth step on the reference's Newton
-    stalls at this size: PERF.md, section 6.)"""
+    Simulation.run; the PB Newton solve of its first step held to NormF <=
+    tol_f; then one f32 step.  (The deck's transverse velocities grow from
+    step to step in both packages; from the fourth step on the reference's
+    Newton stalls at this size: PERF.md, section 6.)"""
     from isph_tpu_torch.ops import spmv_cuda as sc
+    from isph_tpu_torch.physics import electrokinetics as ek
 
     sim, state = _edl_flow(dev)
     state0 = state
@@ -1717,22 +1545,23 @@ def phase_edl_path(dev):
         raise RuntimeError("the electroosmotic channel's walls moved or gained velocity")
     if not vx < 0.0:
         raise RuntimeError("the electroosmotic flow does not run in -x")
-    _breakdown_amg("edl path, step 1", sim, state0, forcing=_pb_forcing(sim, strict=True))
-    wall, busy, nk = _idle_share(lambda: sim.run(state0, 1))
-    _log(f"edl path: step 1 profiled {wall:.4f} s, device busy {busy:.4f} s over {nk} "
-         f"kernels, idle share {1.0 - busy / wall:.3f}")
-    if not 0.0 < busy <= wall:
-        raise RuntimeError("the profiled device time is not within the step's wall time")
-    del state, state0
+    _, geom, pre = _geometry(sim, state0)
+    _, _, info = ek.solve_poisson_boltzmann(state0, geom, pre, sim.cfg)
+    nf = float(info.norm_f)
+    _log(f"edl path: step 1's PB Newton {int(info.iters)} iterations, "
+         f"{int(info.linear_iters)} GMRES, NormF {nf:.3e} (tol_f {sim.cfg.newton.tol_f:.1e})")
+    if not (bool(info.converged) and nf <= sim.cfg.newton.tol_f):
+        raise RuntimeError(f"PB Newton did not converge: NormF {nf:.3e} after "
+                           f"{int(info.iters)} iterations")
+    del state, state0, geom, pre
     torch.cuda.empty_cache()
 
     sim32, state32 = _edl_flow(dev, torch.float32)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _, launches["comp_dots_f32"] = _dots_launched(
-        "edl path f32", lambda: _breakdown_amg("edl path f32", sim32, state32,
-                                               forcing=_pb_forcing(sim32, strict=False)))
-    _log(f"edl path f32: one step (phase by phase) {time.perf_counter() - t0:.4f} s")
+    (_, aux32), launches["comp_dots_f32"] = _dots_launched(
+        "edl path f32", lambda: sim32.run(state32, 1))
+    _log(f"edl path f32: one step: helmholtz_iters={int(aux32.helmholtz_iters)} "
+         f"poisson_iters={int(aux32.poisson_iters)} "
+         f"poisson_relres={float(aux32.poisson_relres):.3e}")
     return launches
 
 
@@ -1828,9 +1657,9 @@ def _block_f32_against_f64(sim, state):
 
 class _StepRecorder:
     """Records every Simulation.step call made inside the block (the dt
-    each step used, its synchronized wall time, overflow, Helmholtz
-    iterations and relres, and the state it returned): run_adaptive keeps
-    its dt sequence and intermediate states to itself."""
+    each step used, overflow, Helmholtz iterations and relres, and the
+    state it returned): run_adaptive keeps its dt sequence and intermediate
+    states to itself."""
 
     def __enter__(self):
         from isph_tpu_torch.models import driver
@@ -1840,13 +1669,10 @@ class _StepRecorder:
         rows = self.rows
 
         def step(sim, state):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             out = orig(sim, state)
-            torch.cuda.synchronize()
             a = out[1]
-            rows.append(dict(dt=sim.cfg.dt, s=time.perf_counter() - t0,
-                             overflow=int(a.neighbor_overflow), h_iters=int(a.helmholtz_iters),
+            rows.append(dict(dt=sim.cfg.dt, overflow=int(a.neighbor_overflow),
+                             h_iters=int(a.helmholtz_iters),
                              h_relres=float(a.helmholtz_relres), p_iters=int(a.poisson_iters),
                              state=out[0]))
             return out
@@ -1905,20 +1731,17 @@ def phase_walls(dev, tgv_sim, tgv_state, tgv_t):
     torch.cuda.reset_peak_memory_stats()
     for w in (sc.ell_spmv, sc.take, cd.comp_dots):
         w.launches = 0
-    t0 = time.perf_counter()
     with _StepRecorder() as rec:
         state3, aux, dt = sim.run_adaptive(state, 3, cfl=0.25, dx=dx, umin=WALLS_UMIN)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     launches = {w.__name__: w.launches for w in (sc.ell_spmv, sc.take, cd.comp_dots)}
     peak = torch.cuda.max_memory_allocated() / 2**20
     for k, r in enumerate(rec.rows):
         _log(f"walls (b): step {k + 1}: dt {r['dt']:.6g} (dt nu/dx^2 "
-             f"{r['dt'] * 0.1 / dx**2:.1f}) {r['s']:.4f} s block GMRES {r['h_iters']} "
+             f"{r['dt'] * 0.1 / dx**2:.1f}) block GMRES {r['h_iters']} "
              f"iterations relres {r['h_relres']:.3e} (converged: {r['h_relres'] <= tol}, tol "
              f"{tol:.3e}), poisson_iters {r['p_iters']}, overflow {r['overflow']}")
     _log(f"walls (b): dt sequence {[r['dt'] for r in rec.rows]}, last {dt:.6g}; "
-         f"{wall:.4f} s for 3 steps; launches {launches} "
+         f"launches {launches} "
          f"({ {k: v / 3 for k, v in launches.items()} } a step); peak memory {peak:.1f} MiB")
     moved = float((state3.x[:, solid] - x0).abs().max())
     ulps = 4 * torch.finfo(state.dtype).eps * float(x0.abs().max())
@@ -1948,7 +1771,6 @@ def phase_walls(dev, tgv_sim, tgv_state, tgv_t):
          "relative (bar 1e-4)")
     if not err <= 1e-4:
         fail("(b) the f32 block Helmholtz solution is off the f64 one")
-    _breakdown_amg("walls (b), step 3", sim3, state2)
 
     # (d) checkpoint after step 2, restored into the step-1 state
     with tempfile.TemporaryDirectory() as tmp:
@@ -2054,15 +1876,11 @@ def _pore3d_record(dev, nsteps=3, **kw):
     sim, state = _pore3d(dev, **kw)
     fluid = state.is_fluid & state.valid
     for k in range(nsteps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         state, aux = sim.step(state)
-        torch.cuda.synchronize()
         ovf = int(aux.neighbor_overflow)
         finite = all(bool(torch.isfinite(t).all()) for t in (state.x, state.v, state.p))
         vmax = float(state.v[:, fluid].abs().max()) if finite else float("nan")
-        _log(f"pore3d record {kw or 'SI'}: step {k + 1}: {time.perf_counter() - t0:.4f} s "
-             f"helmholtz_iters="
+        _log(f"pore3d record {kw or 'SI'}: step {k + 1}: helmholtz_iters="
              f"{int(aux.helmholtz_iters)} poisson_iters={int(aux.poisson_iters)} "
              f"poisson_relres={float(aux.poisson_relres):.3e} overflow={ovf}, finite "
              f"{finite}, max fluid |v| {vmax:.6e}")
@@ -2082,20 +1900,6 @@ def _to_cpu(obj):
     if any(f.name == "amg_cache" for f in dataclasses.fields(obj)):
         kw["amg_cache"] = None
     return dataclasses.replace(obj, **kw)
-
-
-def _surface_tension_forcing(sim):
-    """The breakdown's surface-tension phase: the CSF force with its ignore
-    band, as Simulation.step runs it."""
-    from isph_tpu_torch.physics import multiphase as mp
-
-    def forcing(state, geom, pre, mark):
-        f, kappa, _ = mp.csf_force(state, geom, pre, sim.cfg,
-                                   ignore_mask=mp.ignore_phase_gradient_mask(state, sim.cfg))
-        mark("surface_tension")
-        return state.replace(f=f), f"; max |kappa| {float(kappa.abs().max()):.4e}"
-
-    return forcing
 
 
 def phase_pore3d(dev):
@@ -2160,39 +1964,25 @@ def phase_pore3d(dev):
     _, geom, pre = _geometry(sim, st1)
     band = mp.ignore_phase_gradient_mask(st1, cfg)
     grad = mp.phase_gradient(st1, geom, pre, cfg)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     f, kappa, normal = mp.csf_force(st1, geom, pre, cfg, ignore_mask=band)
-    torch.cuda.synchronize()
-    t_csf = time.perf_counter() - t0
     raw = float(grad[:, band].abs().max())
     in_band = max(float(f[:, band].abs().max()), float(kappa[band].abs().max()))
     _log(f"pore3d: ignore band holds {int(band.sum())} particles; the unmasked color "
          f"gradient there reaches {raw:.4e}, the CSF force and curvature there "
-         f"{in_band:.1e}; outside, max |f| {float(f.abs().max()):.4e}; csf_force "
-         f"{1e3 * t_csf:.2f} ms on the card")
+         f"{in_band:.1e}; outside, max |f| {float(f.abs().max()):.4e}")
     if not (raw > 0.0 and in_band == 0.0):
         raise RuntimeError("the color gradient is not zeroed inside the ignore band")
     torch.set_num_threads(os.cpu_count() or 1)
-    t0 = time.perf_counter()
     f_c, kappa_c, normal_c = mp.csf_force(_to_cpu(st1), _to_cpu(geom), _to_cpu(pre), cfg,
                                           ignore_mask=band.cpu())
-    t_cpu = time.perf_counter() - t0
     errs = [_rel(a.cpu(), b) for a, b in ((f, f_c), (kappa, kappa_c), (normal, normal_c))]
     _log(f"pore3d: csf_force on the card against the CPU on the same step-1 state and "
          f"geometry: f {errs[0]:.3e}, kappa {errs[1]:.3e}, normal {errs[2]:.3e} relative "
-         f"(bar 1e-12); CPU {t_cpu:.2f} s")
+         f"(bar 1e-12)")
     if not max(errs) <= 1e-12:
         raise RuntimeError("csf_force on the card is off the CPU's by more than 1e-12")
     del geom, pre, grad, f, kappa, normal, f_c, kappa_c, normal_c
     torch.cuda.empty_cache()
-
-    _breakdown_amg("pore3d", sim, state, forcing=_surface_tension_forcing(sim))
-    wall, busy, nk = _idle_share(lambda: sim.run(state, 1))
-    _log(f"pore3d: step 4 profiled {wall:.4f} s, device busy {busy:.4f} s over {nk} "
-         f"kernels, idle share {1.0 - busy / wall:.3f}")
-    if not 0.0 < busy <= wall:
-        raise RuntimeError("the profiled device time is not within the step's wall time")
     return launches, sim, kept["state"]
 
 
@@ -2295,6 +2085,11 @@ def _ulps(a, b):
     return int((ordered(a) - ordered(b)).abs().max())
 
 
+def _event_ms(fn, reps=5):
+    """Median ms of ``fn()`` between two CUDA events, after one warm call."""
+    return statistics.median(_solve_times(fn, reps))
+
+
 def _threefry_on_card(dev):
     """Phase 19c (noise): JAX's threefry stream on the card against the
     CPU's, for the TGV-256^2 draw and a 3-D draw of the pore deck's size:
@@ -2374,10 +2169,7 @@ def phase_random_stress(dev, tgv_sim, tgv_state):
     # the step itself at a gentler kBT (1e-6 in the deck's units)
     sim = dataclasses.replace(tgv_sim, cfg=cfg1.replace(
         rs=RandomStressConfig(enabled=True, kbt=1e-6, seed=seed)))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     (out, aux), launched = _dots_launched("random stress", lambda: sim.run(tgv_state, 1))
-    step_ms = 1e3 * (time.perf_counter() - t0)
     base, _ = tgv_sim.run(tgv_state, 1)
     dv = float((out.v - base.v).abs().max())
     _log(f"random stress: TGV-256^2 f32 step {step}, seed {seed}: noise std "
@@ -2385,8 +2177,8 @@ def phase_random_stress(dev, tgv_sim, tgv_state):
          f"{other}; S symmetric to {sym:.1e}, trace {trace:.1e} of max |S|; "
          f"f(kbt 4) - f0 against 2 (f(kbt 1) - f0): {lin:.3e} relative; one step with rs "
          f"(kbt 1e-6): "
-         f"poisson_iters {int(aux.poisson_iters)}, max |v - v without rs| {dv:.4e}; the "
-         f"step {step_ms:.1f} ms, its (2, 2, 65536) f32 draw {draw_ms:.3f} ms")
+         f"poisson_iters {int(aux.poisson_iters)}, max |v - v without rs| {dv:.4e}; its "
+         f"(2, 2, 65536) f32 draw {draw_ms:.3f} ms")
     if not (same and other and sym == 0.0 and trace <= 1e-6 and lin <= 1e-6):
         raise RuntimeError("the random stress failed a check")
     if not (bool(torch.isfinite(out.v).all()) and dv > 0.0):
@@ -2423,43 +2215,6 @@ def _ale_poisson_matrix(sim, state, geom=None):
     return A.with_diag(torch.where(fluid, A.diag, -1.0)).zero_rows(~fluid), geom
 
 
-def _scoped_breakdown(tag, fn):
-    """Run ``fn()`` with every named phase of the driver and the ALE step
-    (utils/profiling.named_scope) bracketed by synchronizes, and log the
-    host time of each (a breakdown, not a step time: the syncs add cost)."""
-    import contextlib
-    from collections import defaultdict
-
-    from isph_tpu_torch.models import driver
-    from isph_tpu_torch.physics import ale
-
-    acc = defaultdict(float)
-    scope = driver.named_scope
-
-    @contextlib.contextmanager
-    def timed(name, device=None):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with scope(name, device):
-            yield
-        torch.cuda.synchronize()
-        acc[name] += time.perf_counter() - t0
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    driver.named_scope = ale.named_scope = timed
-    try:
-        out = fn()
-    finally:
-        driver.named_scope = ale.named_scope = scope
-    torch.cuda.synchronize()
-    total = time.perf_counter() - t0
-    parts = ", ".join(f"{k}={1e3 * v:.2f} ms ({v / total:.1%})"
-                      for k, v in sorted(acc.items(), key=lambda kv: -kv[1]))
-    _log(f"{tag}: breakdown {1e3 * total:.2f} ms: {parts}")
-    return out
-
-
 def phase_cylinder_golden(dev):
     """Phase 20: flow-past-cylinder-2d-mls at n = 32, f64, 20 steps through
     Simulation.run, held to tests/test_decks.py's drag bars; both kernels
@@ -2471,17 +2226,13 @@ def phase_cylinder_golden(dev):
     sim, state = decks.build_deck(CYL, n=32, device=dev)
     for w in (sc.ell_spmv, sc.take):
         w.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     state, aux = sim.run(state, 20)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
     launches = {w.__name__: w.launches for w in (sc.ell_spmv, sc.take)}
     _, geom, pre = _geometry(sim, state)
     cd, cl = (float(t) for t in drag_lift(state, geom, pre, sim.cfg, state.is_solid))
     finite = bool(torch.isfinite(state.v).all() & torch.isfinite(state.p).all())
     relres = float(aux.poisson_relres)
-    _log(f"cylinder golden: n=32 N={state.n}, 20 steps in {elapsed:.3f} s, launches {launches}; "
+    _log(f"cylinder golden: n=32 N={state.n}, 20 steps, launches {launches}; "
          f"last step poisson_iters {int(aux.poisson_iters)} relres {relres:.3e} helmholtz_iters "
          f"{int(aux.helmholtz_iters)}, overflow {int(aux.neighbor_overflow)}; Cd {cd:.10f} "
          f"(golden {CYL_CD:.10f}, {cd / CYL_CD - 1.0:+.3e}), Cl {cl:.3e}")
@@ -2496,18 +2247,17 @@ def phase_cylinder_golden(dev):
 def phase_cylinder(dev):
     """Phase 21: three f64 steps of flow-past-cylinder-2d-mls at n = 256
     (65,536 particles, the cylinder 51 dx across) through Simulation.run,
-    each Poisson relres < 1e-6 and vmax within 1e-5 of JAX's; the step
-    time, iterations, peak memory, a breakdown by named phase and the idle
-    share of a profiled step; then one step at n = 512, logged.  Returns
-    the launches, the step-3 (simulation, state) for phase 22 and the
-    iterations and median step for phase 27."""
+    each Poisson relres < 1e-6 and vmax within 1e-5 of JAX's; the
+    iterations, the peak memory and a fourth step; then one step at
+    n = 512, logged.  Returns the launches, the step-3 (simulation, state)
+    for phase 22 and the iterations for phase 27."""
     from isph_tpu_torch.models import decks
     from isph_tpu_torch.ops import spmv_cuda as sc
 
     sim, state = decks.build_deck(CYL, n=CYL_N, device=dev)
     solid = state.is_solid & state.valid
     sc_ = sim.cfg.solver
-    iters, step_s = [], []
+    iters = []
     _log(f"cylinder: {CYL} n={CYL_N} N={state.n} ({int(solid.sum())} solid), "
          f"K={sim.cfg.neighbor.max_neighbors}, dt {sim.cfg.dt:.6g}, f64; Jacobi GMRES"
          f"({sc_.restart}) x {sc_.max_restarts} restarts, tol {sc_.tol:g} (config precond "
@@ -2524,32 +2274,31 @@ def phase_cylinder(dev):
         iters.append((int(aux.helmholtz_iters), int(aux.poisson_iters)))
 
     state, aux, launches = _run_steps("cylinder", sim, state, (sc.ell_spmv, sc.take),
-                                      cap_check=False, each=each, step_times=step_s)
+                                      cap_check=False, each=each)
     if bad:
         raise RuntimeError(f"cylinder steps {bad}: Poisson relres >= 1e-6 or vmax off JAX's")
     if min(launches.values()) <= 0:
         raise RuntimeError(f"a kernel of the cylinder path never launched: {launches}")
-    _scoped_breakdown("cylinder step 4", lambda: sim.run(state, 1))
-    wall, busy, nk = _idle_share(lambda: sim.run(state, 1))
-    _log(f"cylinder: step 4 profiled {wall:.4f} s, device busy {busy:.4f} s over {nk} "
-         f"kernels, idle share {1.0 - busy / wall:.3f}")
-    if not 0.0 < busy <= wall:
-        raise RuntimeError("the profiled device time is not within the step's wall time")
+    st4, aux4 = sim.run(state, 1)
+    _log(f"cylinder: step 4: poisson_iters {int(aux4.poisson_iters)} relres "
+         f"{float(aux4.poisson_relres):.3e}, overflow {int(aux4.neighbor_overflow)}, finite "
+         f"{bool(torch.isfinite(st4.v).all())}")
+    if int(aux4.neighbor_overflow) != 0 or not bool(torch.isfinite(st4.v).all()):
+        raise RuntimeError("the cylinder's step 4 overflowed or is not finite")
+    del st4
 
     sim5, st5 = decks.build_deck(CYL, n=2 * CYL_N, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
     st5, aux5 = sim5.run(st5, 1)
-    torch.cuda.synchronize()
-    _log(f"cylinder n={2 * CYL_N}: N={st5.n}, one step {time.perf_counter() - t0:.4f} s: "
+    _log(f"cylinder n={2 * CYL_N}: N={st5.n}, one step: "
          f"poisson_iters {int(aux5.poisson_iters)} relres {float(aux5.poisson_relres):.3e}, "
          f"helmholtz_iters {int(aux5.helmholtz_iters)}, vmax {float(aux5.status.vmax):.6e}, "
          f"overflow {int(aux5.neighbor_overflow)}, finite "
          f"{bool(torch.isfinite(st5.v).all())}; peak "
          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB (a record, no bar: JAX on the "
          f"CPU stops at its 750-iteration cap, relres 3.16e-5)")
-    return launches, sim, state, dict(iters=iters, median_s=statistics.median(step_s[1:]))
+    return launches, sim, state, iters
 
 
 MLS_OPERATOR_DECKS = (("poisson-operator-2d", (256, 512), 0.6, 0.08),
@@ -2576,7 +2325,6 @@ def phase_mls_operators(dev):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
-            t0 = time.perf_counter()
             sim, state = decks.build_deck(name, n=n, device=dev)
             _, geom, _ = _geometry(sim, state)
             rth = sim.cfg.h  # MLS support = h (cut_over_h = 1)
@@ -2589,12 +2337,10 @@ def phase_mls_operators(dev):
             rows = state.valid if name.startswith("poisson-operator") else (
                 state.is_fluid & state.valid)
             err = float((A.matvec(p) - lap_exact).abs()[rows].max())
-            torch.cuda.synchronize()
             errs.append(err)
             _log(f"mls operators: {name} n={n} N={state.n} K={A.vals.shape[0]}: max residual "
-                 f"{err:.6e} ({time.perf_counter() - t0:.3f} s with the build, peak "
-                 f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB above the "
-                 f"start)")
+                 f"{err:.6e} (peak {(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} "
+                 f"GiB above the start)")
             if name == "poisson-operator-3d" and n == sizes[-1]:
                 keep = A
             del geom, Minv, A, p, lap_exact
@@ -2652,15 +2398,6 @@ QEQ_JAX = ((198, 145, 2114.1025234447857, -0.6102050071681332, 1.886824220541240
             -2.055028811750422))
 
 
-def _timed(fn):
-    """(result, seconds) of fn() between two synchronizes."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, time.perf_counter() - t0
-
-
 def _ilu_against_cpu(cfg, A, b, x0, fac):
     """The step-1 Helmholtz solve with ILU(0) (a GMRES per component, as
     solve_helmholtz runs it) on the card and, on the same f32 matrix copied
@@ -2679,14 +2416,12 @@ def _ilu_against_cpu(cfg, A, b, x0, fac):
         return [ns._solve(cfg, AA, bb[c], xx[c], M_override=F.apply)[0]
                 for c in range(bb.shape[0])]
 
-    rk, tk = _timed(lambda: solve(A, fac, b, x0))
-    t0 = time.perf_counter()
+    rk = solve(A, fac, b, x0)
     fc = build_ilu0(Ac)
     rc = solve(Ac, fc, b.cpu(), x0.cpu())
-    tc = time.perf_counter() - t0
-    for where, res, t in (("card", rk, tk), ("CPU, with the build", rc, tc)):
+    for where, res in (("card", rk), ("CPU", rc)):
         _log(f"extras ilu: step-1 Helmholtz ILU(0) GMRES on the {where}: (iterations, relres) "
-             f"{[(int(r.iters), float(r.relres)) for r in res]}, {t:.2f} s")
+             f"{[(int(r.iters), float(r.relres)) for r in res]}")
     dfac = max(float((a.cpu() - c).abs().max() / c.abs().max())
                for a, c in ((fac.fvals, fc.fvals), (fac.udiag, fc.udiag)))
     drel = max(abs(float(k.relres) - float(c.relres)) / float(c.relres) for k, c in zip(rk, rc))
@@ -2731,10 +2466,7 @@ def phase_solver_extras(dev, flush, main_iters, main_state):
     _check_vortex("extras ilu", aux, (2 * math.pi) ** 2)
     _, geom, pre = _geometry(sim, state0)
     A, b = ns.helmholtz_system(state0.replace(f=torch.zeros_like(state0.v)), geom, pre, sim.cfg)
-    build_ilu0(A)  # warm
-    fac, t_build = _timed(lambda: build_ilu0(A))
-    _log(f"extras ilu: ILU(0) build (3 Chow-Patel sweeps, K = {A.vals.shape[0]}) "
-         f"{t_build * 1e3:.1f} ms on the step-1 Helmholtz matrix")
+    fac = build_ilu0(A)
     _ilu_against_cpu(_with_solver(sim, precond="ilu").cfg, A, b, state0.v, fac)
     # the factorization's gathers of row k's columns (int32) and strict-upper
     # factors (f32) through each slot a's flat (K, N) index: exact on every
@@ -2800,9 +2532,9 @@ def phase_solver_extras(dev, flush, main_iters, main_state):
     # (d) GMRES with Chebyshev(3) on the step-1 Helmholtz matrix, x component
     tol = max(sim.cfg.solver.tol, 30.0 * float(torch.finfo(b.dtype).eps))
     for name, M in (("jacobi", jacobi(A)), ("chebyshev(3)", chebyshev(A, degree=3))):
-        res, t = _timed(lambda: gmres(A.matvec, b[0], state0.v[0], M=M, tol=tol))
+        res = gmres(A.matvec, b[0], state0.v[0], M=M, tol=tol)
         _log(f"extras chebyshev: GMRES with {name}: {int(res.iters)} iterations, relres "
-             f"{float(res.relres):.3e}, converged {bool(res.converged)}, {t * 1e3:.1f} ms")
+             f"{float(res.relres):.3e}, converged {bool(res.converged)}")
         if name != "jacobi" and not bool(res.converged):
             raise RuntimeError("GMRES with Chebyshev did not converge")
     return out
@@ -2848,24 +2580,23 @@ def phase_qeq(dev, flush):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    (nbrs, geom), t_nb = _timed(lambda: _qeq_geometry(x, valid, dom, cap))
+    nbrs, geom = _qeq_geometry(x, valid, dom, cap)
     cmax = int(nbrs.count.max())
     del nbrs
     geo_peak = torch.cuda.max_memory_allocated() - base
-    _log(f"qeq: N={n} K={QEQ_K} cell capacity {cap}; neighbor build and geometry "
-         f"{t_nb:.3f} s, peak {geo_peak / 2**30:.2f} GiB above the positions; count.max {cmax}")
+    _log(f"qeq: N={n} K={QEQ_K} cell capacity {cap}; neighbor build and geometry peak "
+         f"{geo_peak / 2**30:.2f} GiB above the positions; count.max {cmax}")
     torch.cuda.reset_peak_memory_stats()
     st = qeq.QEqState.zeros(n, device=dev)
-    calls, call_s = [], []
+    calls = []
     for call in range(6):
-        res, t = _timed(lambda: qeq.solve_qeq(geom, tid, params, st, valid))
-        call_s.append(t)
+        res = qeq.solve_qeq(geom, tid, params, st, valid)
         st = res.state
         qsum, qabs = float(st.q.sum()), float(st.q.abs().sum())
         calls.append((int(res.s_info.iters), int(res.t_info.iters)))
         _log(f"qeq: call {call + 1}: s {calls[-1][0]} iterations relres "
              f"{float(res.s_info.relres):.3e}, t {calls[-1][1]} relres "
-             f"{float(res.t_info.relres):.3e}; {t:.4f} s; sum q {qsum:.3e} (sum |q| {qabs:.6e})")
+             f"{float(res.t_info.relres):.3e}; sum q {qsum:.3e} (sum |q| {qabs:.6e})")
         if not (bool(res.s_info.converged) and bool(res.t_info.converged)):
             raise RuntimeError(f"QEq call {call + 1} did not converge")
         if not (abs(qsum) <= 1e-9 * qabs and bool(torch.isfinite(st.q).all())):
@@ -2877,9 +2608,6 @@ def phase_qeq(dev, flush):
         raise RuntimeError(f"a kernel of the QEq path never launched: {launches}")
     if calls[5][0] > calls[0][0] or calls[5][1] > calls[0][1]:
         raise RuntimeError(f"the sixth QEq call took more iterations than the first: {calls}")
-    wall, busy, nk = _idle_share(lambda: qeq.solve_qeq(geom, tid, params, st, valid))
-    _log(f"qeq: a seventh call profiled {wall:.4f} s, device busy {busy:.4f} s over {nk} "
-         f"kernels, idle share {1.0 - busy / wall:.3f}")
 
     H = qeq.assemble_h(geom, tid, params, valid)
     nnz = int(H.mask.sum().item()) + n
@@ -2909,8 +2637,7 @@ def phase_qeq(dev, flush):
     if not off <= 1e-10:
         raise RuntimeError(f"QEq on the card off the JAX package's by {off:.3e}")
     return dict(spmv=spmv[(torch.float64, 2)], take=take["int32 (N,)"],
-                take_positions=take["f64 (3,N)"], spmv_err=err, launches=launches,
-                call_s=call_s)
+                take_positions=take["f64 (3,N)"], spmv_err=err, launches=launches)
 
 # ---------------------------------------------------------------------------
 # phase 26: the sharded step (parallel/sharded.py) at world size 1 on NCCL
@@ -2936,30 +2663,6 @@ def _sharded(sim, state, group, halo=None, n_loc=None, **kw):
     ss = ShardedSimulation(sim=sim, group=group, n_loc=n_loc, halo=halo, **kw)
     st = slab(partition_state(state, dom, group.size, n_loc), group.rank, n_loc)
     return ss, ss.prepare(st), layer
-
-
-def _vcycles(ss, st):
-    """(V-cycles, their ms) of one more sharded step, each V-cycle bracketed
-    by synchronizes."""
-    from isph_tpu_torch.solvers import amg
-
-    apply = amg.AMG.apply
-    spent = []
-
-    def timed(self, r):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = apply(self, r)
-        torch.cuda.synchronize()
-        spent.append(time.perf_counter() - t0)
-        return out
-
-    amg.AMG.apply = timed
-    try:
-        ss.step(st)
-    finally:
-        amg.AMG.apply = apply
-    return len(spent), 1e3 * sum(spent)
 
 
 def _sharded_kernels(flush, ss, st):
@@ -3095,7 +2798,6 @@ def _sharded_weak(dev, group):
     n_loc = 1536
     ss = ShardedSimulation(sim=sim, group=group, n_loc=n_loc, halo=n_loc, migrate_cap=192)
     st = ss.prepare(slab(partition_state(state, sim.domain, 1, n_loc), 0, n_loc))
-    t0 = time.perf_counter()
     for k, (jp, jh, jke, jv) in enumerate(WEAK_JAX):
         st, aux = ss.step(st)
         p, h = int(aux.poisson_iters), int(aux.helmholtz_iters)
@@ -3108,32 +2810,6 @@ def _sharded_weak(dev, group):
             raise RuntimeError(f"the weak-scaling layout's step {k + 1} departs from JAX's")
         if int(aux.neighbor_overflow) != 0:
             raise RuntimeError("the weak-scaling layout overflowed")
-    torch.cuda.synchronize()
-    _log(f"sharded weak layout: three steps {time.perf_counter() - t0:.3f} s")
-
-
-def _event_ms(fn, reps=5):
-    """Median ms of ``fn()`` between two CUDA events, after one warm call."""
-    return statistics.median(_solve_times(fn, reps))
-
-
-def _sharded_overhead_128(dev, group):
-    """(c) bench.py:bench_sharded_overhead's cell: TGV-128^2 f32 Jacobi,
-    K = 32, halo 640, n_loc = N: the sharded step over the plain one, both
-    timed with CUDA events from the same state."""
-    from isph_tpu_torch.parallel.sharded import ShardedSimulation, partition_state, slab
-
-    sim, state = _tgv(dev, 128, "jacobi")
-    n = state.n
-    ss = ShardedSimulation(sim=sim, group=group, n_loc=n, halo=640, migrate_cap=256)
-    st = ss.prepare(slab(partition_state(state, sim.domain, 1, n), 0, n))
-    plain = _event_ms(lambda: sim.step(state))
-    sharded = _event_ms(lambda: ss.step(st))
-    ratio = sharded / plain
-    _log(f"sharded: TGV-128^2 f32 Jacobi K=32 halo 640: sharded step {sharded:.3f} ms, "
-         f"plain step {plain:.3f} ms (CUDA events, median of 5); "
-         f"sharded_overhead_ratio={ratio:.4f}")
-    return ratio
 
 
 def phase_sharded(dev, flush, large):
@@ -3154,38 +2830,24 @@ def phase_sharded(dev, flush, large):
              f"halo={ss.halo} (cut layer {layer[0]} and {layer[1]} particles at the two "
              f"x-faces, cut {sim.cfg.cut:.6f}), local cell capacity "
              f"{ss._local_cell_capacity()}")
-        iters, step_s = [], []
+        iters = []
         st, aux, launches = _run_steps("sharded", sim, st,
                                        (sc.ell_spmv, sc.take, cd.comp_dots),
-                                       each=_record_iters(iters), step_times=step_s,
-                                       step=ss.step)
-        peak = torch.cuda.max_memory_allocated() / 2**20
+                                       each=_record_iters(iters), step=ss.step)
         if min(launches.values()) <= 0:
             raise RuntimeError(f"a kernel never launched on the sharded path: {launches}")
         ke, vmax = float(aux.status.kinetic_energy), float(aux.status.vmax)
         d_ke, d_v = abs(ke / large["ke"] - 1.0), abs(vmax / large["vmax"] - 1.0)
-        med = statistics.median(step_s[1:])
         _log(f"sharded: KE {ke!r} (phase 7 {large['ke']!r}, rel {d_ke:.3e}), vmax {vmax!r} "
              f"(phase 7 {large['vmax']!r}, rel {d_v:.3e}), nfluid {float(aux.status.nfluid)!r}; "
-             f"(helmholtz, poisson) iterations {iters} beside phase 7's {large['iters']}; "
-             f"peak memory {peak:.1f} MiB")
+             f"(helmholtz, poisson) iterations {iters} beside phase 7's {large['iters']}")
         if max(d_ke, d_v) > 1e-4 or float(aux.status.nfluid) != large["nfluid"]:
             raise RuntimeError("the sharded 1M step departs from phase 7's")
-        _log(f"sharded: sharded_overhead_ratio_1m={med / large['median_s']:.4f} "
-             f"(sharded median {med:.4f} s / phase 7 median {large['median_s']:.4f} s)")
-        nv, vms = _vcycles(ss, st)
-        _log(f"sharded: one more step: {nv} V-cycles, {vms:.1f} ms, "
-             f"{vms / max(nv, 1):.3f} ms each")
-        wall, busy, nk = _idle_share(lambda: ss.step(st))
-        _log(f"sharded: profiled step {wall:.4f} s, device busy {busy:.4f} s over {nk} "
-             f"kernels, idle share {1.0 - busy / wall:.3f}")
         kd = _sharded_kernels(flush, ss, st)
         del sim, state, ss, st, aux
         torch.cuda.empty_cache()
-        # (b) exactness; (c) the reference's yardstick; (e) the weak-scaling
-        # layout against JAX's sharded step
+        # (b) exactness; (e) the weak-scaling layout against JAX's sharded step
         _sharded_exact(dev, group)
-        _sharded_overhead_128(dev, group)
         _sharded_weak(dev, group)
     finally:
         mesh.close_mesh()
@@ -3196,16 +2858,15 @@ def phase_sharded(dev, flush, large):
 # phase 27: the sharded MLS/ALE step, distributed QEq and the multichip entry
 # ---------------------------------------------------------------------------
 
-def _sharded_ale(dev, group, flush, cyl):
+def _sharded_ale(dev, group, flush, cyl_iters):
     """(a) flow-past-cylinder-2d-mls at n = 256 (65,536 particles, f64,
     K = 48, fully periodic) through ShardedSimulation.step at world size 1:
     three steps, each Poisson relres < 1e-6 and vmax within 1e-5 of JAX's
     (phase 21's bar), no overflow; the iterations beside phase 21's, the
-    median step over phase 21's (sharded_overhead_ratio_ale), the peak memory
-    and the idle share of a profiled step.  (d) on the step-3 slab: ell_spmv
-    on the extended slab's ALE Poisson matrix (f64 C = 1) and take on the
-    slab list (f64 pressure, int32 kinds) against their plain versions as in
-    phase 3.  Returns (launches, kernel rows)."""
+    peak memory and the collectives of a fourth step.  (d) on the step-3
+    slab: ell_spmv on the extended slab's ALE Poisson matrix (f64 C = 1) and
+    take on the slab list (f64 pressure, int32 kinds) against their plain
+    versions as in phase 3.  Returns (launches, kernel rows)."""
     from isph_tpu_torch.models import decks
     from isph_tpu_torch.ops import spmv_cuda as sc
 
@@ -3214,7 +2875,7 @@ def _sharded_ale(dev, group, flush, cyl):
     _log(f"sharded ale: world size 1 on NCCL; {CYL} n={CYL_N} N={state.n} f64: n_loc={ss.n_loc} "
          f"halo={ss.halo} (cut layer {layer[0]} and {layer[1]} particles at the two x-faces), "
          f"local cell capacity {ss._local_cell_capacity()}")
-    bad, iters, step_s = [], [], []
+    bad, iters = [], []
 
     def each(k, _, aux):
         vmax = float(aux.status.vmax)
@@ -3226,23 +2887,16 @@ def _sharded_ale(dev, group, flush, cyl):
             bad.append(k + 1)
 
     st, aux, launches = _run_steps("sharded ale", sim, st, (sc.ell_spmv, sc.take),
-                                   cap_check=False, each=each, step_times=step_s, step=ss.step)
-    peak = torch.cuda.max_memory_allocated() / 2**20
+                                   cap_check=False, each=each, step=ss.step)
     if bad:
         raise RuntimeError(f"sharded cylinder steps {bad}: Poisson relres >= 1e-6 or vmax off "
                            "JAX's")
     if min(launches.values()) <= 0:
         raise RuntimeError(f"a kernel never launched on the sharded ALE path: {launches}")
-    med = statistics.median(step_s[1:])
-    _log(f"sharded ale: (helmholtz, poisson) iterations {iters} beside phase 21's "
-         f"{cyl['iters']}; sharded_overhead_ratio_ale={med / cyl['median_s']:.4f} (sharded "
-         f"median {med:.4f} s / phase 21 median {cyl['median_s']:.4f} s); peak memory "
-         f"{peak:.1f} MiB")
+    _log(f"sharded ale: (helmholtz, poisson) iterations {iters} beside phase 21's {cyl_iters}")
     group.reset()
-    wall, busy, nk = _idle_share(lambda: ss.step(st))
-    _log(f"sharded ale: profiled step {wall:.4f} s, device busy {busy:.4f} s over {nk} "
-         f"kernels, idle share {1.0 - busy / wall:.3f}; {group.allreduces} all-reduces, "
-         f"{group.ring_hops} ring hops")
+    ss.step(st)
+    _log(f"sharded ale: step 4: {group.allreduces} all-reduces, {group.ring_hops} ring hops")
 
     ext, _, geom, _, _ = ss._borders(st, *ss._slab_bounds(st.dtype, st.device))
     A, _ = _ale_poisson_matrix(sim, ext, geom)
@@ -3259,14 +2913,14 @@ def _sharded_ale(dev, group, flush, cyl):
     return launches, dict(spmv=spmv[(torch.float64, 1)], take=take["f64 (N,) p"], spmv_err=err)
 
 
-def _sharded_qeq(dev, group, flush, call_s):
+def _sharded_qeq(dev, group, flush):
     """(b) phase 25's 262,144-atom lattice (f64, K = 448, cutoff 10 A) as one
     world-size-1 slab (n_loc = N: QEq moves no atom; the halo the cut layer
     + 25%), its type ids on ``phase``: the borders build, then solve_qeq
     with the halo refresh and the group against the one-device solve_qeq
     on the same atoms at QEQ_CHECK_TOL: q on the owned rows within 1e-10 of
     the one-device solve's, the s/t iterations equal; then two calls at tol
-    1e-6 from a zero history, timed beside phase 25's first two.  (d)
+    1e-6 from a zero history, with their collectives.  (d)
     ell_spmv on the extended slab's H (f64 C = 2) and take on its type ids
     (int32 (N,)).  Returns (launches, kernel rows)."""
     from isph_tpu_torch.config import (KernelConfig, KernelType, NeighborConfig,
@@ -3296,8 +2950,7 @@ def _sharded_qeq(dev, group, flush, call_s):
         w.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    (ext, comm, geom, _, ovf), t_b = _timed(
-        lambda: ss._borders(st, *ss._slab_bounds(st.dtype, st.device)))
+    ext, comm, geom, _, ovf = ss._borders(st, *ss._slab_bounds(st.dtype, st.device))
     n_ext = ext.x.shape[-1]
 
     def solve(params, qs):
@@ -3305,12 +2958,12 @@ def _sharded_qeq(dev, group, flush, call_s):
                              exchange=comm.refresh)
 
     _log(f"sharded qeq: world size 1 on NCCL; N={n} N_ext={n_ext} (halo {ss.halo}, cut layer "
-         f"{layer[0]} and {layer[1]} atoms), borders build {t_b:.3f} s, overflow {int(ovf)}")
-    res, t_c = _timed(lambda: solve(check, qeq.QEqState.zeros(n_ext, device=dev)))
+         f"{layer[0]} and {layer[1]} atoms), overflow {int(ovf)}")
+    res = solve(check, qeq.QEqState.zeros(n_ext, device=dev))
     its = (int(res.s_info.iters), int(res.t_info.iters))
     dq = float((res.state.q[:n] - q_ref).abs().max())
     _log(f"sharded qeq: tol {check.tol:.0e}: s/t iterations {its} (one device {its_ref}), q "
-         f"on the owned rows within {dq:.3e} of the one-device q, {t_c:.4f} s")
+         f"on the owned rows within {dq:.3e} of the one-device q")
     if int(ovf) != 0 or its != its_ref or not dq <= 1e-10:
         raise RuntimeError(f"the sharded QEq solve departs from the one-device solve at tol "
                            f"{QEQ_CHECK_TOL:.0e}")
@@ -3318,12 +2971,11 @@ def _sharded_qeq(dev, group, flush, call_s):
     qs = qeq.QEqState.zeros(n_ext, device=dev)
     for call in range(2):
         group.reset()
-        r, t = _timed(lambda: solve(params, qs))
+        r = solve(params, qs)
         qs = r.state
         q = r.state.q[:n]
         _log(f"sharded qeq: call {call + 1} at tol {params.tol:g}: s/t "
-             f"{int(r.s_info.iters)}/{int(r.t_info.iters)}, {t:.4f} s (phase 25's call "
-             f"{call + 1}: {call_s[call]:.4f} s), {group.allreduces} all-reduces, "
+             f"{int(r.s_info.iters)}/{int(r.t_info.iters)}, {group.allreduces} all-reduces, "
              f"{group.ring_hops} ring hops; sum q {float(q.sum()):.3e}")
         if not (bool(r.s_info.converged) and bool(r.t_info.converged)):
             raise RuntimeError(f"sharded QEq call {call + 1} did not converge")
@@ -3343,7 +2995,7 @@ def _sharded_qeq(dev, group, flush, call_s):
     return launches, dict(spmv=spmv[(torch.float64, 2)], take=take["int32 (N,)"], spmv_err=err)
 
 
-def phase_sharded_rest(dev, flush, cyl, call_s):
+def phase_sharded_rest(dev, flush, cyl_iters):
     """Phase 27: (a) and (b) at world size 1 on NCCL in this process, the
     launch counters set to 0 around each; the group closed, then (c)
     entry.dryrun_multichip on every card of the machine, one NCCL rank each."""
@@ -3354,15 +3006,15 @@ def phase_sharded_rest(dev, flush, cyl, call_s):
     group = mesh.make_mesh(1, 0, backend="nccl", init_file=os.path.join(store, "store"),
                            device=dev)
     try:
-        launches_ale, kale = _sharded_ale(dev, group, flush, cyl)
+        launches_ale, kale = _sharded_ale(dev, group, flush, cyl_iters)
         torch.cuda.empty_cache()
-        launches_qeq, kqeq = _sharded_qeq(dev, group, flush, call_s)
+        launches_qeq, kqeq = _sharded_qeq(dev, group, flush)
         torch.cuda.empty_cache()
     finally:
         mesh.close_mesh()
     n_cards = torch.cuda.device_count()
-    out, t = _timed(lambda: entry.dryrun_multichip(n_cards, device=dev))
-    _log(f"multichip entry: dryrun_multichip({n_cards}) on NCCL passed in {t:.1f} s: {out}")
+    out = entry.dryrun_multichip(n_cards, device=dev)
+    _log(f"multichip entry: dryrun_multichip({n_cards}) on NCCL passed: {out}")
     return dict(launches_ale=launches_ale, launches_qeq=launches_qeq, ale=kale, qeq=kqeq)
 
 
@@ -3524,7 +3176,7 @@ def main() -> int:
     # cylinder's and the 3-D operator deck's matrices
     torch.cuda.empty_cache()
     _phase("20 (cylinder golden)", phase_cylinder_golden, dev)
-    launches_cyl, cyl_sim, cyl_state, cyl = _phase("21 (cylinder)", phase_cylinder, dev)
+    launches_cyl, cyl_sim, cyl_state, cyl_iters = _phase("21 (cylinder)", phase_cylinder, dev)
     torch.cuda.empty_cache()
     A3 = _phase("23 (MLS operator decks)", phase_mls_operators, dev)
     flush = torch.empty(32 * 2**20, dtype=torch.float32, device=dev)
@@ -3541,7 +3193,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     ks = _phase("26 (sharded)", phase_sharded, dev, flush, large)
     torch.cuda.empty_cache()
-    kr = _phase("27 (sharded rest)", phase_sharded_rest, dev, flush, cyl, kq["call_s"])
+    kr = _phase("27 (sharded rest)", phase_sharded_rest, dev, flush, cyl_iters)
     del flush
 
     # phase 28: the bench's --small set

@@ -1,15 +1,14 @@
-"""The port's benchmark: ``bench.py``'s cells on one NVIDIA GPU, then the
-port's configurations at size.
+"""The port's benchmark: ``bench.py``'s cells on one NVIDIA GPU.
 
     python -m isph_tpu_torch.bench [--small]
 
 The last line of standard output is ``bench.py``'s one JSON line, in its
 format: ``{"metric": "spmv_nnz_per_s", "value": ..., "unit": "nnz/s",
 "vs_baseline": achieved / (0.8 * HBM / 12), "extras": {...}}``, the extras
-under ``bench.py``'s keys and the configuration rows under their own;
-progress goes to standard error.  Without a CUDA device it prints no line
-and exits 2: no number measured on the CPU is written under a device key.
-A cell that fails raises, and the run fails with it.
+under ``bench.py``'s keys; progress goes to standard error.  Without a
+CUDA device it prints no line and exits 2: no number measured on the CPU
+is written under a device key.  A cell that fails raises, and the run
+fails with it.
 
 Cells, in ``bench.py``'s order (``--small``: the first three at its small
 sizes, ``bench.py:597-600``):
@@ -29,12 +28,7 @@ sizes, ``bench.py:597-600``):
 - the TGV-16 f32 golden (three steps, pressure L2 against 8.467e-4);
 - the sharded TGV-128^2 step at world size 1 on NCCL (n_loc = N, halo 640,
   migrate_cap 256) over the one-device Jacobi step;
-- the TGV-512^2 step, Jacobi and AMG;
-- the port's configurations (``CONFIG_ROWS``, :func:`config_row`) and
-  QEq at 262,144 atoms (:func:`qeq_row`): for each, the step (call)
-  median with its spread, particle-steps/s, the Krylov (and Newton)
-  iterations of the timed steps, the device idle share of one profiled
-  step and the peak memory of the timed steps.
+- the TGV-512^2 step, Jacobi and AMG.
 
 Timing.  Kernels: CUDA events around each of 30 calls queued behind a
 sleep kernel (the device time alone), the median.  Solves: CUDA events
@@ -60,7 +54,6 @@ vals + 16-bit encoding.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import json
 import math
@@ -191,29 +184,6 @@ def _spread(times) -> float:
     return (max(times) - min(times)) / statistics.median(times)
 
 
-def _idle_share(fn):
-    """Device busy and idle share of ``fn()`` (torch.profiler, CUDA device
-    events only; one stream, so they do not overlap): (wall s, busy s,
-    device events).  The profiler's own host cost lengthens the wall time.
-    The busy time sums the raw kineto events: torch's function-event tree
-    (``key_averages``) costs ~0.5 ms an event to build, minutes for a step
-    of 10^5-10^6 kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # the step's named phases come back as device-side annotation ranges
-    # that span their kernels: left out, as torch's own table leaves them
-    events = [e for e in prof.profiler.kineto_results.events()
-              if e.device_type() == torch.autograd.DeviceType.CUDA
-              and not e.is_user_annotation()]
-    return wall, sum(e.duration_ns() for e in events) / 1e9, len(events)
-
-
 # ---------------------------------------------------------------------------
 # configurations
 # ---------------------------------------------------------------------------
@@ -267,6 +237,9 @@ def _slip_channel(dev, **ns_kw):
         ns=dataclasses.replace(sim.cfg.ns, **ns_kw))), state
 
 
+WALLS_UMIN = 0.2  # run_adaptive's velocity floor on the Navier-slip channel
+
+
 def _edl_flow(dev, dtype=torch.float64):
     """channel-edl-linear-2d at n = 512: 512 x 524 = 268,288 particles,
     K = 48, MorrisHolmes walls, linearized PB with eps = 0.02, default AMG."""
@@ -316,14 +289,6 @@ def _pore3d_symmetric(dev):
 
 CYL = "flow-past-cylinder-2d-mls"
 CYL_N = 256
-
-
-def _cylinder(dev):
-    """flow-past-cylinder-2d-mls at n = 256: 65,536 particles, the cylinder
-    51 dx across, K = 48, f64 (its ALE solves are Jacobi GMRES)."""
-    from isph_tpu_torch.models import decks
-
-    return decks.build_deck(CYL, n=CYL_N, device=dev)
 
 
 def _with_solver(sim, **kw):
@@ -537,148 +502,6 @@ def bench_sharded_step(dev, n_lat=128, steps=3):
     return statistics.median(times), _spread(times)
 
 
-# ---------------------------------------------------------------------------
-# the port's configurations at size
-# ---------------------------------------------------------------------------
-
-@contextlib.contextmanager
-def _newton_recorder():
-    """The PB Newton results of the steps run inside, in order: the step's
-    ``electrokinetics.newton_krylov`` wrapped while the block runs."""
-    from isph_tpu_torch.physics import electrokinetics as ek
-
-    orig, rows = ek.newton_krylov, []
-
-    def rec(*a, **k):
-        res = orig(*a, **k)
-        rows.append(res)
-        return res
-
-    ek.newton_krylov = rec
-    try:
-        yield rows
-    finally:
-        ek.newton_krylov = orig
-
-
-def config_row(sim, state, *, steps=2, step=None, newton=False):
-    """One configuration at size: step 1 untimed (the AMG build); step 2
-    profiled for the device idle share; then ``REPS`` windows of ``steps``
-    steps (steps 2 to 1 + ``steps``) from the same state, each on the host
-    clock synchronized at its ends, with the peak memory, and the Krylov
-    (and PB Newton) iterations of the first window's steps.  ``step(state)``
-    is by default ``Simulation.run(state, 1)``.  Fails on an overflow, a
-    non-finite status or a step on an AMG rebuild."""
-    if step is None:
-        step = lambda s: sim.run(s, 1)[:2]  # noqa: E731
-    state, _ = step(state)
-    _no_rebuild(sim, state, steps)
-    wall, busy, nk = _idle_share(lambda: step(state))
-    if not 0.0 < busy <= wall:
-        raise RuntimeError("the profiled device time is not within the step's wall time")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    for rep in range(REPS):
-        with _newton_recorder() if newton and rep == 0 else contextlib.nullcontext([]) as rows:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out, auxes = state, []
-            for _ in range(steps):
-                out, aux = step(out)
-                auxes.append(aux)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) / steps)
-        for aux in auxes:
-            if int(aux.neighbor_overflow) != 0:
-                raise RuntimeError("neighbor overflow in a timed step")
-            if not all(bool(torch.isfinite(t).all()) for t in aux.status):
-                raise RuntimeError(f"non-finite status {aux.status}")
-        if rep == 0:
-            first = auxes
-            newt = [(int(r.iters), int(r.linear_iters)) for r in rows]
-    peak = torch.cuda.max_memory_allocated() / 2**20
-    med = statistics.median(times)
-    row = dict(step_seconds=med, step_seconds_spread=_spread(times), particles=state.n,
-               particle_steps_per_s=state.n / med,
-               timed_steps=[int(state.step) + 1 + k for k in range(steps)],
-               helmholtz_iters=[int(a.helmholtz_iters) for a in first],
-               poisson_iters=[int(a.poisson_iters) for a in first],
-               idle_share=1.0 - busy / wall, device_events_per_step=nk, peak_mib=peak)
-    if newton:
-        row.update(newton_iters=[a for a, _ in newt], newton_gmres_iters=[b for _, b in newt])
-    return row
-
-
-def qeq_row(dev, calls=5):
-    """QEq at 262,144 atoms f64 (chip_smoke.py phase 25's lattice, K = 448,
-    cutoff 10 A, tol 1e-6) on fixed positions: one untimed call from a zero
-    history, then ``calls`` calls timed on the host clock, their s/t
-    iterations, the peak memory, and the idle share of one more call."""
-    from isph_tpu_torch.physics import qeq
-
-    params = qeq.QEqParams(**QEQ_PARAMS)
-    x, valid, tid, dom, cap = _qeq_setup(QEQ_SIDE, dev)
-    n = x.shape[1]
-    _, geom = _qeq_geometry(x, valid, dom, cap)
-    st = qeq.solve_qeq(geom, tid, params, qeq.QEqState.zeros(n, device=dev), valid).state
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times, s_it, t_it = [], [], []
-    for _ in range(calls):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = qeq.solve_qeq(geom, tid, params, st, valid)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        if not (bool(res.s_info.converged) and bool(res.t_info.converged)):
-            raise RuntimeError("a timed QEq call did not converge")
-        st = res.state
-        s_it.append(int(res.s_info.iters))
-        t_it.append(int(res.t_info.iters))
-    peak = torch.cuda.max_memory_allocated() / 2**20
-    wall, busy, nk = _idle_share(lambda: qeq.solve_qeq(geom, tid, params, st, valid))
-    if not 0.0 < busy <= wall:
-        raise RuntimeError("the profiled device time is not within the call's wall time")
-    med = statistics.median(times)
-    return dict(call_seconds=med, call_seconds_spread=_spread(times), atoms=n,
-                atom_calls_per_s=n / med, s_iters=s_it, t_iters=t_it,
-                idle_share=1.0 - busy / wall, device_events_per_call=nk, peak_mib=peak)
-
-
-WALLS_UMIN = 0.2  # run_adaptive's velocity floor on the Navier-slip channel
-
-
-def _navier_slip(dev):
-    """The Navier-slip channel of chip_smoke.py phase 16(b): beta 0.01,
-    the coupled block Helmholtz, stepped through Simulation.run_adaptive
-    (cfl 0.25, dx = 1/1024, umin WALLS_UMIN)."""
-    sim, state = _slip_channel(dev, beta=0.01, is_block_helmholtz_enabled=True)
-    return sim, state, dict(step=lambda s: sim.run_adaptive(s, 1, cfl=0.25, dx=1.0 / 1024,
-                                                            umin=WALLS_UMIN)[:2])
-
-
-def _plain(build, **kw):
-    def spec(dev):
-        return (*build(dev), kw)
-
-    return spec
-
-
-# the port's configurations at size (PERF.md section 4): key prefix and a
-# function of the device giving (simulation, state, config_row keywords)
-CONFIG_ROWS = (
-    ("tgv1024_amg", _plain(_tgv1024)),
-    ("tgv3d64_amg", _plain(lambda dev: _tgv3(dev, 64))),
-    ("poiseuille1024", _plain(_channel)),
-    ("navier_slip1024", _navier_slip),
-    ("edl512_f64", _plain(_edl_flow, newton=True)),
-    ("transport1024_f64", _plain(_transport_box)),
-    ("pore3d96_f64", _plain(_pore3d_symmetric)),
-    ("cylinder256_f64", _plain(_cylinder)),
-)
-
-
 def _cell(label, fn, *args, **kw):
     """``fn(*args, **kw)``, its wall time logged, the card's cache freed after."""
     t0 = time.perf_counter()
@@ -790,15 +613,6 @@ def run_benches(small: bool = False, dev=None) -> dict:
             ex[f"tgv2d512_step_seconds_{pc}_spread"] = s512[pc][1]
         ex["tgv2d512_best_precond"] = ("amg" if s512["amg"][0] <= s512["jacobi"][0]
                                        else "jacobi")
-        for prefix, spec in CONFIG_ROWS:
-            sim, state, kw = spec(dev)
-            row = _cell(prefix, config_row, sim, state, **kw)
-            del sim, state, kw
-            _log(f"{prefix}: {row}")
-            ex.update({f"{prefix}_{k}": v for k, v in row.items()})
-        row = _cell("qeq262144_f64", qeq_row, dev)
-        _log(f"qeq262144_f64: {row}")
-        ex.update({f"qeq262144_f64_{k}": v for k, v in row.items()})
     ex["bench_wall_seconds"] = time.perf_counter() - t_start
     return dict(metric="spmv_nnz_per_s", value=value, unit="nnz/s",
                 vs_baseline=value / (0.8 * roofline), extras=ex)
@@ -816,8 +630,7 @@ SMALL_KEYS = ("matrix_nnz", "roofline_nnz_per_s", "roofline_model_bytes_per_nnz"
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m isph_tpu_torch.bench",
-        description="bench.py's cells and the port's configurations on one CUDA card; "
-                    "prints bench.py's JSON line last")
+        description="bench.py's cells on one CUDA card; prints bench.py's JSON line last")
     parser.add_argument("--small", action="store_true",
                         help="bench.py's small set: the 128^2 SpMV and the 64^2 steps")
     args = parser.parse_args(argv)
