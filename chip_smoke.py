@@ -34,8 +34,8 @@ Phases (each raises on failure; the script then exits non-zero):
    just after; checks overflow, finiteness, volume,
    the decaying vmax, that the ELL kernels and the compensated dot ran,
    and that each step's Helmholtz and Poisson counts and vmax bits are
-   the parent commit's on the card (MAIN_PARENT: the kernel keeps the
-   cascade's bits);
+   MAIN_PARENT's on the card (the compensated dot keeps the cascade's
+   bits; the correction-tensor kernel set its own f32 bits);
 5. golden: the reference's TGV-16 table in f32 through the kernels, within
    2% (the bar tests/test_f32.py holds the JAX package to);
 6. band kernels: on the pressure-Poisson matrix of the 1024^2 Taylor-Green
@@ -293,7 +293,21 @@ Phases (each raises on failure; the script then exits non-zero):
    kernel timed beside its bound (inputs read and outputs written once at
    the HBM rate), the plain version and the whole build, with each one's
    peak memory.  The kernel is also counted, and required to launch, on
-   phases 4, 7 and 9.
+   phases 4, 7 and 9;
+32. (run after phase 31) the correction-tensor kernel
+   (csrc/corrected_pre.cu) against compute_pre's plain chain
+   (ops/corrected.py) on the same CUDA tensors, each launch synchronized
+   before the next: the 64^3 cell's lattice (K = 408), the 1M cell's band
+   lists (K = 32) and the ny = 1024 channel (K = 48, walls and padding
+   rows), jittered 0.01 dx, each in f64 and f32 from the same positions;
+   two launches a call, and compute_pre launches them; in f64 every field
+   within 1e-10 of the plain version's largest value (vfrac's bitwise
+   share logged); in f32 every field at most twice as far from the f64
+   plain result as the plain f32 version; each timed (median of 30 warm
+   calls) beside its bound (the pair arrays and idx read once, the fields
+   written, at the HBM rate) and the plain version, with each one's peak
+   memory.  The kernel is also counted, and required to launch twice a
+   step, on phases 4, 7 and 9.
 
 Each phase's wall time is logged on a line of its own ("phase N (...): s"),
 and the whole run's before the last lines.  The configurations' makers
@@ -1001,6 +1015,134 @@ def phase_neighbor_search(dev):
     return rows
 
 
+def _not_twice_a_step(launches, nsteps=3):
+    """True unless the correction-tensor kernel launched twice a step (a
+    retried step launches again)."""
+    n = launches["corrected_pre"]
+    return n < 2 * nsteps or n % 2 != 0
+
+
+def _pre_cases(dev):
+    """(label, sim, f32 state) of phase 32: the benchmark cells' lattices
+    and the channel, positions jittered 0.01 dx (fluid only in the
+    channel)."""
+    from isph_tpu_torch.config import KernelType
+    from isph_tpu_torch.models import tgv
+    from isph_tpu_torch.state import Kind
+
+    rng = np.random.default_rng(32)
+
+    def jitter(st, dx):
+        move = (st.valid & ((st.kind & (Kind.SOLID | Kind.BOUNDARY)) == 0)).to(st.x.dtype)
+        d = torch.as_tensor(rng.uniform(-0.01 * dx, 0.01 * dx, tuple(st.x.shape)),
+                            dtype=st.x.dtype, device=dev)
+        return st.replace(x=st.x + d * move[None, :])
+
+    sim, st = tgv.make_tgv(64, dim=3, kernel=KernelType.QUINTIC, max_neighbors=408,
+                           dtype=torch.float32, device=dev)
+    yield "64^3 Quintic", sim, jitter(st, 2 * math.pi / 64)
+    sim, st = _tgv1024(dev)
+    yield "1M band", sim, jitter(st, 2 * math.pi / 1024)
+    sim, st = _channel(dev)
+    yield "channel", sim, jitter(st, 1.0 / 1024)
+
+
+def _pre_plain(geom, kind):
+    """compute_pre's plain chain on the card."""
+    from isph_tpu_torch.ops import corrected as ops
+
+    vfrac = ops.shepard_volume(geom)
+    Gc = ops.gradient_correction(geom, vfrac)
+    Lc = ops.laplacian_correction(geom, vfrac, Gc)
+    normal, pnd = ops.interface_normal(geom, vfrac, kind, Gc)
+    return vfrac, Gc, Lc, normal, pnd
+
+
+PRE_FIELDS = ("vfrac", "Gc", "Lc", "normal", "pnd")
+
+
+def _pre_gap(got, ref, name):
+    """Largest difference over the field's largest magnitude (1 for the
+    unit normals)."""
+    scale = 1.0 if name == "normal" else float(ref.abs().max())
+    return float((got.double() - ref.double()).abs().max()) / max(scale, 1e-300)
+
+
+def phase_corrected_pre(dev):
+    """Phase 32: the correction-tensor kernel against compute_pre's plain
+    chain on the same CUDA tensors (module docstring)."""
+    from isph_tpu_torch.ops import corrected_pre_cuda as cpc
+    from isph_tpu_torch.physics import ns_projection
+
+    def synced(v):  # between the launches, where the sharded step exchanges
+        torch.cuda.synchronize()
+        return v
+
+    rows, worst = {}, 0.0
+    for label, sim, st in _pre_cases(dev):
+        ref = None
+        for dtype in (torch.float64, torch.float32):
+            s = st.replace(x=st.x.to(dtype))
+            geom = sim.geometry(s, sim.neighbors(s))
+            K, n = geom.r.shape
+            tag = f"{label} {'f64' if dtype == torch.float64 else 'f32'}"
+            before = cpc.corrected_pre.launches
+            got = cpc.corrected_pre(geom, s.kind, synced)
+            torch.cuda.synchronize()
+            if cpc.corrected_pre.launches != before + 2:
+                raise RuntimeError(f"corrected_pre: not two launches at {tag}")
+            pre = ns_projection.compute_pre(s, geom, sim.cfg)
+            if cpc.corrected_pre.launches != before + 4 or not all(
+                    torch.equal(getattr(pre, f), g) for f, g in zip(PRE_FIELDS, got)):
+                raise RuntimeError(f"corrected_pre: compute_pre did not launch the kernel or "
+                                   f"differs from it at {tag}")
+            plain = _pre_plain(geom, s.kind)
+            if dtype == torch.float64:
+                ref = plain
+                gaps = {f: _pre_gap(g, p, f) for g, p, f in zip(got, plain, PRE_FIELDS)}
+                same = float((got[0] == plain[0]).double().mean())
+                worst = max(worst, max(gaps.values()))
+                _log(f"corrected_pre: {tag} (N={n}, K={K}): gaps to the plain version "
+                     f"{ {f: f'{v:.2e}' for f, v in gaps.items()} }; vfrac bitwise in "
+                     f"{same:.4f} of the rows")
+                if max(gaps.values()) > 1e-10:
+                    raise RuntimeError(f"corrected_pre: f64 kernel off the plain version at "
+                                       f"{tag}: {gaps}")
+            else:
+                gk = {f: _pre_gap(g, r, f) for g, r, f in zip(got, ref, PRE_FIELDS)}
+                gp = {f: _pre_gap(p, r, f) for p, r, f in zip(plain, ref, PRE_FIELDS)}
+                _log(f"corrected_pre: {tag} (N={n}, K={K}): gaps to f64, kernel "
+                     f"{ {f: f'{v:.2e}' for f, v in gk.items()} }, plain "
+                     f"{ {f: f'{v:.2e}' for f, v in gp.items()} }")
+                if any(gk[f] > 2.0 * gp[f] for f in PRE_FIELDS):
+                    raise RuntimeError(f"corrected_pre: f32 kernel more than twice as far from "
+                                       f"f64 as the plain f32 version at {tag}: {gk} {gp}")
+            del got, pre, plain
+            item, dim, dl = geom.r.element_size(), geom.dim, geom.dim * (geom.dim + 1) // 2
+            nbytes = K * n * ((dim + 4) * item + 4) + n * (item + 4) + n * item * (
+                2 + dim * dim + dl + dim)
+            bound, by = _bound(nbytes)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            tk, hk = _median_ms(lambda: cpc.corrected_pre(geom, s.kind))
+            peak_k = torch.cuda.max_memory_allocated() - base
+            torch.cuda.reset_peak_memory_stats()
+            tp, _ = _median_ms(lambda: _pre_plain(geom, s.kind), reps=3)
+            peak_p = torch.cuda.max_memory_allocated() - base
+            rows[tag] = dict(ms=tk, plain_ms=tp, library_ms=None, bound_ms=bound, bound_by=by,
+                             host_us=hk)
+            _log(f"corrected_pre: {tag}: kernel={tk:.4f} ms, bound={bound:.4f} ms "
+                 f"({nbytes / 1e6:.1f} MB, {by}), share={bound / tk:.4f}, plain={tp:.2f} ms; "
+                 f"peak above the inputs: kernel {peak_k / 2**20:.1f} MiB, plain "
+                 f"{peak_p / 2**20:.1f} MiB; host enqueue {hk:.1f} us")
+            del geom, s
+            torch.cuda.empty_cache()
+        del sim, st, ref
+        torch.cuda.empty_cache()
+    return dict(rows=rows, err=worst)
+
+
 def _run_steps(tag, sim, state, wrappers, cap_check=True, nsteps=3, each=None, step=None):
     """``nsteps`` steps through Simulation.run, one call per step (the same
     steps as run(state, nsteps)), or through ``step(state)`` where given,
@@ -1050,11 +1192,12 @@ def _check_vortex(tag, aux, volume):
 
 
 # phase 4's (Helmholtz, Poisson) iterations and vmax bits (float.hex) of
-# each step as the commit before the compensated dot kernel (c62ac79, the
-# eager cascade) gives them on an NVIDIA H100 80GB HBM3, the same in two
-# runs (PERF.md); the kernel keeps the cascade's bits, so they hold after it
-MAIN_PARENT = ((10, 495, "0x1.9688e00000000p-4"), (10, 175, "0x1.9391600000000p-4"),
-               (10, 300, "0x1.909e140000000p-4"))
+# each step on an NVIDIA H100 80GB HBM3, the same in two runs (PERF.md): the
+# compensated dot kernel keeps the eager cascade's bits (c62ac79 gave
+# these counts before it); the correction-tensor kernel sums each particle's
+# slots in its own order, so its f32 Gc and Lc, and these, are its own
+MAIN_PARENT = ((10, 500, "0x1.9688e00000000p-4"), (10, 185, "0x1.93915c0000000p-4"),
+               (10, 300, "0x1.909e1c0000000p-4"))
 
 
 def phase_main_path(dev):
@@ -1062,6 +1205,7 @@ def phase_main_path(dev):
     iterations and vmax of each step are MAIN_PARENT's, bit for bit."""
     from isph_tpu_torch.models import tgv
     from isph_tpu_torch.ops import comp_dot_cuda as cd
+    from isph_tpu_torch.ops import corrected_pre_cuda as cpc
     from isph_tpu_torch.ops import neighbor_search_cuda as nsc
     from isph_tpu_torch.ops import spmv_cuda as sc
 
@@ -1073,10 +1217,12 @@ def phase_main_path(dev):
         record.append((*iters[-1], float(aux.status.vmax).hex()))
 
     state, aux, launches = _run_steps("main", sim, state, (sc.ell_spmv, sc.take, cd.comp_dots,
-                                                           nsc.neighbor_search),
+                                                           nsc.neighbor_search,
+                                                           cpc.corrected_pre),
                                       cap_check=False, each=each)
-    if min(launches.values()) <= 0:
-        raise RuntimeError(f"a kernel of the main path never launched: {launches}")
+    if min(launches.values()) <= 0 or _not_twice_a_step(launches):
+        raise RuntimeError(f"a kernel of the main path never launched, or the correction "
+                           f"tensors' not twice a step: {launches}")
     _log(f"main: (helmholtz, poisson, vmax) a step {record}; the parent's {MAIN_PARENT}")
     if tuple(record) != MAIN_PARENT:
         raise RuntimeError(f"the main path's counts or vmax bits {record} are not the "
@@ -1161,6 +1307,7 @@ def phase_large_n(dev):
     streaming list."""
     from isph_tpu_torch.ops import agg_transfer_cuda as at
     from isph_tpu_torch.ops import comp_dot_cuda as cd
+    from isph_tpu_torch.ops import corrected_pre_cuda as cpc
     from isph_tpu_torch.ops import neighbor_search_cuda as nsc
     from isph_tpu_torch.ops import spmv_cuda as sc
 
@@ -1169,13 +1316,14 @@ def phase_large_n(dev):
     state, aux, launches = _run_steps(
         "large", sim, state,
         (sc.ell_spmv, sc.take, sc.ell_spmv_band, sc.take_band, cd.comp_dots, at.agg_restrict,
-         at.agg_prolong_add, nsc.neighbor_search),
+         at.agg_prolong_add, nsc.neighbor_search, cpc.corrected_pre),
         each=_record_iters(iters))
     if min(launches["ell_spmv_band"], launches["take_band"], launches["comp_dots"],
            launches["agg_restrict"], launches["agg_prolong_add"],
-           launches["neighbor_search"]) <= 0:
+           launches["neighbor_search"]) <= 0 or _not_twice_a_step(launches):
         raise RuntimeError(f"a band kernel, comp_dots, an AMG transfer kernel or the neighbor "
-                           f"search never launched on the large-N path: {launches}")
+                           f"search never launched on the large-N path, or the correction "
+                           f"tensors' not twice a step: {launches}")
     _check_vortex("large", aux, (2 * math.pi) ** 2)
     return launches, dict(ke=float(aux.status.kinetic_energy), vmax=float(aux.status.vmax),
                           nfluid=float(aux.status.nfluid), iters=iters)
@@ -1265,6 +1413,7 @@ def phase_3d_path(dev):
     """Three TGV-64^3 f32 Quintic steps through Simulation.run with AMG."""
     from isph_tpu_torch.ops import agg_transfer_cuda as at
     from isph_tpu_torch.ops import comp_dot_cuda as cd
+    from isph_tpu_torch.ops import corrected_pre_cuda as cpc
     from isph_tpu_torch.ops import neighbor_search_cuda as nsc
     from isph_tpu_torch.ops import spmv_cuda as sc
 
@@ -1285,9 +1434,11 @@ def phase_3d_path(dev):
         raise RuntimeError("the 3-D lattice should give 388 neighbors a particle, no overflow")
     state, aux, launches = _run_steps("3d path", sim, state,
                                       (sc.ell_spmv, sc.take, cd.comp_dots, at.agg_restrict,
-                                       at.agg_prolong_add, nsc.neighbor_search))
-    if min(launches.values()) <= 0:
-        raise RuntimeError(f"a kernel of the 3-D path never launched: {launches}")
+                                       at.agg_prolong_add, nsc.neighbor_search,
+                                       cpc.corrected_pre))
+    if min(launches.values()) <= 0 or _not_twice_a_step(launches):
+        raise RuntimeError(f"a kernel of the 3-D path never launched, or the correction "
+                           f"tensors' not twice a step: {launches}")
     _check_vortex("3d path", aux, (2 * math.pi) ** 3)
     _, aux_a = sim.step(state)
     _, aux_j = _with_solver(sim, precond="jacobi").step(state)
@@ -3116,6 +3267,10 @@ def main() -> int:
     kn = _phase("31 (neighbor search)", phase_neighbor_search, dev)
     torch.cuda.empty_cache()
 
+    # phase 32: the correction-tensor kernel against compute_pre's plain chain
+    kpre = _phase("32 (correction tensors)", phase_corrected_pre, dev)
+    torch.cuda.empty_cache()
+
     # phase 4: main path; phase 5: golden
     launches, tgv_sim, tgv_state, tgv_t, main_iters = _phase("4 (main path)",
                                                              phase_main_path, dev)
@@ -3306,6 +3461,14 @@ def main() -> int:
         launches=launches["neighbor_search"], launches_large=launches_large["neighbor_search"],
         launches_3d=launches_3d["neighbor_search"], max_abs_err=0.0,
         **times(kn["64^3 Quintic"]), at_1M=times(kn["1M band"])))
+    kernels.append(dict(
+        name="corrected_pre", route="cuda", source="isph_tpu_torch/csrc/corrected_pre.cu",
+        replaces="none (XLA's computePre, isph_tpu/ops/corrected.py)",
+        launches=launches["corrected_pre"], launches_large=launches_large["corrected_pre"],
+        launches_3d=launches_3d["corrected_pre"], max_abs_err=kpre["err"],
+        **times(kpre["rows"]["64^3 Quintic f32"]),
+        **{f"at_{k.replace(' ', '_').replace('^', '')}": times(r)
+           for k, r in kpre["rows"].items() if k != "64^3 Quintic f32"}))
     print(_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

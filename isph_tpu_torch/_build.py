@@ -150,6 +150,10 @@ def load(path: Path) -> ctypes.CDLL:
     lib.isph_neighbor_search.argtypes = ([i32, i32] + [vp] * 7 + [i32] * 4 + [ip] * 4
                                          + [dp, dp, ctypes.c_double] + [i32] * 2 + [vp])
     lib.isph_neighbor_search.restype = i32
+    lib.isph_pre_volume.argtypes = [i32, vp, vp, vp, vp, i64, i32, i32, vp]
+    lib.isph_pre_volume.restype = i32
+    lib.isph_pre_tensors.argtypes = [i32, i32] + [vp] * 13 + [i64, i32, i32, vp]
+    lib.isph_pre_tensors.restype = i32
     lib.isph_smem_optin.argtypes = [i32]
     lib.isph_smem_optin.restype = i32
     return lib

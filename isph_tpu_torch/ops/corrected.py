@@ -23,6 +23,7 @@ import torch
 
 from isph_tpu_torch.state import Kind
 from isph_tpu_torch.ops.neighbors import PairGeom
+from isph_tpu_torch.ops.corrected_pre_cuda import corrected_pre
 from isph_tpu_torch.ops.ell import ELL
 from isph_tpu_torch.utils import dense
 from isph_tpu_torch.utils.fsum import sqrt_rn
@@ -168,7 +169,7 @@ def laplacian_correction(geom: PairGeom, vfrac: torch.Tensor, Gc: torch.Tensor) 
 
 
 def interface_normal(geom: PairGeom, vfrac: torch.Tensor, kind: torch.Tensor,
-                     Gc: torch.Tensor, h: float):
+                     Gc: torch.Tensor, h: Optional[float] = None):
     """Interface normals + particle number density (functor_normal.h:58-133).
 
     Fluid rows accumulate over solid neighbors with orientation -1, solid
@@ -220,6 +221,25 @@ def morris_holmes_mirror(
     eps = 1.0e-24
     d = 2.0 * cut * (pnd * vfrac - 0.5) + eps
     return 1.0 + geom.gather(d) / torch.clamp_min(d[None, :], safe * h)
+
+
+def precompute(geom: PairGeom, kind: torch.Tensor, exchange=None):
+    """(vfrac, Gc, Lc, normal, pnd) of computePre: the kernel
+    (``ops/corrected_pre_cuda.py``, two launches) on CUDA tensors, the plain
+    functions above on CPU tensors, each half inside a ``corrected.pre``
+    span.  ``exchange`` (the sharded step's halo refresh) takes the volume
+    between the halves: Gc and Lc read it at neighbor positions."""
+    if geom.r.device.type != "cpu":
+        return corrected_pre(geom, kind, exchange)
+    with span("corrected.pre"):
+        vfrac = shepard_volume(geom)
+    if exchange is not None:
+        vfrac = exchange(vfrac)
+    with span("corrected.pre"):
+        Gc = gradient_correction(geom, vfrac)
+        Lc = laplacian_correction(geom, vfrac, Gc)
+        normal, pnd = interface_normal(geom, vfrac, kind, Gc)
+    return vfrac, Gc, Lc, normal, pnd
 
 
 # ---------------------------------------------------------------------------

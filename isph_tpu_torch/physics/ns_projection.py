@@ -54,15 +54,10 @@ def compute_pre(state: ParticleState, geom: PairGeom, cfg: SimulationConfig, *,
     imported before Gc and Lc (the reference forward-comms Vfrac in
     FunctorVolume::exitFor, functor_volume.h:76-81), and the normals and
     pnd after computeNormals (pair_isph_corrected.cpp:1352-1377)."""
-    vfrac = ops.shepard_volume(geom)
+    vfrac, Gc, Lc, normal, pnd = ops.precompute(geom, state.kind, exchange)
     if exchange is not None:
-        vfrac = exchange(vfrac)
-    Gc = ops.gradient_correction(geom, vfrac)
-    Lc = ops.laplacian_correction(geom, vfrac, Gc)
-    normal, pnd = ops.interface_normal(geom, vfrac, state.kind, Gc, cfg.h)
-    if exchange is not None:
-        normal = None if normal is None else exchange(normal)
-        pnd = None if pnd is None else exchange(pnd)
+        normal = exchange(normal)
+        pnd = exchange(pnd)
     return Precomputed(vfrac=vfrac, Gc=Gc, Lc=Lc, normal=normal, pnd=pnd)
 
 

@@ -21,7 +21,7 @@ torch.set_num_threads(1)  # tier-1 runs pytest with several workers
 STEPS = 9
 PHASES = ("neighbors", "geometry", "compute_pre", "helmholtz", "poisson", "correct", "advance")
 SPANS = ("krylov.iter", "amg.build", "amg.refresh", "amg.vcycle", "amg.transfer",
-         "neighbors.search", "host_read")
+         "neighbors.search", "corrected.pre", "host_read")
 STEP_END = "test.step_end"
 
 
@@ -72,7 +72,7 @@ def _per_step(items):
 
 
 def test_spans_are_host_ops_and_phases_annotations(traced):
-    """The seven spans come back as host operations, no user annotation,
+    """The eight spans come back as host operations, no user annotation,
     so that the kernels they launch stay in their phase's device-side
     range; the phases stay annotations."""
     _, _, spans = traced
@@ -129,6 +129,16 @@ def test_host_reads_cover_the_krylov_tests(traced):
     for r, a in zip(reads, auxes):
         assert r >= 1 + int(a.poisson_iters) // 5
     assert _per_step(_inside(spans["neighbors.search"], spans["neighbors"])) == [1] * STEPS
+
+
+def test_corrected_pre_spans_in_compute_pre(traced):
+    """computePre's two halves (the Shepard volume, then the correction
+    tensors, normals and pnd) each run inside a ``corrected.pre`` span inside
+    ``compute_pre``, once a step."""
+    _, _, spans = traced
+    pre = spans["corrected.pre"]
+    assert len(_inside(pre, spans["compute_pre"])) == len(pre)
+    assert _per_step(pre) == [2] * STEPS
 
 
 def test_traced_steps_are_bitwise_the_untraced(traced):
