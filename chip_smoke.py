@@ -2411,8 +2411,8 @@ def phase_cylinder(dev):
     iters = []
     _log(f"cylinder: {CYL} n={CYL_N} N={state.n} ({int(solid.sum())} solid), "
          f"K={sim.cfg.neighbor.max_neighbors}, dt {sim.cfg.dt:.6g}, f64; Jacobi GMRES"
-         f"({sc_.restart}) x {sc_.max_restarts} restarts, tol {sc_.tol:g} (config precond "
-         f"{sc_.precond!r} is not read by the ALE solves)")
+         f"({sc_.restart}) x {sc_.max_restarts} restarts, tol {sc_.tol:g} (the registry's "
+         f"precond {sc_.precond!r}, which the JAX package's ALE solves run)")
     bad = []
 
     def each(k, st, aux):

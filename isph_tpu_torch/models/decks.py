@@ -34,6 +34,7 @@ from isph_tpu_torch.config import (
     ShiftConfig,
     SimulationConfig,
     SingularPoisson,
+    SolverConfig,
     SoluteTransportConfig,
     SurfaceTensionConfig,
 )
@@ -1277,6 +1278,7 @@ def make_mls_poisson_operator(
         kernel=KernelConfig(type=KernelType.WENDLAND, cut_over_h=1.0),
         mls=MLSConfig(basis_order=basis_order, bdf_order=1),
         ns=NavierStokesConfig(theta=0.5, singular_poisson=SingularPoisson.NULL_SPACE),
+        solver=SolverConfig(precond="jacobi"),
         neighbor=_neighbor_cfg(dx, 4.0 * dx, dim),
     )
     domain = Domain(lo=(0.0,) * dim, hi=(L,) * dim, periodic=(True,) * dim)
@@ -1326,6 +1328,7 @@ def make_mls_poisson_boundary(
         kernel=KernelConfig(type=KernelType.WENDLAND, cut_over_h=1.0),
         mls=MLSConfig(basis_order=basis_order, bdf_order=1),
         ns=NavierStokesConfig(theta=0.5, singular_poisson=SingularPoisson.NOT_SINGULAR),
+        solver=SolverConfig(precond="jacobi"),
         neighbor=_neighbor_cfg(dx, 4.0 * dx, 2),
     )
     domain = Domain(lo=(lo_w, lo_w), hi=(hi_w, hi_w), periodic=(False, False))
@@ -1378,6 +1381,7 @@ def make_flow_past_cylinder(
             g=(g, 0.0, 0.0),
         ),
         mls=MLSConfig(basis_order=basis_order, bdf_order=bdf_order),
+        solver=SolverConfig(precond="jacobi"),
         neighbor=_neighbor_cfg(dx, cut, 2, max_neighbors),
     )
     domain = Domain(lo=(0.0, 0.0), hi=(L, L), periodic=(True, True))

@@ -47,8 +47,11 @@ class StepAux(NamedTuple):
 
 def unported_features(cfg: SimulationConfig) -> list[str]:
     """Enabled features of ``cfg`` that the port does not run: none.  On
-    the MLS/ALE backend ``recycle_k`` and ``precond`` are ignored, as the JAX
-    package's ALE step ignores them (its solves are Jacobi GMRES)."""
+    the MLS/ALE backend ``recycle_k`` is ignored, as the JAX package's ALE
+    step ignores it.  Its Poisson takes ``precond="amg"`` (the corrected
+    backend's hierarchy and max-age cache), where the JAX package's ALE
+    solves run Jacobi GMRES whatever ``precond`` says; the Helmholtz is
+    Jacobi in both, and the registry's MLS decks pin ``precond="jacobi"``."""
     return []
 
 
@@ -95,8 +98,9 @@ class Simulation:
         """On the MLS/ALE backend give a state without one its BDF histories
         (``ale.ALEHistory.init``).  No AMG hierarchy cache is seeded, because
         a state without one builds its hierarchy at its first solve
-        (``ns_projection.amg_rebuild_due``); the ALE solves use none.  The
-        recycle space starts at the first recycled solve."""
+        (``ns_projection.amg_rebuild_due``), on either backend (the ALE
+        Poisson's with ``precond="amg"``).  The recycle space starts at the
+        first recycled solve."""
         if self.cfg.backend == "mls_ale" and state.ale_hist is None:
             state = state.replace(ale_hist=ale.ALEHistory.init(
                 state, self.cfg.mls.bdf_order, self.cfg.dt))
@@ -263,11 +267,20 @@ class Simulation:
                 state = state.replace(f=self.extra_force(state, self.domain))
 
         # phases "mls_assembly", "poisson", "correct" and "helmholtz" are
-        # scoped inside
+        # scoped inside; precond "amg" is read here alone: the Poisson's
+        # hierarchy then follows the corrected backend's max-age policy
+        # (amg_rebuild_due's None, no hierarchy carried between steps, is a
+        # rebuild every step)
+        amg_rebuild = None
+        if cfg.solver.precond == "amg":
+            amg_rebuild = ns_projection.amg_rebuild_due(state, cfg) is not False
         state, info = ale.ale_navier_stokes_step(
             state, geom, pre, hist, cfg, self.domain,
-            order=cfg.mls.bdf_order, basis_order=cfg.mls.basis_order)
+            order=cfg.mls.bdf_order, basis_order=cfg.mls.basis_order,
+            amg_cache=state.amg_cache, amg_rebuild=amg_rebuild)
         state = state.replace(ale_hist=hist)
+        if info.amg_cache is not None:
+            state = state.replace(amg_cache=info.amg_cache)
 
         if state.step is not None:
             state = state.replace(step=state.step + 1)

@@ -37,6 +37,7 @@ from isph_tpu_torch.ops.ell import ELL
 from isph_tpu_torch.ops.kernels import integer_pow
 from isph_tpu_torch.ops.neighbors import PairGeom
 from isph_tpu_torch.utils import dense
+from isph_tpu_torch.utils.profiling import span
 
 
 @lru_cache(maxsize=None)
@@ -148,12 +149,14 @@ def mass_matrix_inverse(
     (functor_mls_mass_matrix.h:60-160).  Returns (NDOF, NDOF, N); rows whose
     kind fails the filter (and neighborless particles) get the identity."""
     nd = basis.ndof
-    P, w, P0, w0 = _weights(basis, geom, rth, kind, filt)
-    M = torch.stack([
-        torch.stack([(w * P[a] * P[b]).sum(dim=0) + w0 * P0[a] * P0[b] for b in range(nd)])
-        for a in range(nd)
-    ])  # (NDOF, NDOF, N)
-    return dense.inv_leading(_pin_identity(M, kind, filt, geom))
+    with span("mls.mass_matrix"):
+        P, w, P0, w0 = _weights(basis, geom, rth, kind, filt)
+        M = torch.stack([
+            torch.stack([(w * P[a] * P[b]).sum(dim=0) + w0 * P0[a] * P0[b]
+                         for b in range(nd)])
+            for a in range(nd)
+        ])  # (NDOF, NDOF, N)
+        return dense.inv_leading(_pin_identity(M, kind, filt, geom))
 
 
 def moment_helper(
@@ -250,27 +253,29 @@ def operator_matrix(
     ``Minv`` may be the extended compact-Poisson inverse, of which the first
     NDOF columns are read.  The matrix shares the geometry's pattern and
     slot format."""
-    dtype = geom.r.dtype
-    nd = basis.ndof
-    P, w, P0, w0 = _weights(basis, geom, rth, kind, filt)
-    rowf = filt.row(kind).to(dtype)
-    mat = material if material is not None else torch.ones(geom.n, dtype=dtype,
-                                                           device=geom.r.device)
+    with span("mls.operator"):
+        dtype = geom.r.dtype
+        nd = basis.ndof
+        P, w, P0, w0 = _weights(basis, geom, rth, kind, filt)
+        rowf = filt.row(kind).to(dtype)
+        mat = material if material is not None else torch.ones(geom.n, dtype=dtype,
+                                                               device=geom.r.device)
 
-    # y_i = sum_beta w_beta e_beta^T M_i^{-1} / rth^{|beta|}  -> (NDOF, N)
-    y = None
-    for q, b in enumerate(betas):
-        idx = deriv_index(basis.dim, basis.order, b, basis.interpolation)
-        contrib = torch.stack([Minv[idx, a] for a in range(nd)]) * basis.deriv_scale(b, rth)
-        if beta_weights is not None and beta_weights[q] is not None:
-            contrib = contrib * beta_weights[q][None, :]
-        y = contrib if y is None else y + contrib
+        # y_i = sum_beta w_beta e_beta^T M_i^{-1} / rth^{|beta|}  -> (NDOF, N)
+        y = None
+        for q, b in enumerate(betas):
+            idx = deriv_index(basis.dim, basis.order, b, basis.interpolation)
+            contrib = (torch.stack([Minv[idx, a] for a in range(nd)])
+                       * basis.deriv_scale(b, rth))
+            if beta_weights is not None and beta_weights[q] is not None:
+                contrib = contrib * beta_weights[q][None, :]
+            y = contrib if y is None else y + contrib
 
-    vals = sum(y[a][None, :] * P[a] for a in range(nd)) * w  # (K, N)
-    diag = sum(y[a] * P0[a] for a in range(nd)) * w0 * _has_neighbors(geom)
-    scale = alpha * mat * rowf
-    return ELL(diag=diag * scale, vals=vals * scale[None, :], idx=geom.idx, mask=geom.mask,
-               band=geom.band, slots=geom.slots)
+        vals = sum(y[a][None, :] * P[a] for a in range(nd)) * w  # (K, N)
+        diag = sum(y[a] * P0[a] for a in range(nd)) * w0 * _has_neighbors(geom)
+        scale = alpha * mat * rowf
+        return ELL(diag=diag * scale, vals=vals * scale[None, :], idx=geom.idx,
+                   mask=geom.mask, band=geom.band, slots=geom.slots)
 
 
 # ---------------------------------------------------------------------------

@@ -543,6 +543,8 @@ class ShardedSimulation:
         # 2H dead halo slots
         hist_ext = _per_particle_hist(hist, lambda a: torch.cat(
             [a, torch.zeros(a.shape[:-1] + (2 * H,), dtype=a.dtype, device=dev)], dim=-1))
+        # no amg_rebuild: the sharded ALE Poisson is Jacobi GMRES whatever
+        # cfg.solver.precond says, as in the JAX package
         ext, info = ale.ale_navier_stokes_step(
             ext, geom, pre, hist_ext, cfg, dom, order=order, basis_order=cfg.mls.basis_order,
             group=group, exchange=comm.refresh, ownedf=comm.ownedf)

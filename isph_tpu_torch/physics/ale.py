@@ -23,12 +23,34 @@ Then (in the pair compute):
      velocity (ale-src/functor_ale_incomp_navier_stokes_helmholtz.h:110-150),
      one GMRES per velocity component.
 
-Both solves are Jacobi-preconditioned GMRES with ``cfg.solver``'s tol,
-restart and max_restarts, whatever ``cfg.solver.precond`` says, as in the
-JAX package: they do not go through ``ns_projection``'s solver choice.
-Every matvec is the ``ell_spmv`` kernel on the geometry's slot format.
+Both solves are GMRES with ``cfg.solver``'s tol, restart and
+max_restarts.  The Helmholtz is Jacobi-preconditioned.  The Poisson is
+Jacobi GMRES too, as in the JAX package, unless the caller passes
+``amg_rebuild``: the driver does when ``cfg.solver.precond`` is "amg" (one
+device, the standard variant), and the Poisson then runs the AMG hierarchy
+of ``solvers/amg.py`` under the max-age policy, built once every
+``precond_max_age`` steps and refreshed in between, as the corrected
+backend's Poisson does.  The registry's MLS decks pin
+``precond="jacobi"``.  Every matvec is the ``ell_spmv`` kernel on the
+geometry's slot format.
 The BDF order in effect, min(nprev, bdf_order), is read on the host from
 ``ALEHistory.nprev`` (JAX picks it with ``lax.switch``).
+
+Two departures from the JAX package, on purpose:
+
+- The stored position increments are taken by minimum image, as the
+  upstream's recoverRelative tracks a particle across a periodic face; the
+  JAX package stores x_new - x_old after the wrap, which moves a particle
+  that crossed a face by a box length over gamma on its next step.
+- The AMG path's pressure is the projected system's unique zero-mean
+  solution.  Next to solids the fluid rows do not annihilate the fluid
+  constant (the mass matrix sees the solid neighbors, the Poisson's moments
+  do not), so a solve that projects only the residual, as the Jacobi path
+  and the JAX package do, leaves the direction A^-1 1 free, and each
+  preconditioner's path picks its own component along it.  The V-cycle
+  deflates its output against the null vector (``AMG.apply``), so the AMG
+  path's iterates stay zero-mean over the fluid and that component is
+  fixed.
 """
 
 from __future__ import annotations
@@ -45,6 +67,7 @@ from isph_tpu_torch.ops.corrected import PairFilter
 from isph_tpu_torch.ops.neighbors import PairGeom
 from isph_tpu_torch.physics import shift as shift_mod
 from isph_tpu_torch.physics.ns_projection import zero_mean_pressure
+from isph_tpu_torch.solvers.amg import AMGCache, max_age_apply
 from isph_tpu_torch.solvers.krylov import KrylovResult, gmres
 from isph_tpu_torch.solvers.precond import jacobi
 from isph_tpu_torch.utils import time_bdf
@@ -119,7 +142,11 @@ def ale_advance(
     x_new = torch.where(moving[None, :], state.x + (dt * xdot - acc) / gamma, state.x)
     x_new = domain.wrap(x_new)
 
-    dxprev = time_bdf.shift_history(hist.dxprev, x_new - x_old)
+    # the increment by minimum image: a particle that crossed a periodic
+    # face moved by its step, not by the box
+    step = x_new - x_old
+    step = torch.stack([domain.minimum_image_axis(step[d], d) for d in range(domain.dim)])
+    dxprev = time_bdf.shift_history(hist.dxprev, step)
     hist = dataclasses.replace(hist, dxprev=dxprev)
     return state.replace(x=x_new, v=v_hat), hist
 
@@ -127,13 +154,15 @@ def ale_advance(
 class ALEInfo(NamedTuple):
     poisson: KrylovResult
     helmholtz: KrylovResult  # (D,) iters and relres, one solve per component
+    amg_cache: Optional[AMGCache] = None  # the Poisson's hierarchy, where AMG ran
 
 
-def _gmres(A, b, x0, cfg: SimulationConfig, null_vec=None, *, group=None, exchange=None,
-           ownedf=None) -> KrylovResult:
-    """Jacobi GMRES with the configured tol, restart and max_restarts.
-    Distributed (``exchange`` given), the matvec refreshes the halo of its
-    input and keeps the owned rows, and ``b``, ``x0`` are owned-masked."""
+def _gmres(A, b, x0, cfg: SimulationConfig, null_vec=None, *, M=None, group=None,
+           exchange=None, ownedf=None) -> KrylovResult:
+    """GMRES with the configured tol, restart and max_restarts, preconditioned
+    by ``M`` (Jacobi when None).  Distributed (``exchange`` given), the
+    matvec refreshes the halo of its input and keeps the owned rows, and
+    ``b``, ``x0`` are owned-masked."""
     sc = cfg.solver
     mv = A.matvec
     if exchange is not None:
@@ -141,7 +170,7 @@ def _gmres(A, b, x0, cfg: SimulationConfig, null_vec=None, *, group=None, exchan
             return A.matvec(exchange(v)) * ownedf
 
         b, x0 = b * ownedf, x0 * ownedf
-    return gmres(mv, b, x0, M=jacobi(A), tol=sc.tol, restart=sc.restart,
+    return gmres(mv, b, x0, M=jacobi(A) if M is None else M, tol=sc.tol, restart=sc.restart,
                  max_restarts=sc.max_restarts, null_vec=null_vec, group=group)
 
 
@@ -158,10 +187,20 @@ def ale_navier_stokes_step(
     group=None,
     exchange: Optional[Callable] = None,
     ownedf: Optional[torch.Tensor] = None,
+    amg_cache: Optional[AMGCache] = None,
+    amg_rebuild: Optional[bool] = None,
 ) -> Tuple[ParticleState, ALEInfo]:
     """Steps 1-4 of the ALE scheme on MLS operators, under the named phases
     ``mls_assembly`` (the mass matrix and the predict), ``poisson``,
     ``correct`` and ``helmholtz``.
+
+    The standard Poisson is Jacobi GMRES when ``amg_rebuild`` is None (the
+    JAX package's step).  Given, it runs the AMG hierarchy with the fluid
+    mask for null vector (``solvers/amg.max_age_apply``): built from this
+    step's matrix when ``amg_rebuild`` is true or ``amg_cache`` is None,
+    else ``amg_cache`` with a fresh fine smoother; the hierarchy in use
+    comes back as ``ALEInfo.amg_cache``.  The compact-Poisson variant and
+    a distributed step (``exchange`` given) take no AMG.
 
     Distributed (the reference runs the MLS/ALE pair under the same MPI
     decomposition, mls-src/pair_isph_mls.cpp:553-700): ``exchange`` is the
@@ -209,6 +248,7 @@ def ale_navier_stokes_step(
     comm_kw = dict(group=group, exchange=exchange, ownedf=ownedf)
 
     # --- step 2: Poisson for p --------------------------------------------
+    M = None  # the Poisson's preconditioner apply other than Jacobi
     with named_scope("poisson", dev):
         if cfg.mls.compact_poisson:
             p, pres = _compact_poisson(state, geom, pre, cfg, basis, Minv, vstar, gamma,
@@ -224,7 +264,12 @@ def ale_navier_stokes_step(
             null_vec = None
             if cfg.ns.singular_poisson == SingularPoisson.NULL_SPACE:
                 null_vec = fluid.to(dtype)
-            pres = _gmres(A, b, torch.zeros_like(b), cfg, null_vec, **comm_kw)
+            if amg_rebuild is not None:
+                if exchange is not None:
+                    raise ValueError("the distributed ALE step takes no AMG")
+                M, amg_cache = max_age_apply(A, amg_cache, amg_rebuild, (state.x, domain, rth),
+                                             null_vec)
+            pres = _gmres(A, b, torch.zeros_like(b), cfg, null_vec, M=M, **comm_kw)
             p = zero_mean_pressure(pres.x, state, group=group)
         if exchange is not None:
             p = exchange(p)  # comm Pressure (pair_isph.cpp:1100-1132)
@@ -261,7 +306,8 @@ def ale_navier_stokes_step(
             v_new = exchange(v_new)  # comm Velocity (pair_isph.cpp:1159-1167)
 
     state = state.replace(v=v_new, vstar=vstar, p=p)
-    return state, ALEInfo(poisson=pres, helmholtz=hres)
+    return state, ALEInfo(poisson=pres, helmholtz=hres,
+                          amg_cache=None if M is None else amg_cache)
 
 
 def _compact_poisson(state, geom, pre, cfg, basis, Minv, vstar, gamma, lap_betas, *,

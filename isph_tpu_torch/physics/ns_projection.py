@@ -32,7 +32,7 @@ from isph_tpu_torch.ops import corrected as ops
 from isph_tpu_torch.ops.corrected import ANTISYMMETRIC, SYMMETRIC, Family, PairFilter
 from isph_tpu_torch.ops.ell import ELL
 from isph_tpu_torch.ops.neighbors import PairGeom
-from isph_tpu_torch.solvers.amg import AMGCache, amg_from_cache, build_amg, cache_of
+from isph_tpu_torch.solvers.amg import AMGCache, build_amg, max_age_apply
 from isph_tpu_torch.solvers.ilu import ilu0
 from isph_tpu_torch.solvers.krylov import (KrylovResult, RecycleSpace, cg, gmres,
                                            gmres_recycled, init_recycle, make_null_projector,
@@ -361,18 +361,14 @@ def solve_poisson(
 
 
 def _amg_cached(cfg: SimulationConfig, A: ELL, amg, null_vec, amg_cache, amg_rebuild):
-    """Max-age AMG: rebuild the hierarchy when ``amg_rebuild`` is true (or
-    there is no cache yet), else reuse the cached coarse levels with a
-    fresh fine-level smoother diagonal.  Returns (M or None, cache or
-    None); (None, None) when no cache applies."""
+    """Max-age AMG (``solvers/amg.max_age_apply``): rebuild the hierarchy
+    when ``amg_rebuild`` is true (or there is no cache yet), else reuse the
+    cached coarse levels with a fresh fine-level smoother diagonal.
+    Returns (M or None, cache or None); (None, None) when no cache
+    applies."""
     if amg_rebuild is None or amg is None or cfg.solver.precond != "amg":
         return None, None
-    if amg_rebuild or amg_cache is None:
-        x_pos, domain, cutoff = amg
-        with span("amg.build"):
-            amg_cache = cache_of(build_amg(A, x_pos, domain, cutoff, null_vec=null_vec))
-    with span("amg.refresh"):
-        return amg_from_cache(A, amg_cache, null_vec=null_vec).apply, amg_cache
+    return max_age_apply(A, amg_cache, amg_rebuild, amg, null_vec)
 
 
 def relax_wall_pressure(

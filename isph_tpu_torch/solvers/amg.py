@@ -536,3 +536,18 @@ def amg_from_cache(
         grid_shapes=cache.grid_shapes,
         exchange=exchange, ownedf=owned, group=group, fine_matvec=fine_matvec,
     )
+
+
+def max_age_apply(A: ELL, cache: Optional[AMGCache], rebuild: bool, at: Tuple,
+                  null_vec: Optional[torch.Tensor] = None) -> Tuple[Callable, AMGCache]:
+    """The max-age policy's preconditioner (solver_nox_stratimikos.h precond
+    max-age): the hierarchy of ``A`` built anew at ``at`` = (positions,
+    domain, cutoff) when ``rebuild`` is true or there is no ``cache`` yet,
+    else ``cache``'s coarse levels with a fresh fine-level smoother.
+    Returns (the V-cycle's apply, the cache in use)."""
+    if rebuild or cache is None:
+        x_pos, domain, cutoff = at
+        with span("amg.build"):
+            cache = cache_of(build_amg(A, x_pos, domain, cutoff, null_vec=null_vec))
+    with span("amg.refresh"):
+        return amg_from_cache(A, cache, null_vec=null_vec).apply, cache

@@ -12,6 +12,9 @@ against the JAX package, on the CPU in f64.
   with shift 0.02 and with ``compact_poisson``: each crosses the BDF-order
   ramp (order 1 on step 1, 2 from step 2), with equal iteration counts and
   fields within 1e-9.
+- A particle that crosses a periodic face: the port stores its increment
+  by minimum image and moves it by its step on the next advance, where the
+  JAX package stores the wrapped difference (ROADMAP Queue E).
 - tests/test_decks.py's drag bars through the port at n = 32 (20 steps);
   ``run_until``; ``run_adaptive`` refuses an unprepared ALE state as JAX's
   does.
@@ -144,7 +147,9 @@ def test_cylinder_driver_steps_match_jax(variant):
     jsim, js = jdecks.build_deck(CYL, n=24)
     sim, st = decks.build_deck(CYL, n=24, device="cpu")
     jsim, sim = _variant(jsim, variant), _variant(sim, variant)
-    assert sim.cfg.solver.precond == "amg"  # the ALE solves run Jacobi all the same
+    # the registry pins Jacobi, which JAX's ALE solves run whatever its
+    # precond ("amg") says
+    assert sim.cfg.solver.precond == "jacobi" and jsim.cfg.solver.precond == "amg"
     js, st = jsim.prepare(js), sim.prepare(st)
     _hist_eq(st.ale_hist, js.ale_hist, 0.0)
     jstep = jax.jit(jsim.step_fn())
@@ -159,6 +164,42 @@ def test_cylinder_driver_steps_match_jax(variant):
             _eq(getattr(st, f), getattr(js, f), 1e-9)
         _hist_eq(st.ale_hist, js.ale_hist)
         _eq(aux.status.vmax, jaux.status.vmax, 1e-12)
+
+
+def test_increment_across_a_periodic_face_is_the_step():
+    """Two advances of the n = 12 cylinder with every fluid particle at u =
+    0.6 dx / dt: the last column crosses the face x = 1 on the first.  The
+    port stores each increment by minimum image (the upstream's
+    recoverRelative), so the BDF2 advance moves every fluid particle by 0.6
+    dx again; the JAX package stores x_new - x_old after the wrap, a box
+    length off for the particles that crossed."""
+    n, order = 12, 2
+    sim, st = decks.build_deck(CYL, n=n, device="cpu")
+    jsim, js = jdecks.build_deck(CYL, n=n)
+    dx, dt = 1.0 / n, sim.cfg.dt
+    fluid = st.is_fluid & st.valid
+    v = torch.zeros_like(st.v)
+    v[0] = fluid.to(st.dtype) * (0.6 * dx / dt)
+    st = st.replace(v=v)
+    js = js.replace(v=jnp.asarray(v.numpy()))
+    h = ale.ALEHistory.init(st, order, dt)
+    jh = jale.ALEHistory.init(js, order, dt)
+    x0 = st.x.clone()
+    st, h = ale.ale_advance(st, h, sim.cfg, sim.domain, order)
+    js, jh = jale.ale_advance(js, jh, jsim.cfg, jsim.domain, order)
+    crossed = fluid & (st.x[0] < x0[0])
+    assert int(crossed.sum()) == n  # the last column, every row fluid there
+    step = fluid.to(st.dtype) * (0.6 * dx)
+    # one rounding of x + dt u and of the wrap: 1e-15 of the box
+    torch.testing.assert_close(h.dxprev[0, 0], step, rtol=0, atol=1e-15)
+    jdx = torch.from_numpy(np.array(jh.dxprev[0, 0]))
+    torch.testing.assert_close(jdx[crossed], step[crossed] - 1.0, rtol=0, atol=1e-15)
+    x1 = st.x.clone()
+    st, h = ale.ale_advance(st, h, sim.cfg, sim.domain, order)
+    moved = sim.domain.minimum_image_axis(st.x[0] - x1[0], 0)
+    # gamma = 1.5, alpha = (2, -0.5): (dt u + 0.5 (0.6 dx)) / 1.5 = 0.6 dx
+    torch.testing.assert_close(moved, step, rtol=0, atol=1e-15)
+    assert torch.equal(st.x[1], x0[1])
 
 
 def test_cylinder_drag_bars():

@@ -241,7 +241,13 @@ def test_registry_deck_matches_jax(name):
     assert len(out) == len(jout)
     (jsim, js), (sim, st) = jout[:2], out[:2]
     psim, pst = _port(jsim, js)
-    assert sim.cfg == psim.cfg and sim.domain == psim.domain
+    want = psim.cfg
+    if sim.cfg.backend == "mls_ale":
+        # the port's MLS decks pin precond "jacobi", which the JAX package's
+        # ALE solves run whatever its precond ("amg") says
+        assert sim.cfg.solver.precond == "jacobi" and psim.cfg.solver.precond == "amg"
+        want = want.replace(solver=dataclasses.replace(want.solver, precond="jacobi"))
+    assert sim.cfg == want and sim.domain == psim.domain
     assert (sim.modifier is None) == (jsim.modifier is None)
     assert (sim.extra_force is None) == (jsim.extra_force is None)
     jfields = _fields(js)
