@@ -307,7 +307,19 @@ Phases (each raises on failure; the script then exits non-zero):
    calls) beside its bound (the pair arrays and idx read once, the fields
    written, at the HBM rate) and the plain version, with each one's peak
    memory.  The kernel is also counted, and required to launch twice a
-   step, on phases 4, 7 and 9.
+   step, on phases 4, 7 and 9;
+33. (run after phase 32) the AMG coarse-cycle kernel (csrc/amg_coarse.cu)
+   at the cells' hierarchies below the fine level (_lattice_amg): the 1M
+   cell's 113^2 / 37^2 / 12^2 in f32 and the cylinder's 56^2 / 18^2 in
+   f64, two sweeps before and after as the cells smooth: the same bits on
+   two calls (one launch each) and at clusters of 1, 2, 4 and 8 blocks,
+   within 1e-5 (f32) and 1e-12 (f64) of the largest value from the plain
+   version and from the roll chain (AMG._descend); timed (median of 30
+   warm calls, and at each cluster size) beside its bound (the pack read,
+   b read and the correction written once at the HBM rate), the plain
+   version and the roll chain, with their host enqueue times.  The kernel
+   is also counted on phases 7 (required to launch) and 9 (required not
+   to: 64^3's only coarse level is the dense one).
 
 Each phase's wall time is logged on a line of its own ("phase N (...): s"),
 and the whole run's before the last lines.  The configurations' makers
@@ -328,7 +340,9 @@ launches_bench; comp_dots with its launches on phases 4, 5, 7, 9, 11,
 14, 16, 19c, 24, 26 and 28 and phase 29's other shapes; the two AMG
 transfer kernels at the 1M cell's level 0 with their launches on phases
 7 and 9 and phase 30's other shapes; the neighbor search at 64^3 and 1M
-with its launches on phases 4, 7 and 9),
+with its launches on phases 4, 7 and 9; the correction tensors; the AMG
+coarse cycle at the 1M hierarchy with its launches on phases 7 and 9 and
+the cylinder's),
 and the result line
 {"ok": true, "device": {...}}.  Without a CUDA device it prints no result
 and exits non-zero.
@@ -877,6 +891,104 @@ def phase_agg_transfer(dev, flush):
     return rows
 
 
+def _lattice_amg(side, dim, dtype, dev, *, npre=2, npost=2, seed=0):
+    """An AMG hierarchy whose levels >= 1 are those of a cell's: built on
+    the 3^D-stencil operator of a periodic side^dim lattice (off-diagonals
+    0.5-1.5 drawn from ``seed``, the diagonal -1.05 times their row sum),
+    with aggregates of one lattice cell (coarsen 1), so that level 1 is a
+    side^dim grid and the levels below it are make_coarse_grids's.  Sides
+    113 (1M: 113^2 / 37^2 / 12^2), 56 (the cylinder: 56^2 / 18^2), 63
+    (63^2 / 21^2 / 7^2) and 9 (9^3 / 3^3)."""
+    from isph_tpu_torch.ops.ell import ELL
+    from isph_tpu_torch.solvers import amg
+    from isph_tpu_torch.state import Domain
+
+    length = 2 * math.pi
+    h = length / side
+    grid = amg.CoarseGrid((side,) * dim, (h,) * dim, (True,) * dim, (0.0,) * dim)
+    idx, mask = amg._grid_ell_structure(grid, dev)
+    g = torch.Generator().manual_seed(seed)
+    vals = (0.5 + torch.rand(idx.shape, generator=g, dtype=torch.float64)).to(dev, dtype)
+    maskf = mask.to(dtype)
+    vals = vals * maskf
+    A = ELL(diag=-1.05 * vals.sum(dim=0), vals=vals, idx=idx, mask=maskf)
+    cells = torch.arange(side, dtype=torch.float64, device=dev)
+    x = torch.stack([c.reshape(-1) for c in torch.meshgrid(
+        *([(cells + 0.5) * h] * dim), indexing="ij")]).to(dtype)
+    domain = Domain(lo=(0.0,) * dim, hi=(length,) * dim, periodic=(True,) * dim)
+    return amg.build_amg(A, x, domain, h * (1 - 1e-9), coarsen=1, npre=npre, npost=npost)
+
+
+# phase 33's hierarchies (_lattice_amg sides), the main row first, and the
+# kernel's tolerance against the plain version and the roll chain
+AMG_COARSE_CASES = (("1M", 113, 2, torch.float32), ("cylinder", 56, 2, torch.float64))
+AMG_COARSE_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def phase_amg_coarse(dev):
+    """Phase 33: the AMG coarse-cycle kernel at the cells' hierarchies
+    (module docstring)."""
+    from isph_tpu_torch import _build
+    from isph_tpu_torch.ops import amg_coarse_cuda as ac
+    from isph_tpu_torch.ops.spmv_cuda import _SPMV_DTYPES, _stream
+
+    rows = {}
+    gen = torch.Generator(device=dev).manual_seed(33)
+    for label, side, dim, dtype in AMG_COARSE_CASES:
+        M = _lattice_amg(side, dim, dtype, dev)  # npre = npost = 2, the cells' smoothing
+        pack, npre, npost = M.coarse_pack, M.npre, M.npost
+        n1 = M.levels[1].n
+        b = torch.randn(n1, generator=gen, device=dev, dtype=torch.float64).to(dtype)
+        ac.amg_coarse_cycle.launches = 0
+        got, again = (ac.amg_coarse_cycle(pack, b, npre, npost) for _ in range(2))
+        torch.cuda.synchronize()
+        if ac.amg_coarse_cycle.launches != 2 or not _bitwise_equal(got, again):
+            raise RuntimeError(f"amg_coarse_cycle: not one launch a call with the same bits "
+                               f"at {label}")
+        plain = ac.amg_coarse_cycle_plain(pack, b, npre, npost)
+        rolls = M._descend(1, b)
+        err = max(float((got - ref).abs().max() / ref.abs().max()) for ref in (plain, rolls))
+        if err > AMG_COARSE_RTOL[dtype]:
+            raise RuntimeError(f"amg_coarse_cycle: {err:.3e} of the largest value from the "
+                               f"plain version or the roll chain at {label}")
+        item = b.element_size()
+        nbytes = pack.vals.nbytes + pack.ints.nbytes + 2 * n1 * item
+        bound, by = _bound(nbytes)
+        tk, hk = _median_ms(lambda: ac.amg_coarse_cycle(pack, b, npre, npost))
+        tp, hp = _median_ms(lambda: ac.amg_coarse_cycle_plain(pack, b, npre, npost), reps=10)
+        tr, hr = _median_ms(lambda: M._descend(1, b), reps=10)
+        lib = _build.load_library()
+        layout = ac._c_layout(pack.layout)
+        ws = torch.empty(pack.layout[6], dtype=dtype, device=dev)
+        by_blocks = {}
+        for blocks in (1, 2, 4, 8):
+            def call(blocks=blocks):
+                rc = lib.isph_amg_coarse_cycle(
+                    _SPMV_DTYPES[dtype], pack.vals.data_ptr(), pack.ints.data_ptr(),
+                    b.data_ptr(), ws.data_ptr(), layout, npre, npost, blocks, dev.index,
+                    _stream(b))
+                if rc != 0:
+                    raise RuntimeError(f"amg_coarse_cycle with {blocks} blocks: cudaError {rc}")
+            call()
+            torch.cuda.synchronize()
+            if not _bitwise_equal(ws[:n1], got):
+                raise RuntimeError(f"amg_coarse_cycle: {blocks} blocks give other bits at "
+                                   f"{label}")
+            by_blocks[blocks] = _median_ms(call)[0]
+        rows[label] = dict(ms=tk, plain_ms=tp, library_ms=None, bound_ms=bound, bound_by=by,
+                           err=err, host_us=hk, rolls_ms=tr, rolls_host_us=hr,
+                           plain_host_us=hp, blocks=ac.coarse_blocks(n1),
+                           ms_by_blocks=by_blocks)
+        _log(f"amg_coarse: {label} (levels {M.grid_shapes}, {dtype}, npre {npre} npost "
+             f"{npost}, {ac.coarse_blocks(n1)} blocks): same bits on two calls and at 1-8 "
+             f"blocks, {err:.2e} of the largest value from the plain version and the roll "
+             f"chain; kernel={tk:.4f} ms (host enqueue {hk:.1f} us), bound={bound:.4f} ms "
+             f"({nbytes / 1e6:.3f} MB, {by}), share={bound / tk:.3f}; by blocks "
+             f"{ {k: round(v, 4) for k, v in by_blocks.items()} } ms; plain={tp:.4f} ms "
+             f"(host {hp:.1f} us), roll chain={tr:.4f} ms (host {hr:.1f} us)")
+    return rows
+
+
 def _search_cases(dev):
     """(label, x, valid, domain, cutoff, K, cell capacity, subdiv, stream
     window) of phase 31: the benchmark cells' lists, then the paths the
@@ -1306,6 +1418,7 @@ def phase_large_n(dev):
     """Three TGV-1024^2 f32 steps through Simulation.run with AMG on the
     streaming list."""
     from isph_tpu_torch.ops import agg_transfer_cuda as at
+    from isph_tpu_torch.ops import amg_coarse_cuda as acc
     from isph_tpu_torch.ops import comp_dot_cuda as cd
     from isph_tpu_torch.ops import corrected_pre_cuda as cpc
     from isph_tpu_torch.ops import neighbor_search_cuda as nsc
@@ -1316,14 +1429,15 @@ def phase_large_n(dev):
     state, aux, launches = _run_steps(
         "large", sim, state,
         (sc.ell_spmv, sc.take, sc.ell_spmv_band, sc.take_band, cd.comp_dots, at.agg_restrict,
-         at.agg_prolong_add, nsc.neighbor_search, cpc.corrected_pre),
+         at.agg_prolong_add, nsc.neighbor_search, cpc.corrected_pre, acc.amg_coarse_cycle),
         each=_record_iters(iters))
     if min(launches["ell_spmv_band"], launches["take_band"], launches["comp_dots"],
            launches["agg_restrict"], launches["agg_prolong_add"],
-           launches["neighbor_search"]) <= 0 or _not_twice_a_step(launches):
-        raise RuntimeError(f"a band kernel, comp_dots, an AMG transfer kernel or the neighbor "
-                           f"search never launched on the large-N path, or the correction "
-                           f"tensors' not twice a step: {launches}")
+           launches["neighbor_search"], launches["amg_coarse_cycle"]) <= 0 or (
+               _not_twice_a_step(launches)):
+        raise RuntimeError(f"a band kernel, comp_dots, an AMG transfer kernel, the neighbor "
+                           f"search or the AMG coarse cycle never launched on the large-N "
+                           f"path, or the correction tensors' not twice a step: {launches}")
     _check_vortex("large", aux, (2 * math.pi) ** 2)
     return launches, dict(ke=float(aux.status.kinetic_energy), vmax=float(aux.status.vmax),
                           nfluid=float(aux.status.nfluid), iters=iters)
@@ -1412,6 +1526,7 @@ def phase_3d_kernels(dev, flush):
 def phase_3d_path(dev):
     """Three TGV-64^3 f32 Quintic steps through Simulation.run with AMG."""
     from isph_tpu_torch.ops import agg_transfer_cuda as at
+    from isph_tpu_torch.ops import amg_coarse_cuda as acc
     from isph_tpu_torch.ops import comp_dot_cuda as cd
     from isph_tpu_torch.ops import corrected_pre_cuda as cpc
     from isph_tpu_torch.ops import neighbor_search_cuda as nsc
@@ -1435,10 +1550,13 @@ def phase_3d_path(dev):
     state, aux, launches = _run_steps("3d path", sim, state,
                                       (sc.ell_spmv, sc.take, cd.comp_dots, at.agg_restrict,
                                        at.agg_prolong_add, nsc.neighbor_search,
-                                       cpc.corrected_pre))
-    if min(launches.values()) <= 0 or _not_twice_a_step(launches):
-        raise RuntimeError(f"a kernel of the 3-D path never launched, or the correction "
-                           f"tensors' not twice a step: {launches}")
+                                       cpc.corrected_pre, acc.amg_coarse_cycle))
+    coarse = launches.pop("amg_coarse_cycle")  # 4^3 is the only coarse level: dense
+    if min(launches.values()) <= 0 or _not_twice_a_step(launches) or coarse != 0:
+        raise RuntimeError(f"a kernel of the 3-D path never launched, the correction "
+                           f"tensors' not twice a step, or the AMG coarse cycle launched "
+                           f"({coarse}) on a hierarchy without a stencil level: {launches}")
+    launches["amg_coarse_cycle"] = coarse
     _check_vortex("3d path", aux, (2 * math.pi) ** 3)
     _, aux_a = sim.step(state)
     _, aux_j = _with_solver(sim, precond="jacobi").step(state)
@@ -3271,6 +3389,9 @@ def main() -> int:
     kpre = _phase("32 (correction tensors)", phase_corrected_pre, dev)
     torch.cuda.empty_cache()
 
+    # phase 33: the AMG coarse-cycle kernel at the cells' hierarchies
+    kac = _phase("33 (AMG coarse cycle)", phase_amg_coarse, dev)
+
     # phase 4: main path; phase 5: golden
     launches, tgv_sim, tgv_state, tgv_t, main_iters = _phase("4 (main path)",
                                                              phase_main_path, dev)
@@ -3469,6 +3590,14 @@ def main() -> int:
         **times(kpre["rows"]["64^3 Quintic f32"]),
         **{f"at_{k.replace(' ', '_').replace('^', '')}": times(r)
            for k, r in kpre["rows"].items() if k != "64^3 Quintic f32"}))
+    kernels.append(dict(
+        name="amg_coarse_cycle", route="cuda", source="isph_tpu_torch/csrc/amg_coarse.cu",
+        replaces="none (XLA's roll stencils, isph_tpu/solvers/amg.py:339)",
+        launches=launches_large["amg_coarse_cycle"],
+        launches_3d=launches_3d["amg_coarse_cycle"],
+        max_abs_err=max(r["err"] for r in kac.values()),
+        **times(kac[AMG_COARSE_CASES[0][0]]),
+        **{f"at_{k}": times(r) for k, r in kac.items() if k != AMG_COARSE_CASES[0][0]}))
     print(_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

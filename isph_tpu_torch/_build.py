@@ -154,6 +154,9 @@ def load(path: Path) -> ctypes.CDLL:
     lib.isph_pre_volume.restype = i32
     lib.isph_pre_tensors.argtypes = [i32, i32] + [vp] * 13 + [i64, i32, i32, vp]
     lib.isph_pre_tensors.restype = i32
+    lib.isph_amg_coarse_cycle.argtypes = [i32, vp, vp, vp, vp, ctypes.POINTER(i64), i32, i32,
+                                          i32, i32, vp]
+    lib.isph_amg_coarse_cycle.restype = i32
     lib.isph_smem_optin.argtypes = [i32]
     lib.isph_smem_optin.restype = i32
     return lib

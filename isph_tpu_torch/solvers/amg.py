@@ -25,7 +25,13 @@ restriction to round-off.  No one-hot matrix exists in the port's
 hierarchy; ``interop`` forms JAX's on the host at export.  The segment
 sums of the transfer-free Galerkin path are ``index_add_``.
 Fine-level matvecs are ``ELL.matvec`` and so go through the SpMV kernels;
-coarse levels carry no band spec.
+coarse levels carry no band spec.  On the card everything below the fine
+level (each stencil level's smoothing, residual and transfers, and the
+coarsest level's dense product) is one launch of a hand-written kernel
+(``ops/amg_coarse_cuda.py``), which reads the hierarchy's
+:class:`~isph_tpu_torch.ops.amg_coarse_cuda.CoarsePack`, built once a
+build; on the CPU those levels run the roll-stencil recursion below, the
+JAX package's.
 
 Distributed (the JAX package's hooks of ``build_amg``, ``amg_from_cache``
 and ``AMG``): the fine level is the rank's slab on the extended axis, its
@@ -48,6 +54,7 @@ import numpy as np
 import torch
 
 from isph_tpu_torch.ops.agg_transfer_cuda import agg_prolong_add, agg_restrict
+from isph_tpu_torch.ops.amg_coarse_cuda import CoarsePack, amg_coarse_cycle, coarse_pack
 from isph_tpu_torch.ops.ell import ELL
 from isph_tpu_torch.state import Domain
 from isph_tpu_torch.utils.profiling import span
@@ -325,6 +332,7 @@ class AMG:
     coarse_inv: torch.Tensor  # dense inverse of the coarsest operator
     grid_shapes: tuple  # grid shapes of levels >= 1: their matvecs are roll stencils
     null_vec: Optional[torch.Tensor] = None  # normalized fine-level null vector
+    coarse_pack: Optional[CoarsePack] = None  # levels >= 1 for the card's kernel (a stencil level)
     npre: int = 2
     npost: int = 2
     # distributed hooks: the fine level is slab-local (refreshed by
@@ -367,6 +375,18 @@ class AMG:
         return x
 
     def _cycle(self, l: int, b):
+        """The V-cycle's correction of level l from its right-hand side b.
+        On the card, level 1 of a hierarchy with a stencil level runs the
+        rest of the cycle in one launch (:func:`amg_coarse_cycle`)."""
+        if l == 1 and b.is_cuda and len(self.levels) >= 3:
+            with span("amg.coarse"):
+                return amg_coarse_cycle(self.coarse_pack, b, self.npre, self.npost)
+        return self._descend(l, b)
+
+    def _descend(self, l: int, b):
+        """:meth:`_cycle` with level l's own operations: smoothing,
+        residual, restriction, the next level's cycle, prolongation,
+        smoothing; the coarsest level's dense product."""
         A = self.levels[l]
         if l == len(self.levels) - 1:
             return self.coarse_inv @ b
@@ -479,6 +499,7 @@ def build_amg(
     return AMG(levels=levels, dinvs=dinvs, transfers=transfers,
                coarse_inv=coarse_inv, null_vec=_normalized(null_vec, group), npre=npre,
                npost=npost, grid_shapes=tuple(tuple(g.ncell) for g in grids),
+               coarse_pack=coarse_pack(levels[1:], dinvs[1:], transfers[1:], coarse_inv),
                exchange=exchange, ownedf=owned, group=group, fine_matvec=fine_matvec)
 
 
@@ -499,6 +520,13 @@ class AMGCache:
     coarse_dinvs: tuple  # l1-Jacobi inverse diagonals for levels >= 1
     coarse_inv: torch.Tensor  # dense inverse of the coarsest operator
     grid_shapes: tuple  # coarse grid shapes
+    coarse_pack: Optional[CoarsePack] = None  # the levels as the card's kernel reads them
+
+    def __post_init__(self):
+        # a cache taken over from the JAX package comes without its pack
+        if self.coarse_pack is None:
+            self.coarse_pack = coarse_pack(self.coarse_levels, self.coarse_dinvs,
+                                           self.transfers[1:], self.coarse_inv)
 
 
 def cache_of(amg: AMG) -> AMGCache:
@@ -508,6 +536,7 @@ def cache_of(amg: AMG) -> AMGCache:
         coarse_dinvs=tuple(amg.dinvs[1:]),
         coarse_inv=amg.coarse_inv,
         grid_shapes=amg.grid_shapes,
+        coarse_pack=amg.coarse_pack,
     )
 
 
@@ -525,15 +554,15 @@ def amg_from_cache(
     fine_matvec: Optional[Callable] = None,
 ) -> AMG:
     """A V-cycle from the current fine matrix and a cached hierarchy
-    (fresh fine l1-Jacobi diagonal; everything else reused), with the
-    distributed hooks of :func:`build_amg`."""
+    (fresh fine l1-Jacobi diagonal; everything else, the coarse pack too,
+    reused), with the distributed hooks of :func:`build_amg`."""
     return AMG(
         levels=[A, *cache.coarse_levels],
         dinvs=[_l1_jacobi(A, omega), *cache.coarse_dinvs],
         transfers=list(cache.transfers),
         coarse_inv=cache.coarse_inv,
         null_vec=_normalized(null_vec, group), npre=npre, npost=npost,
-        grid_shapes=cache.grid_shapes,
+        grid_shapes=cache.grid_shapes, coarse_pack=cache.coarse_pack,
         exchange=exchange, ownedf=owned, group=group, fine_matvec=fine_matvec,
     )
 

@@ -26,6 +26,7 @@ import torch
 from isph_tpu_torch import _build
 from isph_tpu_torch.io.checkpoint import tensor_items
 from isph_tpu_torch.ops import agg_transfer_cuda as at
+from isph_tpu_torch.ops import amg_coarse_cuda as acc
 from isph_tpu_torch.solvers import amg
 
 torch.set_num_threads(1)  # tier-1 runs pytest with several workers
@@ -224,12 +225,14 @@ def test_transfer_kernels_on_the_card(dtype):
 @pytest.mark.cuda
 def test_amg_step_goes_through_the_transfer_kernels(monkeypatch):
     """A TGV-256 f32 AMG step on the card (three levels: 784 and 81
-    aggregates): every V-cycle launches the two kernels once a level, each
-    build restricts its Galerkin rows once a level, and under the profiler
-    the device ops inside the ``amg.transfer`` spans are those two kernels
-    alone.  No
-    tensor of the cached hierarchy holds more than max(N, 400^2) entries
-    (the coarsest inverse is at most 400 x 400): no one-hot (nc, N)."""
+    aggregates): every V-cycle launches the two kernels once, at the fine
+    level (the levels below it are one launch of the coarse-cycle kernel,
+    ``ops/amg_coarse_cuda.py``), each build restricts its Galerkin rows
+    once a level, and under the profiler the device ops inside the
+    ``amg.transfer`` spans are those two kernels alone, and inside the
+    ``amg.coarse`` spans the coarse-cycle kernel alone.  No tensor of the
+    cached hierarchy holds more than max(N, 400^2) entries (the coarsest
+    inverse is at most 400 x 400): no one-hot (nc, N)."""
     from torch.profiler import ProfilerActivity, profile
 
     from isph_tpu_torch.models import tgv
@@ -253,25 +256,35 @@ def test_amg_step_goes_through_the_transfer_kernels(monkeypatch):
     monkeypatch.setattr(amg.AMG, "apply", counted)
     monkeypatch.setattr(amg, "galerkin_coarse", counted_galerkin)
     at.agg_restrict.launches = at.agg_prolong_add.launches = 0
+    acc.amg_coarse_cycle.launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         st1, _ = sim.run(st, 1)
         torch.cuda.synchronize()
     levels = len(st1.amg_cache.transfers)
     assert levels == 2 and set(cycles) == {levels + 1}
     assert built and all(built) and len(built) % levels == 0
-    assert at.agg_prolong_add.launches == levels * len(cycles)
-    assert at.agg_restrict.launches == levels * len(cycles) + len(built)
+    assert at.agg_prolong_add.launches == len(cycles)
+    assert at.agg_restrict.launches == len(cycles) + len(built)
+    assert acc.amg_coarse_cycle.launches == len(cycles)
     events = list(prof.profiler.kineto_results.events())
-    spans = [(e.start_ns(), e.start_ns() + e.duration_ns()) for e in events
-             if e.device_type() != torch.autograd.DeviceType.CUDA and e.name() == "amg.transfer"]
-    assert len(spans) == 2 * levels * len(cycles)
-    launched = {e.correlation_id() for e in events
-                if e.name().startswith(("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset"))
-                and any(s <= e.start_ns() < t for s, t in spans)}
-    names = [e.name() for e in events if e.device_type() == torch.autograd.DeviceType.CUDA
-             and not e.is_user_annotation() and e.correlation_id() in launched]
-    assert len(names) == 2 * levels * len(cycles)
+
+    def launched_in(name):
+        spans = [(e.start_ns(), e.start_ns() + e.duration_ns()) for e in events
+                 if e.device_type() != torch.autograd.DeviceType.CUDA and e.name() == name]
+        launched = {e.correlation_id() for e in events
+                    if e.name().startswith(("cudaLaunch", "cuLaunch", "cudaMemcpy",
+                                            "cudaMemset"))
+                    and any(s <= e.start_ns() < t for s, t in spans)}
+        return len(spans), [e.name() for e in events
+                            if e.device_type() == torch.autograd.DeviceType.CUDA
+                            and not e.is_user_annotation() and e.correlation_id() in launched]
+
+    spans, names = launched_in("amg.transfer")
+    assert spans == len(names) == 2 * len(cycles)
     assert all("agg_restrict_kernel" in m or "agg_prolong_add_kernel" in m for m in names)
+    spans, names = launched_in("amg.coarse")
+    assert spans == len(names) == len(cycles)
+    assert all("amg_coarse_kernel" in m for m in names)
     n = st1.x.shape[1]
     sizes = {k: t.numel() for k, t in tensor_items("amg_cache", st1.amg_cache)}
     assert max(sizes.values()) <= max(n, 400 ** 2), sizes
