@@ -17,6 +17,15 @@ A deck module of ``benchmark/decks/`` is loaded by file path
 :func:`build`, :func:`held`, :func:`start_gap`, :func:`judge` and
 :func:`describe`.  It imports nothing of the port at module level: it is
 loaded before the harness has checked for a card.
+
+Its rank form (:data:`RANKS`; a cell of more than one chip,
+``benchmark/ranks.py``): with ``group=`` (the port's ``parallel.mesh.Group``)
+:func:`build` cuts the same state into slabs along x (``partition_state``,
+``choose_n_loc``, ``slab``) and returns the port's ``ShardedSimulation``
+and this rank's slab; :func:`held` adds the slab's ``valid`` mask and
+:func:`start_gap` reads the rank's particles at their lattice points; with
+``ranks=True`` :func:`judge` takes each checked step as every rank's
+pieces in rank order.  Without them every function is the one-card deck's.
 """
 
 from __future__ import annotations
@@ -32,6 +41,9 @@ from benchmark import program, reference
 # the step's named phases (``utils/profiling.named_scope``) whose ranges a
 # traced cycle keeps
 PHASES = ("neighbors", "geometry", "compute_pre", "helmholtz", "poisson", "correct", "advance")
+# the deck has a rank form (``build``, ``held`` and ``start_gap`` take
+# ``group=``, ``judge`` takes ``ranks=True``)
+RANKS = True
 
 
 @dataclass
@@ -71,10 +83,11 @@ def make_inputs(config: dict, cell: dict, seed: int, device) -> Inputs:
                   box=box, dx=dx)
 
 
-def build(config: dict, cell: dict, inputs: Inputs, device, start_step: int):
+def build(config: dict, cell: dict, inputs: Inputs, device, start_step: int, group=None):
     """(Simulation, ParticleState) of the cell through the port's own entry
     points (``make_state``, ``SimulationConfig``, ``Simulation``), its step
-    counter at ``start_step``."""
+    counter at ``start_step``; with ``group``, (ShardedSimulation, this
+    rank's slab) of the same (:func:`_slabs`)."""
     from isph_tpu_torch.config import (KernelConfig, KernelType, NavierStokesConfig,
                                        NeighborConfig, SimulationConfig, SingularPoisson,
                                        SolverConfig)
@@ -115,19 +128,81 @@ def build(config: dict, cell: dict, inputs: Inputs, device, start_step: int):
                                 stream_subcap=cell["stream_subcap"]),
     )
     domain = Domain(lo=(0.0,) * dim, hi=(inputs.box,) * dim, periodic=(True,) * dim)
-    return Simulation(cfg=cfg, domain=domain), state
+    if group is None:
+        return Simulation(cfg=cfg, domain=domain), state
+    return _slabs(config, cell, Simulation(cfg=cfg, domain=domain), state, group)
 
 
-def held(state):
+def _slabs(config: dict, cell: dict, sim, state, group):
+    """(ShardedSimulation, this rank's slab) of the global ``state``, in
+    slabs along x: ``n_loc`` from the port's ``choose_n_loc`` (its 25%
+    headroom), the halo the fullest slab face's cut layer with 25% slack
+    (at most n_loc), and the migration cap a face's lattice plane, each
+    rounded up to the pad multiple.  A step moves a particle by under a
+    spacing (Umax dt = 0.15 dx), so those that cross a face in one step lie
+    within one lattice plane, and they cross together: a plane reaches a
+    face whole (at 96^3, ~1,525 one way in one step, past a cap of a plane
+    times Umax dt / dx).  The AMG cache on: each cycle holds one rebuild."""
+    from isph_tpu_torch.parallel.sharded import (ShardedSimulation, choose_n_loc,
+                                                 partition_state, slab)
+
+    dom, cfg, pad = sim.domain, sim.cfg, config["pad_multiple"]
+    up = lambda v: -(-int(math.ceil(v)) // pad) * pad  # noqa: E731
+    n_loc = choose_n_loc(state, dom, group.size, multiple=pad)
+    slab_w = dom.length[0] / group.size
+    x0 = dom.wrap(state.x)[0][state.valid] - dom.lo[0]
+    s = torch.clamp(torch.floor(x0 / slab_w).long(), 0, group.size - 1)
+    u = x0 - s * slab_w  # the offset into its own slab
+    layer = max(int(torch.bincount(s[near], minlength=group.size).max())
+                for near in (u < cfg.cut, u >= slab_w - cfg.cut))
+    face = cell["lattice_n"] ** (cfg.dim - 1)
+    if config["umax"] * config["dt_over_dx"] >= 1.0:
+        raise ValueError("a step moves a particle by a spacing or more: the migration cap "
+                         "of one lattice plane does not hold")
+    ssim = ShardedSimulation(sim=sim, group=group, n_loc=n_loc, halo=min(up(1.25 * layer), n_loc),
+                             migrate_cap=min(up(face), n_loc // 2), amg_cache_enabled=True)
+    part = slab(partition_state(state, dom, group.size, n_loc), group.rank, n_loc)
+    return ssim, ssim.prepare(part)
+
+
+def held(state, group=None):
     """What a run keeps of a state for :func:`judge`: references to its
     positions, velocity and pressure (no copy, no device work in the
-    window), all that the reference reads of a step's start."""
+    window), all that the reference reads of a step's start; with
+    ``group``, of this rank's slab, with its ``valid`` mask."""
+    if group is not None:
+        return state.x, state.v, state.p, state.valid
     return state.x, state.v, state.p
 
 
-def start_gap(state, inputs: Inputs) -> float:
+def _lattice_ids(x: torch.Tensor, dx: float, n_side: int) -> torch.Tensor:
+    """The lattice point of the inputs that each (N, D) position lies at
+    (the seed moves a point by at most a hundredth of a spacing), as its
+    index in the inputs' order."""
+    c = torch.clamp(torch.floor(x.double() / dx).long(), 0, n_side - 1)
+    dim = x.shape[1]
+    return sum(c[:, d] * n_side ** (dim - 1 - d) for d in range(dim))
+
+
+def start_gap(state, inputs: Inputs, group=None) -> float:
     """Widest gap between the built state and the inputs (0: the program
-    starts from exactly the inputs, in its own precision)."""
+    starts from exactly the inputs, in its own precision).  With ``group``,
+    of this rank's slab: each valid particle against the input at its
+    lattice point, and infinite unless every input sits on exactly one
+    rank (one all-reduce of a count a lattice point)."""
+    if group is not None:
+        n = inputs.x.shape[0]
+        n_side = round(n ** (1.0 / inputs.x.shape[1]))
+        keep = state.valid
+        x, v, p = state.x[:, keep].T, state.v[:, keep].T, state.p[keep]
+        ids = _lattice_ids(x, inputs.dx, n_side).to(inputs.x.device)
+        counts = torch.bincount(ids, minlength=n).to(torch.int32)
+        if int(group.psum(counts.to(state.device)).ne(1).sum()) > 0:
+            return math.inf
+        xin, vin = inputs.x[ids].to(state.dtype), inputs.v[ids].to(state.dtype)
+        return max(float((x.double() - xin.double().to(x.device)).abs().max()),
+                   float((v.double() - vin.double().to(v.device)).abs().max()),
+                   float(p.abs().max()))
     n = inputs.x.shape[0]
     return max(float((state.x[:, :n].T.double() - inputs.x.to(state.dtype).double())
                      .abs().max()),
@@ -146,14 +221,52 @@ def _gap(a, b, scale: float) -> float:
     return float((a - b).abs().max()) / scale
 
 
+def _gathered(pieces, n: int, device):
+    """(D, N), (D, N), (N,) float64 on ``device``: x, v and p of the valid
+    slots of every rank's :func:`held` piece, in rank order; None unless
+    they hold exactly ``n`` particles."""
+    keep = [valid.to(device) for _, _, _, valid in pieces]
+    if sum(int(k.sum()) for k in keep) != n:
+        return None
+    return tuple(torch.cat([f.to(device)[..., k].double() for f, k in zip(fields, keep)], -1)
+                 for fields in zip(*[piece[:3] for piece in pieces]))
+
+
+def _paired(after, ref_x: torch.Tensor, box: float, dx: float, log):
+    """The ranks' particles after a step, reordered to the reference's
+    (the order of the step's start): each is paired with the nearest of
+    the reference's advanced positions within one spacing (the program's
+    and the reference's lie far closer than the particles to each other).
+    None unless every particle is paired and no two with one."""
+    if after is None:
+        log("after the step the ranks hold another number of particles")
+        return None
+    x1, v1, p1 = after[0].T, after[1].T, after[2]
+    pair, dist = reference.nearest(ref_x, x1, box, dx)
+    n = ref_x.shape[0]
+    if bool((pair < 0).any()) or int(torch.bincount(pair.clamp_min(0), minlength=n).max()) > 1:
+        log(f"pairing not one-to-one: {int((pair < 0).sum())} particles with no reference "
+            f"position within dx")
+        return None
+    log(f"paired by position: widest pair distance {float(dist.max()) / dx:.3e} dx")
+    out = [torch.empty_like(a) for a in (x1, v1, p1)]
+    for o, a in zip(out, (x1, v1, p1)):
+        o[pair] = a
+    return out
+
+
 def judge(config: dict, cell: dict, inputs: Inputs, checked, *, ref_dtype=None,
-          log) -> dict:
+          log, ranks: bool = False) -> dict:
     """Recompute each checked step with the plain reference and return the
     gaps: velocity over Umax, pressure over rho Umax^2, displacement over
     Umax dt, each the widest over the particles.  ``checked`` holds
-    (step, :func:`held` before, :func:`held` after).  ``ref_dtype`` puts the
-    reference in the program's place in that type (the control; the
-    program's ``after`` is not read).  ``log`` takes a line a step."""
+    (step, :func:`held` before, :func:`held` after); with ``ranks``, every
+    rank's pieces of each, in rank order, whose particles after the step
+    are paired with the reference's by position (:func:`_paired`; a step
+    that loses, duplicates or cannot pair a particle gets infinite gaps).
+    ``ref_dtype`` puts the reference in the program's place in that type
+    (the control; the program's ``after`` is not read).  ``log`` takes a
+    line a step."""
     dx = inputs.dx
     n = inputs.x.shape[0]
     deck = reference.Deck(
@@ -165,11 +278,25 @@ def judge(config: dict, cell: dict, inputs: Inputs, checked, *, ref_dtype=None,
     out = {}
     for tag, (k, before, after) in zip("abcdefgh", checked):
         t = time.perf_counter()
-        x0, v0, p0 = _host(before, n)
+        if ranks:
+            start = _gathered(before, n, inputs.x.device)
+            if start is None:
+                log(f"window step {k}: the ranks hold another number of particles")
+                out.update({f"{q}_gap_{tag}": math.inf for q in ("vel", "pres", "disp")})
+                continue
+            x0, v0, p0 = start[0].T, start[1].T, start[2]
+        else:
+            x0, v0, p0 = _host(before, n)
         ref = reference.step(x0, v0, p0, deck)
         if ref_dtype is not None:
             got = reference.step(x0, v0, p0, deck, dtype=ref_dtype, maxiter=500)
             x1, v1, p1 = got.x.double(), got.v.double(), got.p.double()
+        elif ranks:
+            got = _paired(_gathered(after, n, inputs.x.device), ref.x, deck.box, dx, log)
+            if got is None:
+                out.update({f"{q}_gap_{tag}": math.inf for q in ("vel", "pres", "disp")})
+                continue
+            x1, v1, p1 = got
         else:
             x1, v1, p1 = _host(after, n)
         d_got = reference.min_image(x1 - x0, deck.box)

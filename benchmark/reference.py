@@ -126,6 +126,54 @@ def neighbor_list(x: torch.Tensor, box: float, cut: float, rows_per_block: int =
     return torch.where(live, J, rows), live
 
 
+def nearest(x: torch.Tensor, y: torch.Tensor, box: float, reach: float,
+            rows_per_block: int = 1 << 16):
+    """(I, dist): for each row of ``y`` (M, D), the index in ``x`` (N, D)
+    of the nearest point under minimum image and its distance, or -1 and
+    inf where no point of ``x`` lies within ``reach``.  Cells of edge >=
+    ``reach``; each row's candidates are the points of its cell and of the
+    cells around it."""
+    n, dim = x.shape
+    dev = x.device
+    ncell = max(1, int(math.floor(box / reach)))
+    csize = box / ncell
+    strides = [ncell ** (dim - 1 - d) for d in range(dim)]
+
+    def cells(a):
+        return torch.clamp(torch.floor(torch.remainder(a.double(), box) / csize).long(), 0,
+                           ncell - 1)
+
+    c = cells(x)
+    cid = sum(c[:, d] * strides[d] for d in range(dim))
+    order = torch.argsort(cid, stable=True)
+    counts = torch.bincount(cid, minlength=ncell ** dim)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(n, device=dev) - starts[cid[order]]
+    table = torch.full((ncell ** dim, int(counts.max())), n, dtype=torch.long, device=dev)
+    table[cid[order], rank] = order
+    per_axis = sorted({o % ncell for o in (-1, 0, 1)})
+    offs = torch.tensor(np.array(np.meshgrid(*([per_axis] * dim), indexing="ij"))
+                        .reshape(dim, -1).T, device=dev)
+    xs = torch.cat([x.double(), torch.full((1, dim), math.inf, dtype=torch.float64,
+                                           device=dev)])
+    cy = cells(y)
+    found, dists = [], []
+    for r0 in range(0, y.shape[0], rows_per_block):
+        r1 = min(y.shape[0], r0 + rows_per_block)
+        ncid = sum(((cy[r0:r1, None, d] + offs[None, :, d]) % ncell) * strides[d]
+                   for d in range(dim))  # (B, O)
+        cand = table[ncid].reshape(r1 - r0, -1)
+        d = y[r0:r1, None, :].double() - xs[cand]
+        d = torch.where(torch.isfinite(d), min_image(d, box), d)
+        rsq = (d * d).sum(-1)
+        best = rsq.argmin(1, keepdim=True)
+        dist = torch.gather(rsq, 1, best)[:, 0].sqrt()
+        ok = dist < reach
+        found.append(torch.where(ok, torch.gather(cand, 1, best)[:, 0], -1))
+        dists.append(torch.where(ok, dist, math.inf))
+    return torch.cat(found), torch.cat(dists)
+
+
 # ---------------------------------------------------------------------------
 # small dense solves that run in any float type
 # ---------------------------------------------------------------------------
@@ -163,75 +211,124 @@ def packed_pairs(dim: int):
 # operators
 # ---------------------------------------------------------------------------
 
-class Operators:
-    """Pair geometry, volumes and correction tensors of one configuration."""
+# pair slots a block of rows holds: every (rows, K, ...) array of the
+# operators' set-up, of a matrix product and of a Galerkin product lives for
+# one block, so that the reference of a 2,097,152-particle 3-D deck (K ~ 400)
+# fits one card beside the (N, K) rows it keeps
+PAIRS_PER_BLOCK = 1 << 23
 
-    def __init__(self, x: torch.Tensor, deck: Deck, dtype: torch.dtype):
+
+def row_blocks(n: int, k: int) -> list:
+    """(first, end) of consecutive row blocks of at most PAIRS_PER_BLOCK
+    pair slots."""
+    rows = max(1, PAIRS_PER_BLOCK // max(k, 1))
+    return [(r0, min(n, r0 + rows)) for r0 in range(0, n, rows)]
+
+
+class Operators:
+    """Pair geometry, volumes and correction tensors of one configuration,
+    worked out a block of rows at a time (:func:`row_blocks`: the volumes
+    first, then the rest, which reads the neighbors' volumes).  It keeps per
+    pair the neighbor index, the gradient's weight and its ``G_i r_ij``, and
+    the rows of each Laplacian ``alpha * div(material grad)`` named in
+    ``laplacians`` (``(alpha, material)`` pairs): ``matrices``."""
+
+    def __init__(self, x: torch.Tensor, deck: Deck, dtype: torch.dtype, laplacians=()):
         self.deck = deck
         dim = deck.dim
+        dev = x.device
         self.J, live = neighbor_list(x, deck.box, deck.cut)
-        self.live = live.to(dtype)
-        rij = min_image(x[:, None, :] - x[self.J], deck.box).to(dtype) * self.live[..., None]
+        n, k = self.J.shape
+        blocks = row_blocks(n, k)
+        w0, _ = kernel_w_dw(deck.kernel, torch.zeros((), dtype=dtype, device=dev), deck.h, dim)
+        wsum = torch.empty(n, dtype=dtype, device=dev)
+        for r0, r1 in blocks:
+            lv, _, _, _, w, _ = self._pairs(x, r0, r1, live, dtype)
+            wsum[r0:r1] = (w * lv).sum(1)
+        self.V = 1.0 / (w0 + wsum)
+        self.cg = torch.empty((n, k), dtype=dtype, device=dev)  # V_j dW_ij / r_ij
+        self.gr = torch.empty((n, k, dim), dtype=dtype, device=dev)  # G_i r_ij
+        rows = [(torch.empty(n, dtype=dtype, device=dev),
+                 torch.empty((n, k), dtype=dtype, device=dev)) for _ in laplacians]
+        for r0, r1 in blocks:
+            lv, rij, r, e, _, dw = self._pairs(x, r0, r1, live, dtype)
+            J = self.J[r0:r1]
+            vj = self.V[J] * lv
+            ee, Lc, gr, ge = self._corrections(rij, r, e, dw, vj, dtype)
+            self.cg[r0:r1] = vj * dw / r
+            self.gr[r0:r1] = gr
+            for (alpha, material), (diag, vals) in zip(laplacians, rows):
+                diag[r0:r1], vals[r0:r1] = _laplacian_rows(
+                    alpha, material[r0:r1], material[J], lv, dw, vj, r, e, ee, Lc, ge)
+        self.matrices = [Matrix(diag, vals, self.J) for diag, vals in rows]
+
+    def _pairs(self, x, r0: int, r1: int, live, dtype):
+        """(live, r_ij, |r_ij|, e_ij, W, dW) of the rows [r0, r1)."""
+        deck = self.deck
+        lv = live[r0:r1].to(dtype)
+        rij = min_image(x[r0:r1, None, :] - x[self.J[r0:r1]], deck.box).to(dtype) * lv[..., None]
         r = torch.sqrt((rij * rij).sum(-1)) + 1e-24
-        self.rij, self.r, self.e = rij, r, rij / r[..., None]
-        w, dw = kernel_w_dw(deck.kernel, r, deck.h, dim)
-        self.dw = dw * self.live
-        w0, _ = kernel_w_dw(deck.kernel, torch.zeros((), dtype=dtype, device=x.device),
-                            deck.h, dim)
-        self.V = 1.0 / (w0 + (w * self.live).sum(1))
-        vj = self.V[self.J] * self.live
-        self.vj = vj
-        # Gc = (sum_j -dw/r V_j r r^T)^-1
-        coef = -self.dw / r * vj
+        w, dw = kernel_w_dw(deck.kernel, r, deck.h, deck.dim)
+        return lv, rij, r, rij / r[..., None], w, dw * lv
+
+    def _corrections(self, rij, r, e, dw, vj, dtype):
+        """(ee, Lc, G r, G e) of a block of rows: the gradient correction
+        Gc = (sum_j -dW/r V_j r r^T)^-1 and the packed Laplacian correction
+        Lc (upstream functor_laplacian_correction.h)."""
+        dim = self.deck.dim
+        coef = -dw / r * vj
         m = torch.einsum("nk,nka,nkb->nab", coef, rij, rij)
-        eye = torch.eye(dim, dtype=dtype, device=x.device).expand(m.shape[0], dim, dim)
-        self.Gc = solve_small(m, eye.contiguous())
-        # Lc: the packed Laplacian correction (upstream
-        # functor_laplacian_correction.h)
+        eye = torch.eye(dim, dtype=dtype, device=rij.device).expand(m.shape[0], dim, dim)
+        Gc = solve_small(m, eye.contiguous())
         pairs, scale = packed_pairs(dim)
-        wgt = self.dw / r * vj
-        a = torch.einsum("nka,nab->nkb", rij, self.Gc) * wgt[..., None]
+        wgt = dw / r * vj
+        a = torch.einsum("nka,nab->nkb", rij, Gc) * wgt[..., None]
         rr = torch.stack([rij[..., p] * rij[..., q] for p, q in pairs], -1)
         amat = torch.einsum("nkd,nkq->ndq", a, rr)
-        re = torch.stack([rij[..., p] * self.e[..., q] for p, q in pairs], -1)
-        cmat = (torch.einsum("ndq,nkd->nkq", amat, self.e) + re) * (self.dw * vj)[..., None]
-        self.ee = torch.stack([self.e[..., p] * self.e[..., q] * s
-                               for (p, q), s in zip(pairs, scale)], -1)
-        lmat = torch.einsum("nkq,nks->nqs", cmat, self.ee)
+        re = torch.stack([rij[..., p] * e[..., q] for p, q in pairs], -1)
+        cmat = (torch.einsum("ndq,nkd->nkq", amat, e) + re) * (dw * vj)[..., None]
+        ee = torch.stack([e[..., p] * e[..., q] * s for (p, q), s in zip(pairs, scale)], -1)
+        lmat = torch.einsum("nkq,nks->nqs", cmat, ee)
         rhs = torch.tensor([-1.0 if p == q else 0.0 for p, q in pairs], dtype=dtype,
-                           device=x.device).expand(lmat.shape[0], len(pairs))
-        self.Lc = solve_small(lmat, rhs[..., None].contiguous())[..., 0]
+                           device=rij.device).expand(lmat.shape[0], len(pairs))
+        Lc = solve_small(lmat, rhs[..., None].contiguous())[..., 0]
         # G_i r_ij and G_i e_ij, shared by every operator
-        self.gr = torch.einsum("nka,nab->nkb", rij, self.Gc)
-        self.ge = torch.einsum("nka,nab->nkb", self.e, self.Gc)
+        return (ee, Lc, torch.einsum("nka,nab->nkb", rij, Gc),
+                torch.einsum("nka,nab->nkb", e, Gc))
 
     def gradient(self, f: torch.Tensor) -> torch.Tensor:
         """(N,) -> (N, D)."""
-        c = (f[self.J] - f[:, None]) * self.vj * self.dw / self.r
-        return torch.einsum("nk,nkb->nb", c, self.gr)
+        out = torch.empty((f.shape[0], self.gr.shape[-1]), dtype=f.dtype, device=f.device)
+        for r0, r1 in row_blocks(*self.J.shape):
+            c = (f[self.J[r0:r1]] - f[r0:r1, None]) * self.cg[r0:r1]
+            out[r0:r1] = torch.einsum("nk,nkb->nb", c, self.gr[r0:r1])
+        return out
 
     def divergence(self, f: torch.Tensor) -> torch.Tensor:
         """(N, D) -> (N,)."""
-        comb = f[self.J] - f[:, None, :]
-        return ((comb * self.gr).sum(-1) * self.vj * self.dw / self.r).sum(1)
+        out = torch.empty(f.shape[0], dtype=f.dtype, device=f.device)
+        for r0, r1 in row_blocks(*self.J.shape):
+            comb = f[self.J[r0:r1]] - f[r0:r1, None, :]
+            out[r0:r1] = ((comb * self.gr[r0:r1]).sum(-1) * self.cg[r0:r1]).sum(1)
+        return out
 
-    def laplacian(self, alpha: float, material: torch.Tensor) -> "Matrix":
-        """alpha * div(material grad) as rows (upstream
-        functor_laplacian_matrix.h: pass 1 and the gradient-consistency
-        pass 2)."""
-        quad = torch.einsum("nq,nkq->nk", self.Lc, self.ee)
-        aij0 = 2.0 * quad * self.dw * self.vj
-        mi = material[:, None]
-        cm = (material[self.J] - mi) * self.dw * self.vj
-        grad_mat = torch.einsum("nk,nkb->nb", cm, self.ge)
-        ci = torch.einsum("nk,nkb->nb", aij0, self.e)
-        aij = aij0 * mi / self.r
-        ge_ci = torch.einsum("nkb,nb->nk", self.ge, ci)
-        ge_gm = torch.einsum("nkb,nb->nk", self.ge, grad_mat)
-        tmp = (mi * ge_ci - ge_gm) * self.dw * self.vj
-        vals = alpha * (-aij - tmp) * self.live
-        diag = alpha * (aij.sum(1) + tmp.sum(1))
-        return Matrix(diag, vals, self.J)
+
+def _laplacian_rows(alpha: float, mi, mj, lv, dw, vj, r, e, ee, Lc, ge):
+    """(diag, off-diagonal values) of a block of rows of alpha *
+    div(material grad) (upstream functor_laplacian_matrix.h: pass 1 and the
+    gradient-consistency pass 2); ``mi`` the rows' material, ``mj`` their
+    neighbors'."""
+    quad = torch.einsum("nq,nkq->nk", Lc, ee)
+    aij0 = 2.0 * quad * dw * vj
+    mi = mi[:, None]
+    cm = (mj - mi) * dw * vj
+    grad_mat = torch.einsum("nk,nkb->nb", cm, ge)
+    ci = torch.einsum("nk,nkb->nb", aij0, e)
+    aij = aij0 * mi / r
+    ge_ci = torch.einsum("nkb,nb->nk", ge, ci)
+    ge_gm = torch.einsum("nkb,nb->nk", ge, grad_mat)
+    tmp = (mi * ge_ci - ge_gm) * dw * vj
+    return alpha * (aij.sum(1) + tmp.sum(1)), alpha * (-aij - tmp) * lv
 
 
 class Matrix:
@@ -241,7 +338,10 @@ class Matrix:
         self.diag, self.vals, self.J = diag, vals, J
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        return self.diag * x + (self.vals * x[self.J]).sum(1)
+        out = self.diag * x
+        for r0, r1 in row_blocks(*self.J.shape):
+            out[r0:r1] += (self.vals[r0:r1] * x[self.J[r0:r1]]).sum(1)
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -249,16 +349,25 @@ class Matrix:
 # ---------------------------------------------------------------------------
 
 def _coarsen(A: Matrix, agg: torch.Tensor, nc: int) -> Matrix:
-    """Galerkin product P^T A P for piecewise-constant P."""
+    """Galerkin product P^T A P for piecewise-constant P: each row block's
+    entries summed by coarse (row, column), then the blocks' sums."""
     n, k = A.vals.shape
     dev = A.vals.device
-    rows = torch.cat([agg, agg[:, None].expand(n, k).reshape(-1)])
-    cols = torch.cat([agg, agg[A.J].reshape(-1)])
-    vals = torch.cat([A.diag, A.vals.reshape(-1)])
-    keep = vals != 0
-    coo = torch.sparse_coo_tensor(torch.stack([rows[keep], cols[keep]]), vals[keep].float()
-                                  if vals.dtype == torch.bfloat16 else vals[keep],
-                                  (nc, nc), check_invariants=False).coalesce()
+    wide = torch.float32 if A.vals.dtype == torch.bfloat16 else A.vals.dtype
+
+    def summed(rows, cols, vals):
+        keep = vals != 0
+        return torch.sparse_coo_tensor(torch.stack([rows[keep], cols[keep]]),
+                                       vals[keep].to(wide), (nc, nc),
+                                       check_invariants=False).coalesce()
+
+    parts = [summed(agg, agg, A.diag)]
+    for r0, r1 in row_blocks(n, k):
+        parts.append(summed(agg[r0:r1, None].expand(r1 - r0, k).reshape(-1),
+                            agg[A.J[r0:r1]].reshape(-1), A.vals[r0:r1].reshape(-1)))
+    coo = torch.sparse_coo_tensor(torch.cat([q.indices() for q in parts], 1),
+                                  torch.cat([q.values() for q in parts]), (nc, nc),
+                                  check_invariants=False).coalesce()
     (r, c), v = coo.indices(), coo.values().to(A.vals.dtype)
     on = r == c
     diag = torch.zeros(nc, dtype=v.dtype, device=dev).index_add_(0, r[on], v[on])
@@ -389,16 +498,17 @@ def step(x: torch.Tensor, v: torch.Tensor, p: torch.Tensor, deck: Deck, *,
     v, p = v.to(dtype), p.to(dtype)
     n, dim = x.shape
     dt, theta = deck.dt, deck.theta
-    ops = Operators(x, deck, dtype)
     rho = torch.full((n,), deck.rho, dtype=dtype, device=x.device)
+    ops = Operators(x, deck, dtype, laplacians=[(dt, deck.nu * rho), (-dt, 1.0 / rho)])
+    A, P = ops.matrices
 
-    # Helmholtz
-    A = ops.laplacian(dt, deck.nu * rho)
-    A = Matrix(A.diag / rho, A.vals / rho[:, None], A.J)
+    # Helmholtz (its matrix's rows scaled in place: the (N, K) rows are kept
+    # once)
+    A = Matrix(A.diag / rho, A.vals.div_(rho[:, None]), A.J)
     gp = ops.gradient(p)
     b = v + (1.0 - theta) * torch.stack([A(v[:, d]) for d in range(dim)], 1) \
         - dt / rho[:, None] * gp
-    H = Matrix(1.0 - theta * A.diag, -theta * A.vals, A.J)
+    H = Matrix(1.0 - theta * A.diag, A.vals.mul_(-theta), A.J)
     hdiag = 1.0 / H.diag
     vstar, hits, hres = [], 0, 0.0
     for d in range(dim):
@@ -409,7 +519,6 @@ def step(x: torch.Tensor, v: torch.Tensor, p: torch.Tensor, deck: Deck, *,
     vstar = torch.stack(vstar, 1)
 
     # Poisson, deflated against the constant null vector
-    P = ops.laplacian(-dt, 1.0 / rho)
     nhat = torch.full((n,), 1.0 / math.sqrt(n), dtype=dtype, device=x.device)
 
     def proj(f):

@@ -34,6 +34,41 @@ whose status was not finite), ``metrics``, ``device``, with ``--trace 1``
 (also the last lines of standard error).  Without a card, or with fewer
 cards than the cell asks for, it prints no result and exits 2; if JAX or
 the JAX package is loaded once the window has closed, it exits 3.
+
+A cell whose ``chips`` is above 1 runs as that many ranks, one a card
+(:mod:`benchmark.ranks`, whose docstring gives the ranks' time limit): one
+NCCL rank a card through the port's ``ShardedSimulation.run``, the deck's
+judge once on card 0 after the ranks have exited.  Its deck must have a
+rank form (``RANKS = True``), or the run exits 4 and names the deck.  A
+rank that fails, hangs or disagrees with the others on the window's steps
+ends the run with exit 1, no result and the failing rank's log tail.
+
+How the ranks' readings are combined:
+
+- window: every rank opens it after a synchronize and a barrier (an
+  all-reduce of a scalar, waited for on the host) and closes it the same
+  way;
+- stop: each kept step's stop decision (the window's early end at a
+  cycle's end) is the ranks' largest, one all-reduce, so every rank stops
+  after the same step; ranks that still report different window steps,
+  retries or checked steps end the run with an error;
+- ``step_ms``: the largest of the ranks' window times over the steps (the
+  slowest rank sets the pace); ``peak_mib``: the largest of the ranks'
+  ``max_memory_allocated`` (the fullest card); ``setup_s``: from the
+  launcher's start to the last rank's window opening;
+- ``device``: ``count`` the ranks, ``kind`` rank 0's card name (every rank
+  must name the same), ``memory_peak_bytes`` the largest rank peak and
+  ``memory_peak_bytes_per_rank`` all of them in rank order; traced,
+  ``busy_s`` the mean of the ranks' device busy time and ``window_s`` the
+  longest rank's traced span;
+- ``failed``: the retries once (the overflow decision is all-reduced, so
+  every rank retries the same steps), and the steps whose status is not
+  finite on any rank; ``start_gap`` is the ranks' largest;
+- ``--trace 1``: each rank profiles its own second cycle, and
+  :func:`benchmark.trace.collect` and every metric reader run on each
+  rank's trace; a per-layer metric reports its largest value over the
+  ranks that read it, each rank's values are logged, and ``breakdown`` is
+  that of the rank with the largest device busy time, named in the log.
 """
 
 from __future__ import annotations
@@ -152,15 +187,30 @@ def metric_readers(bench: dict, workload: str, bench_dir: Path = BENCH) -> dict:
     return out
 
 
-def run_cell(deck, config: dict, cell: dict, *, seed: int, seconds: float, trace: bool,
-             device, t_start: float | None = None, readers: dict | None = None,
-             ends=None, control=None) -> dict:
-    """One run of the cell of ``deck`` (its module, :func:`load_deck`) on
-    ``device``; returns the result line's object.  ``ends`` lists the cell's
-    end-to-end metrics as (name, unit) (:func:`end_to_end`; the three
-    quantities by default), ``readers`` its per-layer ones.  ``control`` (a
-    dtype) judges the reference computed in that type in the program's place
-    instead of the program's steps."""
+def all_max(group, value: float) -> float:
+    """The largest of the ranks' ``value`` (one all-reduce of ``group``,
+    waited for on the host, so that it is also a barrier)."""
+    import torch
+
+    dev = group.device if group.device is not None else torch.device("cpu")
+    return float(group.pmax(torch.tensor(float(value), dtype=torch.float64, device=dev)))
+
+
+def measure(deck, config: dict, cell: dict, *, seed: int, seconds: float, trace: bool,
+            device, t_start: float | None = None, readers: dict | None = None,
+            group=None) -> dict:
+    """The set-up and the window of one run of the cell of ``deck`` on
+    ``device``, the program freed after: a dict of what was read (its
+    ``checked`` holds the deck's :func:`held` of each checked step, drawn
+    from the seed, as (window step, before, after)).  With ``readers`` it
+    traces the window's second cycle and reads the per-layer metrics off it.
+
+    ``group`` (the port's ``parallel.mesh.Group``) runs it as one rank of
+    the deck's rank form (``build``, ``held`` and ``start_gap`` take the
+    group): the start gap is the ranks' largest, the window opens and
+    closes after a synchronize and a barrier, the host loop is the port's
+    ``ShardedSimulation.run`` (:func:`program.run_ranks`) and each stop
+    decision the ranks' largest."""
     import torch
 
     from benchmark import peaks, program
@@ -178,8 +228,15 @@ def run_cell(deck, config: dict, cell: dict, *, seed: int, seconds: float, trace
 
     t_import = time.time()
     inputs = deck.make_inputs(config, cell, seed, device)
-    sim, state = deck.build(config, cell, inputs, device, start_step=cycle - warm)
-    start_gap = deck.start_gap(state, inputs)
+    if group is None:
+        sim, state = deck.build(config, cell, inputs, device, start_step=cycle - warm)
+        held_of, barrier = deck.held, (lambda: None)
+        start_gap = deck.start_gap(state, inputs)
+    else:
+        sim, state = deck.build(config, cell, inputs, device, start_step=cycle - warm,
+                                group=group)
+        held_of, barrier = (lambda s: deck.held(s, group=group)), (lambda: all_max(group, 0.0))
+        start_gap = all_max(group, deck.start_gap(state, inputs, group=group))
     sync()
     t_built = time.time()
 
@@ -190,7 +247,7 @@ def run_cell(deck, config: dict, cell: dict, *, seed: int, seconds: float, trace
     total = warm + cell["window_cycles"] * cycle
     cap = CAP_OVER_SECONDS * seconds
     calls = [0]
-    run_ = {"k": -warm, "before": deck.held(state), "calls0": 0}
+    run_ = {"k": -warm, "before": held_of(state), "calls0": 0}
     auxes, held, retried, cycle_ends = [], {}, [], []
     recorder = prof = None
     if trace:
@@ -211,6 +268,7 @@ def run_cell(deck, config: dict, cell: dict, *, seed: int, seconds: float, trace
         gc.collect()
         gc.freeze()
         sync()
+        barrier()
         run_["setup_s"] = time.time() - t_start
         if cuda:
             torch.cuda.reset_peak_memory_stats()
@@ -220,7 +278,7 @@ def run_cell(deck, config: dict, cell: dict, *, seed: int, seconds: float, trace
     def on_step(new, aux):
         k = run_["k"]
         run_["k"] = k + 1
-        after = deck.held(new)
+        after = held_of(new)
         if k < 0:  # a warm-up step
             run_["before"] = after
             if k == -1:
@@ -243,39 +301,100 @@ def run_cell(deck, config: dict, cell: dict, *, seed: int, seconds: float, trace
             recorder.active = k // cycle == 0
         return len(cycle_ends) >= (2 if trace else 1) and cycle_ends[-1] > cap
 
-    state, _ = program.run(sim, state, total, on_step, calls)
+    if group is None:
+        state, _ = program.run(sim, state, total, on_step, calls)
+    else:
+        state, _ = program.run_ranks(sim, state, total, on_step, calls, group)
     sync()
+    barrier()
     window_s = time.perf_counter() - run_["t0"]
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     gc.unfreeze()
     if recorder is not None:
         recorder.active = False
         prof.__exit__(None, None, None)
-    t_warm, setup_s = run_["t_warm"], run_["setup_s"]
     retries = calls[0] - run_["calls0"] - len(auxes)
-    cycles = len(cycle_ends)
 
-    steps = len(auxes)
-    status_ok = [all(bool(torch.isfinite(f).all()) for f in a.status) for a in auxes]
-    iters = [(int(a.helmholtz_iters), int(a.poisson_iters)) for a in auxes]
     found = forbidden_modules(sys.modules)
     if found:
         raise ForbiddenModules(found)
     card = torch.cuda.get_device_name() if cuda else "cpu"
+    out = {"cuda": cuda, "card": card, "steps": len(auxes), "cycles": len(cycle_ends),
+           "window_s": window_s, "peak": peak, "setup_s": run_["setup_s"],
+           "t_start": t_start, "t_import": t_import, "t_built": t_built,
+           "t_warm": run_["t_warm"], "warm": warm, "retries": retries,
+           "warm_retries": run_["calls0"] - warm, "retried": retried,
+           "status_ok": [all(bool(torch.isfinite(f).all()) for f in a.status) for a in auxes],
+           "iters": [(int(a.helmholtz_iters), int(a.poisson_iters)) for a in auxes],
+           "cycle_ends": cycle_ends, "start_gap": start_gap, "inputs": inputs}
+    if trace:
+        t = tracemod.collect(prof, deck.PHASES, cycle, [
+            {"helmholtz_iters": h, "poisson_iters": p} for h, p in out["iters"][cycle:2 * cycle]],
+            leave_out=workmod.COUNT_RANGE)
+        t.work = {kind: workmod.totals(recorder.calls, kind) for kind in ("spmv", "gather")}
+        t.bandwidth = peaks.hbm_bandwidth(card) if cuda else 0.0
+        recorder.uninstall()
+        metrics = {}
+        for name, (mod, unit) in (readers or {}).items():
+            value = mod.read(t)
+            if value is not None:
+                metrics[name] = {"value": value, "unit": unit}
+        out.update(metrics=metrics, busy_s=t.busy_s, span_s=t.span_s,
+                   device_ops=len(t.device_ops), device_ranges=sorted(t.device_ranges),
+                   nccl_s=t.kernel_s(("nccl",)), breakdown=t.breakdown())
+        del t, prof, recorder
+
+    # free the program, keep what the deck holds of the checked steps
+    out["checked"] = [entry for _, entry in sorted(held.items())]
+    del sim, state, auxes, held, run_
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def setup_parts(w: dict) -> str:
+    return (f"setup: {w['t_import'] - w['t_start']:.3f} s to the first input (interpreter, "
+            f"torch, CUDA), {w['t_built'] - w['t_import']:.3f} s inputs and state, "
+            f"{w['t_warm'] - w['t_built']:.3f} s {w['warm']} warm-up steps (the kernels' build "
+            f"or load in the first)")
+
+
+def stayed(w: dict, path: str) -> str:
+    return (f"every step stayed on the {path} with its first shapes: "
+            f"{'yes' if w['retries'] + w['warm_retries'] == 0 else 'no'} ({w['warm_retries']} "
+            f"retries in the warm-up, {w['retries']} in the window, at window steps "
+            f"{w['retried']})")
+
+
+def traced_line(w: dict) -> str:
+    return (f"traced cycle: {w['device_ops']} device ops, busy {w['busy_s']:.4f} s of "
+            f"{w['span_s']:.4f} s; device-side phase ranges: {w['device_ranges']}")
+
+
+def run_cell(deck, config: dict, cell: dict, *, seed: int, seconds: float, trace: bool,
+             device, t_start: float | None = None, readers: dict | None = None,
+             ends=None, control=None) -> dict:
+    """One run of the cell of ``deck`` (its module, :func:`load_deck`) on
+    ``device``; returns the result line's object.  ``ends`` lists the cell's
+    end-to-end metrics as (name, unit) (:func:`end_to_end`; the three
+    quantities by default), ``readers`` its per-layer ones.  ``control`` (a
+    dtype) judges the reference computed in that type in the program's place
+    instead of the program's steps."""
+    from benchmark import peaks
+
+    w = measure(deck, config, cell, seed=seed, seconds=seconds, trace=trace, device=device,
+                t_start=t_start, readers=readers)
+    cuda, card, steps, cycles = w["cuda"], w["card"], w["steps"], w["cycles"]
+    window_s, peak, setup_s = w["window_s"], w["peak"], w["setup_s"]
     log(f"{card}; {peaks.power_limit() if cuda else 'no card'}")
-    log(f"window: {steps} steps in {cycles} cycles of {cycle}, {window_s:.3f} s; setup "
-        f"{setup_s:.3f} s; peak {peak / 2**20:.1f} MiB")
+    log(f"window: {steps} steps in {cycles} cycles of {cell['cycle_steps']}, {window_s:.3f} s; "
+        f"setup {setup_s:.3f} s; peak {peak / 2**20:.1f} MiB")
     log(f"host clock at each cycle's end (no synchronize), s: "
-        f"{[round(c, 3) for c in cycle_ends]}")
-    log(f"setup: {t_import - t_start:.3f} s to the first input (interpreter, torch, CUDA), "
-        f"{t_built - t_import:.3f} s inputs and state, {t_warm - t_built:.3f} s "
-        f"{warm} warm-up steps (the kernels' build or load in the first)")
-    log(f"iterations (helmholtz, poisson) a step: {iters}")
-    path = deck.describe(cell)
-    warm_retries = run_["calls0"] - warm
-    log(f"every step stayed on the {path} with its first shapes: "
-        f"{'yes' if retries + warm_retries == 0 else 'no'} ({warm_retries} retries in the "
-        f"warm-up, {retries} in the window, at window steps {retried})")
+        f"{[round(c, 3) for c in w['cycle_ends']]}")
+    log(setup_parts(w))
+    log(f"iterations (helmholtz, poisson) a step: {w['iters']}")
+    log(stayed(w, deck.describe(cell)))
     if cycles < cell["window_cycles"]:
         log(f"the window ended early: {cycles} of {cell['window_cycles']} cycles in "
             f"{window_s:.3f} s, past {CAP_OVER_SECONDS} x --seconds")
@@ -284,47 +403,47 @@ def run_cell(deck, config: dict, cell: dict, *, seed: int, seconds: float, trace
                      "memory_peak_bytes": int(peak)}
     metrics, breakdown = {}, None
     if trace:
-        t = tracemod.collect(prof, deck.PHASES, cycle, [
-            {"helmholtz_iters": h, "poisson_iters": p} for h, p in iters[cycle:2 * cycle]],
-            leave_out=workmod.COUNT_RANGE)
-        t.work = {kind: workmod.totals(recorder.calls, kind) for kind in ("spmv", "gather")}
-        t.bandwidth = peaks.hbm_bandwidth(card) if cuda else 0.0
-        recorder.uninstall()
-        result_device.update(busy_s=t.busy_s, window_s=t.span_s)
-        for name, (mod, unit) in (readers or {}).items():
-            value = mod.read(t)
-            if value is not None:
-                metrics[name] = {"value": value, "unit": unit}
-        log(f"traced cycle: {len(t.device_ops)} device ops, busy {t.busy_s:.4f} s of "
-            f"{t.span_s:.4f} s; device-side phase ranges: {sorted(t.device_ranges)}")
-        breakdown = t.breakdown()
-        del t, prof, recorder
+        result_device.update(busy_s=w["busy_s"], window_s=w["span_s"])
+        metrics = w["metrics"]
+        log(traced_line(w))
+        breakdown = w["breakdown"]
     else:
         values = {"step_ms": 1e3 * window_s / steps, "peak_mib": peak / 2**20,
                   "setup_s": setup_s}
         for name, unit in (ends or ENDS):
             metrics[name] = {"value": values[name.split(".")[0]], "unit": unit}
 
-    # free the program, keep what the deck holds of the checked steps
-    checked = [entry for _, entry in sorted(held.items())]
-    del sim, state, auxes, held, run_
-    gc.collect()
-    if cuda:
-        torch.cuda.empty_cache()
+    checked, inputs = w.pop("checked"), w.pop("inputs")
     gaps = deck.judge(config, cell, inputs, checked, ref_dtype=control, log=log)
+    nonfinite = w["status_ok"].count(False)
+    return outcome(cell, steps=steps, failed=w["retries"] + nonfinite, nonfinite=nonfinite,
+                   start_gap=w["start_gap"], gaps=gaps, metrics=metrics,
+                   device=result_device, breakdown=breakdown)
+
+
+def outcome(cell: dict, *, steps: int, failed: int, nonfinite: int, start_gap: float,
+            gaps: dict, metrics: dict, device: dict, breakdown) -> dict:
+    """The result line's object: each number compared beside its limit
+    (``checks``, last), ``correct`` when every one is finite and within."""
     limits = cell["limits"]
-    checks = {"start_gap": (start_gap, 0.0),
-              "nonfinite_steps": (float(status_ok.count(False)), 0.0)}
+    checks = {"start_gap": (start_gap, 0.0), "nonfinite_steps": (float(nonfinite), 0.0)}
     for name, value in gaps.items():
         checks[name] = (value, limits[name.rsplit("_", 1)[0]])
     correct = steps > 0 and all(math.isfinite(v) and v <= lim for v, lim in checks.values())
-    out = {"correct": correct, "attempted": steps,
-           "failed": retries + status_ok.count(False), "metrics": metrics,
-           "device": result_device}
+    out = {"correct": correct, "attempted": steps, "failed": failed, "metrics": metrics,
+           "device": device}
     if breakdown is not None:
         out["breakdown"] = breakdown
     out["checks"] = {k: {"value": v, "limit": lim} for k, (v, lim) in checks.items()}
     return out
+
+
+def emit(out: dict) -> None:
+    """Each check on standard error, then the result line, last on
+    standard output."""
+    for name, c in out["checks"].items():
+        log(f"check {name}: {c['value']!r} (limit {c['limit']!r})")
+    print(json.dumps(out), flush=True)
 
 
 class ForbiddenModules(RuntimeError):
@@ -355,6 +474,12 @@ def main(argv=None) -> int:
         return 2
     readers = metric_readers(bench, args.workload) if args.trace else None
     ends = end_to_end(bench, args.workload)
+    if work["chips"] > 1:
+        from benchmark import ranks
+
+        return ranks.main(deck, config, cell, chips=work["chips"], seed=args.seed,
+                          seconds=args.seconds, trace=bool(args.trace), t_start=t_start,
+                          readers=readers, ends=ends)
     try:
         out = run_cell(deck, config, cell, seed=args.seed, seconds=args.seconds,
                        trace=bool(args.trace), device="cuda", t_start=t_start,
@@ -362,9 +487,7 @@ def main(argv=None) -> int:
     except ForbiddenModules as err:
         log(str(err))
         return 3
-    for name, c in out["checks"].items():
-        log(f"check {name}: {c['value']!r} (limit {c['limit']!r})")
-    print(json.dumps(out), flush=True)
+    emit(out)
     return 0
 
 

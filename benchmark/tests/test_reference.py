@@ -43,3 +43,25 @@ def test_neighbor_list_is_every_pair_inside_the_cut():
         rows = torch.arange(n * n)[:, None].expand_as(J)
         got[rows[live], J[live]] = True
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name,n", [("tgv2d-1024-amg", 24), ("tgv3d-64-amg", 10)])
+def test_reference_in_row_blocks_gives_the_same_step(name, n, monkeypatch, cpu_threads):
+    """The operators, products and Galerkin sums a few rows at a time (the
+    blocks that let a 2,097,152-particle 3-D reference fit one card) give
+    the one-block step to round-off."""
+    deck, config, cell = load_cell(name, lattice_n=n)
+    inputs = deck.make_inputs(config, cell, 4, "cpu")
+    dx = inputs.dx
+    d = ref.Deck(dim=config["dim"], box=inputs.box, n_side=n, h=config["h_over_dx"] * dx,
+                 dt=config["dt_over_dx"] * dx, nu=config["nu"], rho=config["rho"],
+                 theta=config["theta"], kernel=config["kernel"],
+                 cut=config["cut_over_h"] * config["h_over_dx"] * dx)
+    whole = ref.step(inputs.x, inputs.v, inputs.p, d)
+    monkeypatch.setattr(ref, "PAIRS_PER_BLOCK", 1000)
+    assert len(ref.row_blocks(n ** config["dim"], 30)) > 10
+    blocked = ref.step(inputs.x, inputs.v, inputs.p, d)
+    assert (blocked.helmholtz_iters, blocked.poisson_iters) == (whole.helmholtz_iters,
+                                                                whole.poisson_iters)
+    for a, b in ((blocked.x, whole.x), (blocked.v, whole.v), (blocked.p, whole.p)):
+        assert float((a - b).abs().max()) < 1e-12
