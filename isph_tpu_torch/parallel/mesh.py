@@ -29,6 +29,8 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from isph_tpu_torch.utils.profiling import span
+
 # p2p tags of the two ring directions: at world size 2 both hops of a
 # halo exchange go to the one peer, and the tags keep them from swapping
 _TAG_RIGHT = 11
@@ -54,7 +56,10 @@ class Group:
     ``allreduces`` the ``psum``/``pmax`` calls, ``ring_hops`` the messages
     sent to a neighbor and ``ring_bytes`` their payload (0 at world size 1,
     where a hop is a local copy), the quantities ``scripts/weak_scaling.py``
-    counts in JAX's compiled program."""
+    counts in JAX's compiled program.  Under a profiler each all-reduce lies
+    in a ``comm.allreduce`` span and each set of ring hops, from packing
+    the payloads to the waits, in a ``comm.ring`` span
+    (``utils/profiling.span``)."""
 
     def __init__(self, rank: int, size: int, device: Optional[torch.device] = None):
         self.rank = rank
@@ -69,8 +74,9 @@ class Group:
         self.ring_bytes = 0
 
     def _all_reduce(self, t: torch.Tensor, op) -> torch.Tensor:
-        out = t.contiguous().clone()
-        dist.all_reduce(out.view(-1), op=op)
+        with span("comm.allreduce"):
+            out = t.contiguous().clone()
+            dist.all_reduce(out.view(-1), op=op)
         self.allreduces += 1
         return out
 
@@ -88,16 +94,17 @@ class Group:
         from rank ``src`` under the same tag.  Returns the received tensors
         in ``sends``' order, in the payloads' dtypes."""
         ops, recv = [], []
-        for payload, dst, src, tag in sends:
-            a = _wire(payload)
-            r = torch.empty_like(a)
-            ops += [dist.P2POp(dist.isend, a, dst, tag=tag),
-                    dist.P2POp(dist.irecv, r, src, tag=tag)]
-            recv.append(r)
-            self.ring_hops += 1
-            self.ring_bytes += a.numel() * a.element_size()
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+        with span("comm.ring"):
+            for payload, dst, src, tag in sends:
+                a = _wire(payload)
+                r = torch.empty_like(a)
+                ops += [dist.P2POp(dist.isend, a, dst, tag=tag),
+                        dist.P2POp(dist.irecv, r, src, tag=tag)]
+                recv.append(r)
+                self.ring_hops += 1
+                self.ring_bytes += a.numel() * a.element_size()
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
         return [r.to(p[0].dtype) for r, p in zip(recv, sends)]
 
     def ring_pair(self, to_right: torch.Tensor, to_left: torch.Tensor
@@ -174,11 +181,14 @@ def spawn(fn: Callable, world: int, *args, backend: str = "gloo",
 
     ``fn`` and ``args`` are pickled (``fn`` by reference, so it must live in
     an importable module, which is all a rank imports besides this
-    package).  Each rank runs with one CPU thread, a process group started
-    by :func:`make_mesh` over a file store, and ``RANK_TIMEOUT_S`` on every
-    collective; the launcher kills them all at ``timeout`` seconds and
-    raises, and raises with the rank's error output when one fails.  Under
-    NCCL rank r runs on card r, so ``world`` may not exceed the cards."""
+    package).  Each rank runs with one CPU thread (under NCCL bound to its
+    card's share of the CPUs, :func:`pin_to_card`, so that no rank's host
+    threads leave its card's NUMA node or share a core with another
+    rank's), a process group started by :func:`make_mesh` over a file
+    store, and ``RANK_TIMEOUT_S`` on every collective; the launcher kills
+    them all at ``timeout`` seconds and raises, and raises with the rank's
+    error output when one fails.  Under NCCL rank r runs on card r, so
+    ``world`` may not exceed the cards."""
     if backend == "nccl" and world > torch.cuda.device_count():
         raise ValueError(f"{world} NCCL ranks need {world} cards, this machine has "
                          f"{torch.cuda.device_count()}")
@@ -225,11 +235,60 @@ def spawn(fn: Callable, world: int, *args, backend: str = "gloo",
     return out
 
 
+def cpu_share(local: list, allowed, index: int) -> set:
+    """Card ``index``'s share of the ``allowed`` CPUs: those of its NUMA node
+    (``local[i]`` the CPUs local to card i, empty where unknown) split
+    evenly and disjointly among the cards of that node; where a card's node
+    is unknown or holds none of ``allowed``, its node counts as all of
+    them.  With fewer CPUs than cards on a node, the cards take them in
+    turn."""
+    allowed = sorted(allowed)
+    homes = [tuple(c for c in allowed if c in set(cpus)) or tuple(allowed) for cpus in local]
+    pool = homes[index]
+    mates = [i for i, h in enumerate(homes) if h == pool]
+    k, n = mates.index(index), len(mates)
+    if len(pool) < n:
+        return {pool[k % len(pool)]}
+    return set(pool[k * len(pool) // n:(k + 1) * len(pool) // n])
+
+
+def card_local_cpus(index: int) -> set:
+    """The CPUs that sysfs lists as local to card ``index`` (empty where the
+    card's PCI address or the list cannot be read)."""
+    p = torch.cuda.get_device_properties(index)
+    try:
+        addr = f"{p.pci_domain_id:04x}:{p.pci_bus_id:02x}:{p.pci_device_id:02x}.0"
+        with open(f"/sys/bus/pci/devices/{addr}/local_cpulist") as fh:
+            text = fh.read().strip()
+    except (AttributeError, OSError):
+        return set()
+    cpus = set()
+    for part in filter(None, text.split(",")):
+        lo, _, hi = part.partition("-")
+        cpus.update(range(int(lo), int(hi or lo) + 1))
+    return cpus
+
+
+def pin_to_card(rank: int, world: int) -> set:
+    """Bind every thread of this process, and so every thread it starts
+    later (NCCL's, the CUDA driver's), to rank ``rank``'s :func:`cpu_share`
+    of the CPUs beside its card; returns the share."""
+    share = cpu_share([card_local_cpus(i) for i in range(world)], os.sched_getaffinity(0), rank)
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            os.sched_setaffinity(int(tid), share)
+        except OSError:  # a thread that ended meanwhile
+            pass
+    return share
+
+
 def run_rank(tmp: str, rank: int, world: int) -> None:
     """The body of one spawned rank (see :func:`spawn`)."""
     torch.set_num_threads(1)
     with open(os.path.join(tmp, "job.pkl"), "rb") as fh:
         fn, args, backend = pickle.load(fh)
+    if backend == "nccl" and torch.cuda.is_available():
+        pin_to_card(rank, world)
     device = torch.device("cuda", rank) if backend == "nccl" else None
     group = make_mesh(world, rank, backend=backend, init_file=os.path.join(tmp, "store"),
                       timeout=RANK_TIMEOUT_S, device=device)

@@ -35,6 +35,7 @@ is the ``take`` kernel.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import NamedTuple, Optional, Tuple
@@ -54,6 +55,7 @@ from isph_tpu_torch.physics import shift as shift_mod, transport
 from isph_tpu_torch.physics.status import compute_status
 from isph_tpu_torch.solvers.krylov import RecycleSpace, init_recycle
 from isph_tpu_torch.state import Domain, ParticleState
+from isph_tpu_torch.utils.profiling import named_scope, span
 
 # Per-field halo-exchange registry (CommType parity, pair_isph.h:96-107).
 HALO_STATE_FIELDS = (
@@ -270,10 +272,14 @@ class ShardedSimulation:
     # ------------------------------------------------------------------
     # the per-rank step body
     # ------------------------------------------------------------------
-    def _borders(self, state: ParticleState, my_lo, my_hi):
+    def _borders(self, state: ParticleState, my_lo, my_hi, phases: bool = True):
         """Borders build + extended state + local neighbor list + computePre
         (LAMMPS comm->borders then PairISPH::computePre).  Returns
-        (ext, comm, geom, pre, overflow)."""
+        (ext, comm, geom, pre, overflow).  With ``phases`` the named phases
+        of ``Simulation.step`` cover it: the borders build and the neighbor
+        list are ``neighbors``, the pair geometry ``geometry``, computePre
+        ``compute_pre``; a shift's re-neighboring passes False, inside its
+        own ``shift`` phase."""
         cfg = self.cfg
         group = self.group
         dom = self.sim.domain
@@ -281,57 +287,63 @@ class ShardedSimulation:
         dtype, dev = state.dtype, state.device
         L0 = dom.length[0]
 
-        spec = build_halo_spec(state.x[0], state.valid, my_lo, my_hi, cfg.cut, H, group,
-                               dom.periodic[0])
-        ext_fields = {k: _extend(getattr(state, k), spec, group) for k in HALO_STATE_FIELDS}
-        valid_ext = torch.cat([state.valid, spec.recv_left_valid, spec.recv_right_valid])
-        # unwrap halo slab coordinates across the periodic seam
-        x = ext_fields["x"]
-        x0 = x[0]
-        slot = torch.arange(n_loc + 2 * H, device=dev)
-        in_l = (slot >= n_loc) & (slot < n_loc + H)
-        in_r = slot >= n_loc + H
-        x0_l = my_lo - _mod(my_lo - x0, L0)
-        x0_r = my_hi + _mod(x0 - my_hi, L0)
-        x0 = torch.where(in_l, x0_l, torch.where(in_r, x0_r, x0))
-        ext_fields["x"] = torch.cat([x0[None], x[1:]])
+        def phase(name):
+            return named_scope(name, dev) if phases else contextlib.nullcontext()
 
-        # ext.valid keeps owned-only semantics, so every global reduction
-        # counts each particle on exactly one rank; the union mask feeds the
-        # neighbor build so owned rows see their halo neighbors
-        owned_valid = torch.cat([state.valid, torch.zeros((2 * H,), dtype=torch.bool,
-                                                          device=dev)])
-        ext = state.replace(valid=owned_valid,
-                            **{k: v for k, v in ext_fields.items() if v is not None})
+        with phase("neighbors"):
+            spec = build_halo_spec(state.x[0], state.valid, my_lo, my_hi, cfg.cut, H, group,
+                                   dom.periodic[0])
+            ext_fields = {k: _extend(getattr(state, k), spec, group) for k in HALO_STATE_FIELDS}
+            valid_ext = torch.cat([state.valid, spec.recv_left_valid, spec.recv_right_valid])
+            # unwrap halo slab coordinates across the periodic seam
+            x = ext_fields["x"]
+            x0 = x[0]
+            slot = torch.arange(n_loc + 2 * H, device=dev)
+            in_l = (slot >= n_loc) & (slot < n_loc + H)
+            in_r = slot >= n_loc + H
+            x0_l = my_lo - _mod(my_lo - x0, L0)
+            x0_r = my_hi + _mod(x0 - my_hi, L0)
+            x0 = torch.where(in_l, x0_l, torch.where(in_r, x0_r, x0))
+            ext_fields["x"] = torch.cat([x0[None], x[1:]])
 
-        # local neighbor list + pair geometry (common local frame)
-        x_local = torch.cat([(ext.x[0] - my_lo)[None], ext.x[1:]])
-        ldom = self.local_domain()
-        cap = (self.cell_capacity if self.cell_capacity is not None
-               else self._local_cell_capacity())
-        nbrs = build_neighbor_list(x_local, valid_ext, ldom, cfg.cut,
-                                   cfg.neighbor.max_neighbors, cap,
-                                   cell_subdiv=cfg.neighbor.cell_subdiv)
-        geom = compute_pair_geometry(x_local, nbrs, ldom, get_kernel(cfg.kernel.type), cfg.h)
+            # ext.valid keeps owned-only semantics, so every global reduction
+            # counts each particle on exactly one rank; the union mask feeds
+            # the neighbor build so owned rows see their halo neighbors
+            owned_valid = torch.cat([state.valid, torch.zeros((2 * H,), dtype=torch.bool,
+                                                              device=dev)])
+            ext = state.replace(valid=owned_valid,
+                                **{k: v for k, v in ext_fields.items() if v is not None})
 
-        # halo-strip metadata of the overlapped matvec, built per epoch off
-        # the neighbor list (every matrix of the step shares its sparsity)
-        overflow = nbrs.overflow + spec.overflow
-        strip = {}
-        if self.n_dev > 1:
-            rows = torch.cat([spec.send_left, spec.send_right])
-            idx_s = nbrs.idx[:, rows].contiguous()
-            s_l = (idx_s >= n_loc) & (idx_s < n_loc + H)
-            s_r = idx_s >= n_loc + H
-            side = torch.arange(2 * H, device=dev) >= H  # False: the send_left half
-            strip = dict(strip_rows=rows, strip_idx=idx_s,
-                         strip_mask=torch.where(side[None, :], s_r, s_l).to(dtype))
-        comm = _Comm(spec=spec, n_loc=n_loc, group=group, owned=owned_valid,
-                     ownedf=owned_valid.to(dtype), **strip)
+            # local neighbor list (common local frame)
+            x_local = torch.cat([(ext.x[0] - my_lo)[None], ext.x[1:]])
+            ldom = self.local_domain()
+            cap = (self.cell_capacity if self.cell_capacity is not None
+                   else self._local_cell_capacity())
+            nbrs = build_neighbor_list(x_local, valid_ext, ldom, cfg.cut,
+                                       cfg.neighbor.max_neighbors, cap,
+                                       cell_subdiv=cfg.neighbor.cell_subdiv)
 
+            # halo-strip metadata of the overlapped matvec, built per epoch
+            # off the neighbor list (every matrix of the step shares its
+            # sparsity)
+            strip = {}
+            if self.n_dev > 1:
+                rows = torch.cat([spec.send_left, spec.send_right])
+                idx_s = nbrs.idx[:, rows].contiguous()
+                s_l = (idx_s >= n_loc) & (idx_s < n_loc + H)
+                s_r = idx_s >= n_loc + H
+                side = torch.arange(2 * H, device=dev) >= H  # False: the send_left half
+                strip = dict(strip_rows=rows, strip_idx=idx_s,
+                             strip_mask=torch.where(side[None, :], s_r, s_l).to(dtype))
+            comm = _Comm(spec=spec, n_loc=n_loc, group=group, owned=owned_valid,
+                         ownedf=owned_valid.to(dtype), **strip)
+
+        with phase("geometry"):
+            geom = compute_pair_geometry(x_local, nbrs, ldom, get_kernel(cfg.kernel.type), cfg.h)
         # computePre with its in-phase halo refreshes (Vfrac before Gc/Lc)
-        pre = ns_projection.compute_pre(ext, geom, cfg, exchange=comm.refresh)
-        return ext, comm, geom, pre, overflow
+        with phase("compute_pre"):
+            pre = ns_projection.compute_pre(ext, geom, cfg, exchange=comm.refresh)
+        return ext, comm, geom, pre, nbrs.overflow + spec.overflow
 
     def _amg_rebuild(self, state: ParticleState) -> Optional[bool]:
         """The max-age rule of the opt-in AMG cache on the replicated step
@@ -360,112 +372,123 @@ class ShardedSimulation:
 
         ext = ext.replace(f=torch.zeros_like(ext.v))
         if self.sim.extra_force is not None:
-            ext = ext.replace(f=self.sim.extra_force(ext, dom))
+            with named_scope("extra_force", dev):
+                ext = ext.replace(f=self.sim.extra_force(ext, dom))
 
         # electrokinetics: halo import in every matvec, Psi comm per Newton
         # residual (pair_isph_corrected.cpp:447-450)
         if cfg.ae.enabled:
-            phi, phigrad = electrokinetics.solve_applied_electric_potential(
-                ext, geom, pre, cfg, group=group, exchange=comm.refresh, owned=comm.ownedf)
-            ext = ext.replace(phi=phi, phigrad=comm.refresh(phigrad))
+            with named_scope("applied_efield", dev):
+                phi, phigrad = electrokinetics.solve_applied_electric_potential(
+                    ext, geom, pre, cfg, group=group, exchange=comm.refresh, owned=comm.ownedf)
+                ext = ext.replace(phi=phi, phigrad=comm.refresh(phigrad))
         if cfg.pb.enabled:
-            psi, psigrad, _ = electrokinetics.solve_poisson_boltzmann(
-                ext, geom, pre, cfg, group=group, exchange=comm.refresh, owned=comm.ownedf)
-            ext = ext.replace(psi=psi, psigrad=comm.refresh(psigrad))
-            ext = ext.replace(f=electrokinetics.electrostatic_force(
-                ext, cfg, ext.psigrad, phigrad=ext.phigrad if cfg.ae.enabled else None))
+            with named_scope("poisson_boltzmann", dev):
+                psi, psigrad, _ = electrokinetics.solve_poisson_boltzmann(
+                    ext, geom, pre, cfg, group=group, exchange=comm.refresh, owned=comm.ownedf)
+                ext = ext.replace(psi=psi, psigrad=comm.refresh(psigrad))
+                ext = ext.replace(f=electrokinetics.electrostatic_force(
+                    ext, cfg, ext.psigrad, phigrad=ext.phigrad if cfg.ae.enabled else None))
 
         # solute transport (comm TempScalar per species, pair_isph.cpp:838-842)
         if cfg.tr.enabled and ext.conc is not None:
-            conc, _ = transport.solute_transport_step(
-                ext, geom, pre, cfg, group=group, exchange=comm.refresh, owned=comm.ownedf)
-            ext = ext.replace(conc=comm.refresh(conc))
+            with named_scope("transport", dev):
+                conc, _ = transport.solute_transport_step(
+                    ext, geom, pre, cfg, group=group, exchange=comm.refresh, owned=comm.ownedf)
+                ext = ext.replace(conc=comm.refresh(conc))
 
         # random stress / surface tension: local pair operations over the
         # exchanged halos; each rank folds its index into JAX's step key,
         # rank 0 included, as JAX folds in the device index
         if cfg.rs.enabled:
-            step = int(ext.step) if ext.step is not None else 0
-            noise = fluctuation.random_stress_noise(cfg.rs.seed, step, ext, rank=group.rank)
-            ext = ext.replace(f=fluctuation.random_stress_force(ext, geom, pre, cfg, noise))
+            with named_scope("random_stress", dev):
+                step = int(ext.step) if ext.step is not None else 0
+                noise = fluctuation.random_stress_noise(cfg.rs.seed, step, ext, rank=group.rank)
+                ext = ext.replace(f=fluctuation.random_stress_force(ext, geom, pre, cfg, noise))
         if cfg.st.enabled and cfg.st.model == "csf":
-            f, _, _ = multiphase.csf_force(
-                ext, geom, pre, cfg, ignore_mask=multiphase.ignore_phase_gradient_mask(ext, cfg))
-            ext = ext.replace(f=f)
+            with named_scope("surface_tension", dev):
+                f, _, _ = multiphase.csf_force(
+                    ext, geom, pre, cfg,
+                    ignore_mask=multiphase.ignore_phase_gradient_mask(ext, cfg))
+                ext = ext.replace(f=f)
 
         # Helmholtz (momentum predictor)
-        if cfg.ns.is_block_helmholtz_enabled:
-            from isph_tpu_torch.physics.block_helmholtz import solve_block_helmholtz
+        with named_scope("helmholtz", dev):
+            if cfg.ns.is_block_helmholtz_enabled:
+                from isph_tpu_torch.physics.block_helmholtz import solve_block_helmholtz
 
-            vstar, hres = solve_block_helmholtz(ext, geom, pre, cfg, group=group,
-                                                exchange=comm.refresh, ownedf=comm.ownedf)
-        elif abs(cfg.ns.theta) < 1e-14:
-            _, b_h = ns_projection.helmholtz_system(ext, geom, pre, cfg)
-            vstar = b_h * comm.ownedf[None, :]
-            hres = None
-        else:
-            A_h, b_h = ns_projection.helmholtz_system(ext, geom, pre, cfg)
-            # one solve per velocity component (JAX vmaps them; each equals
-            # its own unbatched solve)
-            res = [self._dist_solve(cfg, A_h, b_h[c] * comm.ownedf, ext.v[c] * comm.ownedf,
-                                    comm)[0] for c in range(ext.dim)]
-            hres = type(res[0])(*(torch.stack(f) for f in zip(*res)))
-            vstar = hres.x
-        vstar = comm.refresh(vstar)  # comm Vstar (pair_isph.cpp:977-979)
+                vstar, hres = solve_block_helmholtz(ext, geom, pre, cfg, group=group,
+                                                    exchange=comm.refresh, ownedf=comm.ownedf)
+            elif abs(cfg.ns.theta) < 1e-14:
+                _, b_h = ns_projection.helmholtz_system(ext, geom, pre, cfg)
+                vstar = b_h * comm.ownedf[None, :]
+                hres = None
+            else:
+                A_h, b_h = ns_projection.helmholtz_system(ext, geom, pre, cfg)
+                # one solve per velocity component (JAX vmaps them; each
+                # equals its own unbatched solve)
+                res = [self._dist_solve(cfg, A_h, b_h[c] * comm.ownedf, ext.v[c] * comm.ownedf,
+                                        comm)[0] for c in range(ext.dim)]
+                hres = type(res[0])(*(torch.stack(f) for f in zip(*res)))
+                vstar = hres.x
+            vstar = comm.refresh(vstar)  # comm Vstar (pair_isph.cpp:977-979)
         ext = ext.replace(vstar=vstar)
 
         # pressure Poisson
-        A_p, b_p = ns_projection.poisson_system(ext, geom, pre, cfg, vstar)
-        singular = cfg.ns.singular_poisson
-        null_vec = None
-        if singular == SingularPoisson.NULL_SPACE:
-            null_vec = (ext.is_fluid & comm.owned).to(dtype)
-        # the recycle space rides across steps on owned slots; its extended
-        # halo slots are zero (reform rebuilds C)
-        rec_in = None
-        if cfg.solver.recycle_k > 0:
-            rec = state.solver_cache
-            if rec is None:
-                rec = init_recycle(n_loc, cfg.solver.recycle_k, dtype, dev)
-            zpad = torch.zeros((cfg.solver.recycle_k, 2 * H), dtype=dtype, device=dev)
-            rec_in = RecycleSpace(U=torch.cat([rec.U, zpad], dim=1),
-                                  C=torch.cat([rec.C, zpad], dim=1))
-        amg = (dom.wrap(ext.x), dom, cfg.cut)
-        amg_rebuild = self._amg_rebuild(state)
-        if singular != SingularPoisson.NOT_SINGULAR:
-            fluid_rows = ext.is_fluid & comm.owned
-            A_f = A_p.zero_rows(~fluid_rows).with_diag(
-                torch.where(fluid_rows, A_p.diag, torch.ones_like(A_p.diag)))
-            b_f = torch.where(fluid_rows, b_p, 0.0)
-            pres, rec_out, cache_out = self._dist_solve(
-                cfg, A_f, b_f, torch.zeros_like(b_f), comm, null_vec=null_vec, recycle=rec_in,
-                amg=amg, amg_cache=state.amg_cache, amg_rebuild=amg_rebuild)
-            dp = pres.x
-            if pre.normal is not None:
-                # wall-row relaxation with a halo refresh inside each sweep
-                dp = ns_projection.relax_wall_pressure(
-                    A_p, b_p, dp, ext, pre, exchange=comm.refresh, ownedf=comm.ownedf,
-                    group=group)
-        else:
-            pres, rec_out, cache_out = self._dist_solve(
-                cfg, A_p, b_p * comm.ownedf, torch.zeros_like(b_p), comm, null_vec=null_vec,
-                recycle=rec_in, amg=amg, amg_cache=state.amg_cache, amg_rebuild=amg_rebuild)
-            dp = pres.x
-        if rec_in is not None:
-            ext = ext.replace(solver_cache=RecycleSpace(
-                U=rec_out.U[:, :n_loc].contiguous(), C=rec_out.C[:, :n_loc].contiguous()))
+        with named_scope("poisson", dev):
+            A_p, b_p = ns_projection.poisson_system(ext, geom, pre, cfg, vstar)
+            singular = cfg.ns.singular_poisson
+            null_vec = None
+            if singular == SingularPoisson.NULL_SPACE:
+                null_vec = (ext.is_fluid & comm.owned).to(dtype)
+            # the recycle space rides across steps on owned slots; its
+            # extended halo slots are zero (reform rebuilds C)
+            rec_in = None
+            if cfg.solver.recycle_k > 0:
+                rec = state.solver_cache
+                if rec is None:
+                    rec = init_recycle(n_loc, cfg.solver.recycle_k, dtype, dev)
+                zpad = torch.zeros((cfg.solver.recycle_k, 2 * H), dtype=dtype, device=dev)
+                rec_in = RecycleSpace(U=torch.cat([rec.U, zpad], dim=1),
+                                      C=torch.cat([rec.C, zpad], dim=1))
+            amg = (dom.wrap(ext.x), dom, cfg.cut)
+            amg_rebuild = self._amg_rebuild(state)
+            if singular != SingularPoisson.NOT_SINGULAR:
+                fluid_rows = ext.is_fluid & comm.owned
+                A_f = A_p.zero_rows(~fluid_rows).with_diag(
+                    torch.where(fluid_rows, A_p.diag, torch.ones_like(A_p.diag)))
+                b_f = torch.where(fluid_rows, b_p, 0.0)
+                pres, rec_out, cache_out = self._dist_solve(
+                    cfg, A_f, b_f, torch.zeros_like(b_f), comm, null_vec=null_vec,
+                    recycle=rec_in, amg=amg, amg_cache=state.amg_cache, amg_rebuild=amg_rebuild)
+                dp = pres.x
+                if pre.normal is not None:
+                    # wall-row relaxation with a halo refresh inside each sweep
+                    dp = ns_projection.relax_wall_pressure(
+                        A_p, b_p, dp, ext, pre, exchange=comm.refresh, ownedf=comm.ownedf,
+                        group=group)
+            else:
+                pres, rec_out, cache_out = self._dist_solve(
+                    cfg, A_p, b_p * comm.ownedf, torch.zeros_like(b_p), comm, null_vec=null_vec,
+                    recycle=rec_in, amg=amg, amg_cache=state.amg_cache,
+                    amg_rebuild=amg_rebuild)
+                dp = pres.x
+            if rec_in is not None:
+                ext = ext.replace(solver_cache=RecycleSpace(
+                    U=rec_out.U[:, :n_loc].contiguous(), C=rec_out.C[:, :n_loc].contiguous()))
 
-        if cfg.ns.use_incremental_pressure:
-            dp = ns_projection.zero_mean_pressure(dp, ext, group=group)
-        dp = comm.refresh(dp)  # comm DeltaP (pair_isph.cpp:1017-1019)
-
-        vstar = comm.refresh(ns_projection.correct_velocity(ext, geom, pre, cfg, vstar, dp))
-        p = ns_projection.correct_pressure(ext, cfg, dp)
-        p = comm.refresh(torch.where(ext.is_solid, 0.0, p))  # comm Pressure
+        with named_scope("correct", dev):
+            if cfg.ns.use_incremental_pressure:
+                dp = ns_projection.zero_mean_pressure(dp, ext, group=group)
+            dp = comm.refresh(dp)  # comm DeltaP (pair_isph.cpp:1017-1019)
+            vstar = comm.refresh(ns_projection.correct_velocity(ext, geom, pre, cfg, vstar, dp))
+            p = ns_projection.correct_pressure(ext, cfg, dp)
+            p = comm.refresh(torch.where(ext.is_solid, 0.0, p))  # comm Pressure
         ext = ext.replace(vstar=vstar, dp=dp, p=p)
 
         # advance time (moves owned fluid only: ext.valid = owned)
-        ext = ns_projection.advance_time(ext, geom, pre, cfg, dom)
+        with named_scope("advance", dev):
+            ext = ns_projection.advance_time(ext, geom, pre, cfg, dom)
 
         new_cache = cache_out if cache_out is not None else state.amg_cache
         new_state = self._shrink(ext).replace(amg_cache=new_cache)
@@ -475,9 +498,10 @@ class ShardedSimulation:
         # particle shifting: refreshParticles -> computePre -> shift, the
         # vmax Allreduce in the group (pair_isph_corrected.cpp:1203-1262)
         if cfg.shift.enabled:
-            ext2, _, geom2, pre2, ovf2 = self._borders(new_state, my_lo, my_hi)
-            dr = shift_mod.compute_shift_vectors(ext2, geom2, cfg, group=group)
-            ext2 = shift_mod.apply_shift(ext2, geom2, pre2, cfg, dr, dom)
+            with named_scope("shift", dev):
+                ext2, _, geom2, pre2, ovf2 = self._borders(new_state, my_lo, my_hi, phases=False)
+                dr = shift_mod.compute_shift_vectors(ext2, geom2, cfg, group=group)
+                ext2 = shift_mod.apply_shift(ext2, geom2, pre2, cfg, dr, dom)
             new_state = self._shrink(ext2).replace(amg_cache=new_cache)
             shift_overflow = ovf2
             vfrac_own = pre2.vfrac[:n_loc]
@@ -523,28 +547,33 @@ class ShardedSimulation:
 
         # initial integrate: the BDF-extrapolated move of the owned particles
         # (FixISPH::initial_integrate -> advanceTime, fix_isph.cpp:110-126)
-        state, hist = ale.ale_advance(state, state.ale_hist, cfg, dom, order)
+        with named_scope("advance", dev):
+            state, hist = ale.ale_advance(state, state.ale_hist, cfg, dom, order)
         state = state.replace(ale_hist=hist)
         shift_overflow = torch.zeros((), dtype=torch.int32, device=dev)
         if cfg.shift.enabled:
             # FixISPH_Shift::initial_integrate under MPI: borders at the moved
             # positions, the shift of the owned fluid (xdot absorbs gamma/dt
             # dr), then the main borders below re-neighbor
-            ext0, _, geom0, _, shift_overflow = self._borders(state, my_lo, my_hi)
-            ext0 = ale.ale_apply_shift(ext0, hist, geom0, cfg, dom, order, group=group)
+            with named_scope("shift", dev):
+                ext0, _, geom0, _, shift_overflow = self._borders(state, my_lo, my_hi,
+                                                                  phases=False)
+                ext0 = ale.ale_apply_shift(ext0, hist, geom0, cfg, dom, order, group=group)
             state = state.replace(x=ext0.x[:, :n_loc].contiguous(),
                                   v=ext0.v[:, :n_loc].contiguous())
 
         ext, comm, geom, pre, bord_overflow = self._borders(state, my_lo, my_hi)
         ext = ext.replace(f=torch.zeros_like(ext.v))
         if self.sim.extra_force is not None:
-            ext = ext.replace(f=self.sim.extra_force(ext, dom))
+            with named_scope("extra_force", dev):
+                ext = ext.replace(f=self.sim.extra_force(ext, dom))
         # the BDF difference is read on owned rows only: the histories take
         # 2H dead halo slots
         hist_ext = _per_particle_hist(hist, lambda a: torch.cat(
             [a, torch.zeros(a.shape[:-1] + (2 * H,), dtype=a.dtype, device=dev)], dim=-1))
         # no amg_rebuild: the sharded ALE Poisson is Jacobi GMRES whatever
-        # cfg.solver.precond says, as in the JAX package
+        # cfg.solver.precond says, as in the JAX package; phases
+        # "mls_assembly", "poisson", "correct" and "helmholtz" are scoped inside
         ext, info = ale.ale_navier_stokes_step(
             ext, geom, pre, hist_ext, cfg, dom, order=order, basis_order=cfg.mls.basis_order,
             group=group, exchange=comm.refresh, ownedf=comm.ownedf)
@@ -591,7 +620,7 @@ class ShardedSimulation:
         ``amg = (x_wrapped_global, domain, cutoff)`` enables the distributed
         AMG preconditioner: slab-local smoothing with a halo refresh per
         sweep and the replicated coarse levels; else Jacobi."""
-        from isph_tpu_torch.solvers.amg import amg_from_cache, build_amg, cache_of
+        from isph_tpu_torch.solvers.amg import build_amg, max_age_apply
 
         sc = cfg.solver
         tol = max(sc.tol, 30.0 * float(torch.finfo(b.dtype).eps))
@@ -605,18 +634,15 @@ class ShardedSimulation:
         cache_out = None
         if amg is not None and sc.precond == "amg":
             x_pos, domain, cutoff = amg
-            hooks = dict(null_vec=null_vec, exchange=comm.refresh, owned=comm.ownedf,
-                         group=group,
+            hooks = dict(exchange=comm.refresh, owned=comm.ownedf, group=group,
                          fine_matvec=mv if comm.strip_rows is not None else None)
             if amg_rebuild is not None:
                 # max-age reuse; the rebuild decision rests on the replicated
                 # step counter, so every rank builds (and all-reduces) together
-                cache_out = amg_cache
-                if amg_rebuild or amg_cache is None:
-                    cache_out = cache_of(build_amg(A, x_pos, domain, cutoff, **hooks))
-                M = amg_from_cache(A, cache_out, **hooks).apply
+                M, cache_out = max_age_apply(A, amg_cache, amg_rebuild, amg, null_vec, **hooks)
             else:
-                M = build_amg(A, x_pos, domain, cutoff, **hooks).apply
+                with span("amg.build"):
+                    M = build_amg(A, x_pos, domain, cutoff, null_vec=null_vec, **hooks).apply
         else:
             diag_safe = torch.where(torch.abs(A.diag) > 0, A.diag, torch.ones_like(A.diag))
             ownedf = comm.ownedf
@@ -740,7 +766,14 @@ class ShardedSimulation:
         """Host loop with the discard-and-retry overflow policy of
         ``Simulation.run``: a step whose all-rank overflow count is positive
         is retried with grown shapes, at most three times in a row, on every
-        rank together (the count is all-reduced).  Returns (state, last aux)."""
+        rank together (the count is all-reduced).  Returns (state, last aux).
+
+        The retried step drops the state's AMG cache, so that it builds a
+        hierarchy for the grown shapes: the cache's fine level lives on the
+        extended slab, which the grown halo widens.  This is a deliberate
+        difference from the JAX package, whose ``run`` keeps a cache of the
+        old width and then fails (``tests/test_torch_sharded.py::
+        test_overflow_under_the_amg_cache_regrows_and_rebuilds``)."""
         ssim = self
         state = ssim.prepare(state)
         aux = None
@@ -757,6 +790,7 @@ class ShardedSimulation:
                         "repartition(state, domain, n_dev) and rebuild the "
                         "ShardedSimulation with its n_loc, or a larger migrate_cap")
                 ssim = ssim.with_larger_neighbors()
+                state = state.replace(amg_cache=None)
                 continue  # retry the same step with room for every pair
             state = new_state
             done += 1

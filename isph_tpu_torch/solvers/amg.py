@@ -568,15 +568,18 @@ def amg_from_cache(
 
 
 def max_age_apply(A: ELL, cache: Optional[AMGCache], rebuild: bool, at: Tuple,
-                  null_vec: Optional[torch.Tensor] = None) -> Tuple[Callable, AMGCache]:
+                  null_vec: Optional[torch.Tensor] = None,
+                  **hooks) -> Tuple[Callable, AMGCache]:
     """The max-age policy's preconditioner (solver_nox_stratimikos.h precond
     max-age): the hierarchy of ``A`` built anew at ``at`` = (positions,
     domain, cutoff) when ``rebuild`` is true or there is no ``cache`` yet,
     else ``cache``'s coarse levels with a fresh fine-level smoother.
-    Returns (the V-cycle's apply, the cache in use)."""
+    ``hooks`` are :func:`build_amg`'s distributed ones (``exchange``,
+    ``owned``, ``group``, ``fine_matvec``), handed to the build and the
+    refresh alike.  Returns (the V-cycle's apply, the cache in use)."""
     if rebuild or cache is None:
         x_pos, domain, cutoff = at
         with span("amg.build"):
-            cache = cache_of(build_amg(A, x_pos, domain, cutoff, null_vec=null_vec))
+            cache = cache_of(build_amg(A, x_pos, domain, cutoff, null_vec=null_vec, **hooks))
     with span("amg.refresh"):
-        return amg_from_cache(A, cache, null_vec=null_vec).apply, cache
+        return amg_from_cache(A, cache, null_vec=null_vec, **hooks).apply, cache

@@ -227,8 +227,10 @@ def gmres(
             qj, qj1 = c * rj + s * rj1, -s * rj + c * rj1
             hj = c * hcol[j] + s * hcol[j + 1]
             hcol[j] = hj
-            with span("host_read"):  # a Python scalar stored on the card synchronizes
-                hcol[j + 1] = 0.0
+            # zeroed on the device: a Python scalar stored into a card tensor
+            # is a host-to-device copy that synchronizes, and the host could
+            # then not run ahead of the card inside a block
+            hcol[j + 1:j + 2].zero_()
 
             # running residual |g_{j+1}| = beta |Q_new[j+1, 0]|
             conv = beta * torch.abs(qj1[0]) / bnorm <= tol

@@ -170,6 +170,27 @@ def test_span_records_nothing_without_a_profiler():
     assert ("amg.vcycle", False) in names
 
 
+def test_gmres_reads_the_host_once_a_block():
+    """One GMRES cycle reads the host before it starts, once per Arnoldi
+    block of five, once after the cycle and once for the count: no Arnoldi
+    iteration reads on its own, so on the card the host runs up to a block
+    ahead of the device."""
+    from isph_tpu_torch.solvers import krylov
+
+    n = 64
+    A = (torch.diag(torch.full((n,), 2.5, dtype=torch.float64))
+         - torch.diag(torch.ones(n - 1, dtype=torch.float64), 1)
+         - 0.8 * torch.diag(torch.ones(n - 1, dtype=torch.float64), -1))
+    b = torch.sin(torch.arange(n, dtype=torch.float64))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        res = krylov.gmres(lambda v: A @ v, b, tol=1e-10, restart=50)
+    events = prof.profiler.kineto_results.events()
+    reads = sum(1 for e in events if e.name() == "host_read")
+    iters = sum(1 for e in events if e.name() == "krylov.iter")
+    assert bool(res.converged) and int(res.iters) == iters > 5 and iters % 5 == 0
+    assert reads == 3 + iters // 5
+
+
 @pytest.mark.cuda
 def test_phase_ranges_and_syncs_on_the_card():
     """One traced TGV-64 AMG step in f32 on a CUDA device (the step that

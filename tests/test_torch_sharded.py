@@ -225,6 +225,82 @@ def test_overflow_regrows_in_lockstep(two_ranks):
             np.testing.assert_array_equal(a[0][f], b[0][f], err_msg=f)
 
 
+def _drifting_state():
+    """TGV-16 (h_factor 1.6) with a uniform drift of 0.06 along x added to
+    its velocity: lattice columns move towards the right face of each slab,
+    so a slab's right halo layer (three columns at the start) takes a
+    fourth a few steps in."""
+    sim, state = torch_ranks.tgv_variant(16, "amg_cache", h_factor=1.6)
+    v = state.v.clone()
+    v[0] += 0.06
+    return sim, state.replace(v=v)
+
+
+AMG_N_LOC, AMG_HALO = 192, 48
+
+
+@pytest.fixture(scope="module")
+def two_rank_amg():
+    """One 2-rank group: the overflow under the AMG cache, and one traced
+    step."""
+    sim, st = _drifting_state()
+    f = _fields(partition_state(st, sim.domain, 2, AMG_N_LOC))
+    plain = _fields(partition_state(torch_ranks.tgv_variant(16, "amg_cache", h_factor=1.6)[1],
+                                    sim.domain, 2, AMG_N_LOC))
+    return mesh.spawn(torch_ranks.several, 2, [
+        (torch_ranks.amg_regrowth, (f, 16, AMG_N_LOC, AMG_HALO, 32, 4)),
+        (torch_ranks.traced_step, (plain, 16, AMG_N_LOC, 96, 32))])
+
+
+def test_overflow_under_the_amg_cache_regrows_and_rebuilds(two_rank_amg):
+    """A halo that overflows a few steps into an AMG-cached run: the run
+    regrows its shapes, drops the cache built for the old extended slab,
+    finishes, and equals bit for bit the steps before the overflow followed
+    by a run built with the grown shapes from the state without its cache.
+    JAX's sharded ``run`` keeps the old cache and fails here (its
+    ``lax.cond`` of rebuild and reuse sees fine levels of two widths): a
+    deliberate difference."""
+    for r in two_rank_amg:
+        (got, fresh, calls), _ = r
+        halos = [h for h, _ in calls]
+        at = next(i for i, (_, ovf) in enumerate(calls) if ovf > 0)
+        assert at >= 1, calls  # the cache of the first step was in use
+        assert halos[:at + 1] == [AMG_HALO] * (at + 1) and halos[at + 1] > AMG_HALO, calls
+        assert len(calls) == 5 and all(ovf == 0 for _, ovf in calls[at + 1:]), calls
+        for k in ("x", "v", "p", "valid"):
+            np.testing.assert_array_equal(got[k], fresh[k], err_msg=k)
+
+
+def test_sharded_step_names_the_phases_and_the_collectives(two_rank_amg):
+    """Under a profiler the sharded step carries the one-device step's
+    phases, the AMG build and refresh spans of ``solvers/amg.max_age_apply``
+    (the first step of a cached run builds), one ``comm.allreduce`` span an
+    all-reduce and ``comm.ring`` spans around its ring hops."""
+    for r in two_rank_amg:
+        _, (names, allreduces) = r
+        for phase in ("neighbors", "geometry", "compute_pre", "helmholtz", "poisson",
+                      "correct", "advance", "amg.build", "amg.refresh"):
+            assert names.get(phase) == 1, (phase, names.get(phase))
+        assert names["comm.allreduce"] == allreduces > 0
+        assert names["comm.ring"] > 0
+
+
+@pytest.mark.parametrize("local, allowed, shares", [
+    # two NUMA nodes of two cards each: each card a half of its node
+    ([range(0, 16), range(0, 16), range(16, 32), range(16, 32)], range(32),
+     [range(0, 8), range(8, 16), range(16, 24), range(24, 32)]),
+    # nodes unknown: an even, disjoint share of every allowed CPU
+    ([(), (), (), ()], range(32), [range(0, 8), range(8, 16), range(16, 24), range(24, 32)]),
+    # a node that holds none of the allowed CPUs counts as all of them
+    ([range(64, 96), range(64, 96)], [2, 3, 5, 7], [[2, 3], [5, 7]]),
+    # fewer CPUs than cards: the cards take them in turn
+    ([(), (), (), ()], [0, 1], [[0], [1], [0], [1]]),
+])
+def test_cpu_share_splits_each_cards_node(local, allowed, shares):
+    assert [mesh.cpu_share([set(c) for c in local], allowed, i) for i in range(len(local))] \
+        == [set(s) for s in shares]
+
+
 VARIANTS = (  # (name, make_tgv kw, steps, opts)
     ("migration", {}, 6, {}),
     ("block", dict(h_factor=1.6), 2, {}),

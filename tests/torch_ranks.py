@@ -303,3 +303,54 @@ def several(group, calls):
     """Each ``(fn, args)`` of ``calls`` on this rank in turn (one group for
     several rank bodies); returns their results in order."""
     return [fn(group, *args) for fn, args in calls]
+
+
+def amg_regrowth(group, fields, n, n_loc, halo, mcap, nsteps):
+    """The AMG-cached TGV-``n`` run of the slab-blocked ``fields`` through
+    ``ShardedSimulation.run``, whose halo of ``halo`` slots overflows at a
+    later step, each call of the step's (halo, overflow) recorded; then the
+    same steps again by hand: the steps kept before the overflow with the
+    first shapes, the rest by a ``ShardedSimulation`` built with the grown
+    shapes from the state without its cache.  Returns (the run's fields,
+    the fresh run's, the calls' (halo, overflow))."""
+    sim, _ = tgv_variant(n, "amg_cache", h_factor=1.6)
+    ss = ShardedSimulation(sim=sim, group=group, n_loc=n_loc, halo=halo, migrate_cap=mcap,
+                           amg_cache_enabled=True)
+    st0 = slab(interop.state_from_numpy(fields, "cpu", torch.float64), group.rank, n_loc)
+    calls = []
+    plain = ShardedSimulation.step
+
+    def counted(self, s):
+        new, aux = plain(self, s)
+        calls.append((self.halo, int(aux.neighbor_overflow)))
+        return new, aux
+
+    ShardedSimulation.step = counted
+    try:
+        st, _ = ss.run(st0, nsteps)
+    finally:
+        ShardedSimulation.step = plain
+    at = next(i for i, (_, ovf) in enumerate(calls) if ovf > 0)
+    mid, _ = ss.run(st0, at)
+    fresh, _ = ss.with_larger_neighbors().run(mid.replace(amg_cache=None), nsteps - at)
+    return interop.state_to_numpy(st), interop.state_to_numpy(fresh), calls
+
+
+def traced_step(group, fields, n, n_loc, halo, mcap):
+    """One AMG-cached TGV-``n`` step of this rank's slab under
+    ``torch.profiler``: the names of its host ranges and spans with their
+    counts, and the group's all-reduce counter over the step."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    sim, _ = tgv_variant(n, "amg_cache", h_factor=1.6)
+    ss = ShardedSimulation(sim=sim, group=group, n_loc=n_loc, halo=halo, migrate_cap=mcap,
+                           amg_cache_enabled=True)
+    st = ss.prepare(slab(interop.state_from_numpy(fields, "cpu", torch.float64), group.rank,
+                         n_loc))
+    group.reset()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        ss.step(st)
+    names = Counter(e.name() for e in prof.profiler.kineto_results.events())
+    return dict(names), group.allreduces
